@@ -1,0 +1,217 @@
+// Forward-mode dual numbers and the scalar helpers that generated model code
+// calls (mpc_exp, mpc_max, mpc_where, ...).
+//
+// A Dual<T, NZ> carries a value and NZ tangents.  Instantiating a generated
+// model function with Dual arguments propagates NZ forward directions in
+// one pass, the arithmetic that jax.linearize replays in the TPU sweep
+// kernel (mpc_code_tpu/ops/sweep_pallas.py).  The helpers are overloaded
+// for plain float/double too, so the same generated function compiles for
+// values that carry no tangents (parameters, time, disturbances).
+//
+// max/min follow JAX at an exact tie: the derivative takes half of each
+// argument's tangent (jnp.maximum's balanced jvp), and NaN propagates.
+#pragma once
+
+#include <cmath>
+
+template <class T, int NZ>
+struct Dual {
+  T v;
+  T d[NZ];
+  __device__ __forceinline__ Dual() {}
+  __device__ __forceinline__ Dual(T value) : v(value) {
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) d[i] = T(0);
+  }
+};
+
+// ----- value access ------------------------------------------------------
+template <class T> __device__ __forceinline__ T mpc_val(T a) { return a; }
+template <class T, int NZ>
+__device__ __forceinline__ T mpc_val(const Dual<T, NZ>& a) { return a.v; }
+
+// ----- arithmetic --------------------------------------------------------
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator+(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] + b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator+(const Dual<T, NZ>& a, T b) {
+  Dual<T, NZ> r; r.v = a.v + b;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator+(T a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a + b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator-(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] - b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator-(const Dual<T, NZ>& a, T b) {
+  Dual<T, NZ> r; r.v = a.v - b;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator-(T a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a - b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = -b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator-(const Dual<T, NZ>& a) {
+  Dual<T, NZ> r; r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = -a.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator*(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] * b.v + a.v * b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator*(const Dual<T, NZ>& a, T b) {
+  Dual<T, NZ> r; r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] * b;
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator*(T a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a * b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a * b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator/(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a.v / b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator/(const Dual<T, NZ>& a, T b) {
+  Dual<T, NZ> r; r.v = a.v / b;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] / b;
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> operator/(T a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = a / b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = -r.v * b.d[i] / b.v;
+  return r;
+}
+
+// ----- elementary functions ----------------------------------------------
+__device__ __forceinline__ float mpc_exp(float a) { return expf(a); }
+__device__ __forceinline__ double mpc_exp(double a) { return exp(a); }
+__device__ __forceinline__ float mpc_log(float a) { return logf(a); }
+__device__ __forceinline__ double mpc_log(double a) { return log(a); }
+__device__ __forceinline__ float mpc_sqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ double mpc_sqrt(double a) { return sqrt(a); }
+__device__ __forceinline__ float mpc_pow(float a, float c) { return powf(a, c); }
+__device__ __forceinline__ double mpc_pow(double a, double c) { return pow(a, c); }
+
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_exp(const Dual<T, NZ>& a) {
+  Dual<T, NZ> r; r.v = mpc_exp(a.v);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = r.v * a.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_log(const Dual<T, NZ>& a) {
+  Dual<T, NZ> r; r.v = mpc_log(a.v);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] / a.v;
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_sqrt(const Dual<T, NZ>& a) {
+  Dual<T, NZ> r; r.v = mpc_sqrt(a.v);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] / (T(2) * r.v);
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_pow(const Dual<T, NZ>& a, T c) {
+  Dual<T, NZ> r; r.v = mpc_pow(a.v, c);
+  const T g = c * mpc_pow(a.v, c - T(1));
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = g * a.d[i];
+  return r;
+}
+
+// ----- max / min with JAX's tie rule and NaN propagation -----------------
+template <class T> __device__ __forceinline__ T mpc_max(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <class T> __device__ __forceinline__ T mpc_min(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_max(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = mpc_max(a.v, b.v);
+  const T wa = a.v > b.v ? T(1) : (a.v < b.v ? T(0) : T(0.5));
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = wa * a.d[i] + (T(1) - wa) * b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_max(const Dual<T, NZ>& a, T b) {
+  return mpc_max(a, Dual<T, NZ>(b));
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_max(T a, const Dual<T, NZ>& b) {
+  return mpc_max(Dual<T, NZ>(a), b);
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_min(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  Dual<T, NZ> r; r.v = mpc_min(a.v, b.v);
+  const T wa = a.v < b.v ? T(1) : (a.v > b.v ? T(0) : T(0.5));
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = wa * a.d[i] + (T(1) - wa) * b.d[i];
+  return r;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_min(const Dual<T, NZ>& a, T b) {
+  return mpc_min(a, Dual<T, NZ>(b));
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_min(T a, const Dual<T, NZ>& b) {
+  return mpc_min(Dual<T, NZ>(a), b);
+}
+
+// ----- select --------------------------------------------------------------
+template <class T> __device__ __forceinline__ T mpc_where(bool c, T a, T b) {
+  return c ? a : b;
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_where(bool c, const Dual<T, NZ>& a, T b) {
+  return c ? a : Dual<T, NZ>(b);
+}
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_where(bool c, T a, const Dual<T, NZ>& b) {
+  return c ? Dual<T, NZ>(a) : b;
+}

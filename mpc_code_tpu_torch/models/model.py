@@ -1,0 +1,62 @@
+"""Controller-model constructor (port of ``mpc_code_tpu/models/model.py``).
+
+Returns plain callables over torch tensors with the reference's positional
+signatures (``defF_model``, Utilities.py:102-245):
+
+- ``Fx_model(x, u, k, d, t, px) -> x_next``   (k = integration interval h)
+- ``Fy_model(x, u, d, t, py) -> y``
+
+The callables act on one point; a batch goes through ``torch.func.vmap``.
+This slice covers the NL-continuous model form (RK4 with Mx sub-steps and
+the optional saturation guard) with a user output map; the other forms
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from mpc_code_tpu_torch.config import ContinuousModel, MPCConfig
+from mpc_code_tpu_torch.ops.integrators import rk4, saturate
+
+
+class ModelFns(NamedTuple):
+    fx: Callable  # Fx_model(x, u, k, d, t, px)
+    fy: Callable  # Fy_model(x, u, d, t, py)
+
+
+def build_model(cfg: MPCConfig) -> ModelFns:
+    """Build (Fx_model, Fy_model) for a ``ContinuousModel`` config."""
+    m = cfg.model
+    if not isinstance(m, ContinuousModel):
+        raise NotImplementedError(
+            f"model form {type(m).__name__} is not ported yet (ROADMAP "
+            "Queue 1 items 19 and 24)")
+    if cfg.dist.offree == "lin" or cfg.StateFeedback or m.fy is None:
+        raise NotImplementedError(
+            "offree='lin', StateFeedback and C-matrix outputs are not ported "
+            "yet (ROADMAP Queue 1 item 24)")
+    lin_par = cfg.LinPar
+    user_fx, user_fy = m.fx, m.fy
+    lo, hi = m.clip_lo, m.clip_hi
+
+    def fx_eval(xx, tt, uu, dd, pp):
+        # ODE-input saturation (the reference's own stability guard
+        # pattern, Ex_NMPC_dis.py:75-77)
+        return user_fx(saturate(xx, lo, hi), uu, dd, tt, pp)
+
+    integ = rk4(fx_eval, m.Mx)
+
+    def fx(x, u, k, d, t, px):
+        out = integ(x, t, k, u, d, px)                     # Utilities.py:157-172
+        if lin_par:
+            out = out + px                                 # Utilities.py:180-183
+        return out
+
+    def fy(x, u, d, t, py):
+        out = user_fy(x, u, d, t, py)                      # Utilities.py:232-238
+        if lin_par:
+            out = out + py                                 # Utilities.py:240-243
+        return out
+
+    return ModelFns(fx=fx, fy=fy)

@@ -1,0 +1,665 @@
+"""Structure-exploiting interior-point solver for shooting OCPs (part 1).
+
+Port of ``mpc_code_tpu/solver/riccati.py`` for the configuration of the
+batched CSTR NMPC bench: plain continuous shooting with output bounds,
+the Gauss-Newton Hessian, the monotone barrier, the rollout-free adaptive
+step controller (``ls_mode='adaptive'``) and best-iterate bookkeeping.
+Every other configuration raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+Layout.  The JAX solver is written for one lane and batched with ``vmap``;
+here every solver function takes an explicit leading batch dimension B.
+The user's model and cost callables still act on one point, so the stage
+functions of ``StructuredOCP`` take one (state, input, stage-parameter)
+point and their derivatives come from ``torch.func`` (``grad``,
+``hessian``, ``jacfwd``) vmapped over the B*N (scenario, stage) points.
+
+Per iteration the solver runs two hand-written CUDA kernels on the card:
+the RK4 stage-Jacobian sweep (``ops/sweep_cuda.py``, through
+``StructuredOCP.stage_dyn_jac``) and the Riccati KKT solve
+(``solver/riccati_kernel.py``).  The rest is IPM algebra on whole tensors.
+
+The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
+freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
+false; the masked loop here does the same, so per-lane ``iters`` and
+``status`` match.  Deciding whether any lane is still active costs one
+host synchronisation per iteration.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, hessian, jacfwd, vmap
+
+from mpc_code_tpu_torch.config import ContinuousModel, MPCConfig, SolverOptions
+from mpc_code_tpu_torch.device import resolve_device
+from mpc_code_tpu_torch.models.model import ModelFns
+from mpc_code_tpu_torch.solver.nlp import (
+    STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED,
+)
+from mpc_code_tpu_torch.solver.riccati_kernel import riccati_kkt
+
+_TAU_MIN = 0.99
+_MAX_BACKTRACK = 20
+_KAPPA_EPS = 10.0
+_KAPPA_MU = 0.2
+_THETA_MU = 1.5
+
+# per-lane rank of each entry of the parameter dict p
+PARAM_NDIM = {"x0": 1, "xs": 1, "us": 1, "d": 1, "um1": 1, "t": 0,
+              "lam": 2, "px": 2, "py": 2}
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+@dataclass(frozen=True)
+class StructuredOCP:
+    """Stagewise OCP over the (scaled) augmented state xa.
+
+    ``cost`` and ``ineq`` act on one point ``(xa, u, pk)``, where
+    ``pk`` is one (scenario, stage) slice of ``stage_params(p, N)``;
+    ``cost_N`` on one ``(xa, pN)`` with ``pN = {"xs", "_sf"}``.
+    ``stage_dyn_jac`` is batched: ``(X (B,N,nxa), U (B,N,nu), p) ->
+    (dval, A, B)`` in scaled units through the CUDA sweep on the card.
+    """
+
+    N: int
+    nxa: int
+    nu: int
+    ni: int
+    cost: Callable
+    cost_N: Callable
+    ineq: Callable
+    lbi: np.ndarray
+    ubi: np.ndarray
+    lbx: np.ndarray
+    ubx: np.ndarray
+    lbu: np.ndarray
+    ubu: np.ndarray
+    x0_of_p: Callable
+    sxa: np.ndarray
+    su: np.ndarray
+    si: np.ndarray
+    stage_dyn_jac: Callable
+    device: torch.device
+    sweep: Optional[Callable] = None   # the RK4 stage-Jacobian sweep it runs
+
+
+class StructResult(NamedTuple):
+    X: torch.Tensor      # (B, N+1, nxa)
+    U: torch.Tensor      # (B, N, nu)
+    f: torch.Tensor
+    status: torch.Tensor
+    iters: torch.Tensor
+    kkt_err: torch.Tensor
+    feas_err: torch.Tensor
+    zl: torch.Tensor     # (B, N, nxa+nu+ni) lower-bound duals
+    zu: torch.Tensor
+    lam: torch.Tensor    # (B, N, nxa) defect multipliers
+    nus: torch.Tensor    # (B, N, ni) inequality multipliers
+    mu: torch.Tensor     # final barrier parameter
+    sf: torch.Tensor     # objective scaling the duals/mu are in
+
+
+def batch_params(p: dict, Bsz: int, dtype, device) -> dict:
+    """Parameter dict with a leading batch dimension on every entry.
+
+    Each entry of ``p`` ({x0, xs, us, d, um1, t, lam, px (N,npx),
+    py (N,npy)}, the JAX solver's parameter pytree) is given either for one
+    lane, and then shared by all B lanes, or with a leading B."""
+    out = {}
+    for k, v in p.items():
+        v = torch.as_tensor(v, dtype=dtype, device=device)
+        nd = PARAM_NDIM.get(k, v.dim())
+        if v.dim() == nd:
+            v = v.expand((Bsz,) + tuple(v.shape))
+        elif v.dim() != nd + 1 or v.shape[0] != Bsz:
+            raise ValueError(f"parameter {k!r} has shape {tuple(v.shape)}; "
+                             f"expected rank {nd} or ({Bsz}, ...)")
+        out[k] = v
+    return out
+
+
+def stage_params(p: dict, N: int) -> dict:
+    """One entry per (scenario, stage) point, flattened to B*N: the shared
+    per-lane data, ``px``/``py`` of that stage and ``py0`` (stage 0)."""
+    Bsz = p["x0"].shape[0]
+
+    def rep(v):
+        return v.unsqueeze(1).expand((Bsz, N) + tuple(v.shape[1:])).reshape(
+            (Bsz * N,) + tuple(v.shape[1:]))
+
+    pk = {k: rep(p[k]) for k in ("xs", "us", "d", "um1", "t", "lam")}
+    pk["px"] = p["px"].reshape(Bsz * N, -1)
+    pk["py"] = p["py"].reshape(Bsz * N, -1)
+    pk["py0"] = rep(p["py"][:, 0])
+    if "_sf" in p:
+        pk["_sf"] = rep(p["_sf"])
+    return pk
+
+
+def _t(a, like):
+    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
+                         device=None) -> StructuredOCP:
+    """Map the reference OCP (opt_dyn form) onto the stagewise structure.
+
+    Uses the parameter dict {x0, xs, us, d, um1, t, lam, px (N,npx),
+    py (N,npy)}.  Runs on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    b = cfg.bounds
+    if cfg.ContForm:
+        raise _todo("ContForm (continuous-quadrature stage cost)",
+                    "Queue 1 item 15")
+    if cfg.Collocation:
+        raise _todo("Collocation", "Queue 1 item 20")
+    if not isinstance(cfg.model, ContinuousModel):
+        raise _todo(f"the structured OCP for {type(cfg.model).__name__}",
+                    "Queue 1 items 19 and 24")
+    if cfg.slacks:
+        raise _todo("shared output slacks", "Queue 1 item 21")
+    if cfg.TermCons:
+        raise _todo("TermCons", "Queue 1 item 21")
+    if cfg.H_eq is not None or cfg.G_ineq is not None:
+        raise _todo("user stage constraints H_eq / G_ineq", "Queue 1 item 21")
+    if (b.Dumin is not None or b.Dumax is not None or cfg.DUForm
+            or cfg.DUFormEcon):
+        raise _todo("Delta-u bounds and costs (u_prev augmentation)",
+                    "Queue 1 item 21")
+    nx, nu, ny = cfg.nx, cfg.nu, cfg.ny
+    ymin = b.resolved("dyn", "ymin")
+    ymax = b.resolved("dyn", "ymax")
+    if ymin is None and ymax is None:
+        raise _todo("OCPs without output bounds (ni = 0)", "Queue 1 item 21")
+    xmin = b.resolved("dyn", "xmin")
+    xmax = b.resolved("dyn", "xmax")
+    umin = b.resolved("dyn", "umin")
+    umax = b.resolved("dyn", "umax")
+    nxa, ni = nx, ny
+    h = float(cfg.h)
+    qform = cfg.QForm
+
+    def y_of(x, u, pk):
+        return model.fy(x, u, pk["d"], pk["t"], pk["py"]) + pk["lam"] @ (u - pk["us"])
+
+    def raw_cost(x, u, pk):
+        yk = y_of(x, u, pk)
+        ys = model.fy(pk["xs"], pk["us"], pk["d"], pk["t"], pk["py0"])
+        dx, du, dy = x, u, yk
+        if qform:
+            dx = dx - pk["xs"]
+            du = du - pk["us"]
+            dy = dy - ys
+        return f_obj(dx, du, dy, pk["xs"], pk["us"], ys)
+
+    lbi = np.asarray(ymin, float).reshape(-1) if ymin is not None else np.full(ny, -np.inf)
+    ubi = np.asarray(ymax, float).reshape(-1) if ymax is not None else np.full(ny, np.inf)
+    lbx = np.asarray(xmin, float) if xmin is not None else np.full(nx, -np.inf)
+    ubx = np.asarray(xmax, float) if xmax is not None else np.full(nx, np.inf)
+    lbu = np.asarray(umin, float).reshape(-1) if umin is not None else np.full(nu, -np.inf)
+    ubu = np.asarray(umax, float).reshape(-1) if umax is not None else np.full(nu, np.inf)
+
+    # per-variable scaling from the box bounds: internally x~ = x / sxa
+    def _scales(lo, hi):
+        mag = np.maximum(np.abs(np.where(np.isfinite(lo), lo, 0.0)),
+                         np.abs(np.where(np.isfinite(hi), hi, 0.0)))
+        return np.where(mag > 1.0, mag, 1.0)
+
+    sxa, su, si = _scales(lbx, ubx), _scales(lbu, ubu), _scales(lbi, ubi)
+
+    def cost_s(xa, u, pk):
+        return raw_cost(_t(sxa, xa) * xa, _t(su, u) * u, pk)
+
+    def cost_N_s(xa, pN):
+        x = _t(sxa, xa) * xa
+        return vfin(x - pN["xs"] if qform else x, pN["xs"])
+
+    def ineq_s(xa, u, pk):
+        return y_of(_t(sxa, xa) * xa, _t(su, u) * u, pk) / _t(si, xa)
+
+    def x0_s(p):
+        return p["x0"] / _t(sxa, p["x0"])
+
+    from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
+
+    m = cfg.model
+    _ufx = m.fx
+
+    def _ode(xx, tt, uu, dd, pp):
+        return _ufx(xx, uu, dd, tt, pp)
+
+    sweep = rk4_stage_jac(_ode, m.Mx, clip_lo=m.clip_lo, clip_hi=m.clip_hi)
+    lin_par = cfg.LinPar
+
+    def stage_dyn_jac(Xs, Us, p):
+        s_x, s_u = _t(sxa, Xs), _t(su, Us)
+        Bsz = Xs.shape[0]
+        hb = torch.full((Bsz,), h, dtype=Xs.dtype, device=Xs.device)
+        xf, Jx, Ju = sweep(Xs * s_x, Us * s_u, p["px"], p["t"], hb, p["d"])
+        if lin_par:
+            xf = xf + p["px"]
+        dval = xf / s_x
+        A = Jx * (s_x[None, :] / s_x[:, None])
+        Bm = Ju * (s_u[None, :] / s_x[:, None])
+        return dval, A, Bm
+
+    return StructuredOCP(N=cfg.N, nxa=nxa, nu=nu, ni=ni, cost=cost_s,
+                         cost_N=cost_N_s, ineq=ineq_s,
+                         lbi=lbi / si, ubi=ubi / si, lbx=lbx / sxa, ubx=ubx / sxa,
+                         lbu=lbu / su, ubu=ubu / su, x0_of_p=x0_s,
+                         sxa=sxa, su=su, si=si, stage_dyn_jac=stage_dyn_jac,
+                         device=dev, sweep=sweep)
+
+
+def make_stage_derivs(s: StructuredOCP) -> Callable:
+    """Per-point derivative sweep ``(z (nz,), pk) -> (H, gc, E, ival)``: the
+    Gauss-Newton cost Hessian and gradient (``pk["_sf"]`` scales the
+    objective) and the inequality Jacobian with its value — the JAX
+    ``make_stage_derivs(s, 'gauss_newton', skip_dyn=True)``.  The dynamics
+    value and Jacobians come from ``s.stage_dyn_jac`` (the CUDA sweep).
+    Batch it with ``torch.func.vmap`` over (scenario, stage) points."""
+    nxa = s.nxa
+
+    def c_of_z(zz, pk):
+        return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
+
+    def ineq_aux(zz, pk):
+        v = s.ineq(zz[:nxa], zz[nxa:], pk)
+        return v, v
+
+    def stage_derivs(z, pk):
+        H = hessian(c_of_z)(z, pk)
+        gc = grad(c_of_z)(z, pk)
+        E, ival = jacfwd(ineq_aux, has_aux=True)(z, pk)
+        return H, gc, E, ival
+
+    return stage_derivs
+
+
+def _amax0(a):
+    """Per-lane max over all trailing dims, with 0 included (jnp ``initial=0``)."""
+    flat = a.flatten(1)
+    if flat.shape[1] == 0:
+        return torch.zeros(a.shape[0], dtype=a.dtype, device=a.device)
+    return torch.maximum(flat.amax(1), torch.zeros((), dtype=a.dtype, device=a.device))
+
+
+def _amax(a):
+    return a.flatten(1).amax(1)
+
+
+def _amin(a):
+    return a.flatten(1).amin(1)
+
+
+def _lane(v, like):
+    """(B,) per-lane value broadcast against a (B, ...) tensor."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+def _nan0(a):
+    return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions(),
+                           parallel: bool = False) -> Callable:
+    """Build ``solve(p, X0, U0, max_iter=None) -> StructResult`` for a batch.
+
+    X0 (B, N+1, nxa), U0 (B, N, nu) warm starts in user units; X0[:, 0] is
+    overwritten by the pinned initial state from p.  ``max_iter`` overrides
+    ``opts.max_iter`` per call (pass-1 cap and rescue share one solver)."""
+    if parallel:
+        raise _todo("the associative-scan Riccati (parallel=True)",
+                    "Queue 1 item 21")
+    if opts.mu_strategy != "monotone":
+        raise _todo(f"mu_strategy={opts.mu_strategy!r}", "Queue 1 item 21")
+    if opts.ls_mode != "adaptive":
+        raise _todo(f"ls_mode={opts.ls_mode!r}", "Queue 1 item 21")
+    if opts.hessian != "gauss_newton":
+        raise _todo("hessian='exact'", "Queue 1 item 21")
+    if opts.ls_parallel:
+        raise _todo("ls_parallel", "Queue 1 item 21")
+    if int(opts.sweep_every) > 1:
+        raise _todo("sweep_every > 1", "Queue 1 item 21")
+    if opts.dual_init != "zero":
+        raise _todo(f"dual_init={opts.dual_init!r}", "Queue 1 item 21")
+    if opts.debug:
+        raise _todo("debug printing", "Queue 1 item 29")
+
+    N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
+    nz = nxa + nu
+    v_stage = vmap(make_stage_derivs(s))
+
+    def _cN(xx, pN):
+        return pN["_sf"] * s.cost_N(xx, pN)
+
+    def _cstage(zz, pk):
+        return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
+
+    v_cost = vmap(_cstage)
+    v_grad_c0 = vmap(grad(lambda zz, pk: s.cost(zz[:nxa], zz[nxa:], pk)))
+    v_cost_N = vmap(_cN)
+    v_grad_N = vmap(grad(_cN))
+    v_hess_N = vmap(hessian(_cN))
+    v_grad_N0 = vmap(grad(lambda xx, pN: s.cost_N(xx, pN)))
+    v_ineq = vmap(lambda zz, pk: s.ineq(zz[:nxa], zz[nxa:], pk))
+
+    def _mdiv(num, den, mask):
+        return torch.where(mask, num / torch.where(mask, den, torch.ones_like(den)),
+                           torch.zeros_like(num))
+
+    def solve(p, X0, U0, max_iter=None, ws=None) -> StructResult:
+        if ws is not None:
+            raise _todo("the cross-solve warm start ws=", "Queue 1 item 13")
+        dev = s.device
+        X0 = torch.as_tensor(X0, device=dev)
+        U0 = torch.as_tensor(U0, device=dev)
+        dtype = torch.float64 if U0.dtype == torch.float64 else torch.float32
+        X0, U0 = X0.to(dtype), U0.to(dtype)
+        Bsz = X0.shape[0]
+        L = Bsz * N
+        f32 = dtype == torch.float32
+        tiny = 1e-30 if f32 else 1e-300
+        kw = dict(dtype=dtype, device=dev)
+        inf = torch.tensor(float("inf"), **kw)
+
+        def T(a):
+            return torch.as_tensor(np.asarray(a, float), **kw)
+
+        p = batch_params(p, Bsz, dtype, dev)
+        lbx, ubx, lbu, ubu, lbi, ubi = (T(s.lbx), T(s.ubx), T(s.lbu), T(s.ubu),
+                                        T(s.lbi), T(s.ubi))
+        INF = 1e18
+        hlx, hux, hlu, huu, hli, hui = (lbx > -INF, ubx < INF, lbu > -INF,
+                                        ubu < INF, lbi > -INF, ubi < INF)
+        lbz = torch.cat([lbx, lbu, lbi])
+        ubz = torch.cat([ubx, ubu, ubi])
+        hlz, huz = lbz > -INF, ubz < INF
+        eye_nz = torch.eye(nz, **kw)
+        eye_x = torch.eye(nxa, **kw)
+
+        def mkZ(X_, U_, S_):
+            return torch.cat([X_[:, 1:], U_, S_], dim=-1)
+
+        x0a = s.x0_of_p(p)
+        mu0 = torch.full((Bsz,), opts.mu_init, **kw)
+        sxa_t, su_t = T(s.sxa), T(s.su)
+
+        def push(z, lb, ub, hl, hu):
+            pl = torch.minimum(1e-2 * torch.clamp(lb.abs(), min=1.0),
+                               1e-2 * torch.where(hu, ub - lb, inf))
+            pu = torch.minimum(1e-2 * torch.clamp(ub.abs(), min=1.0),
+                               1e-2 * torch.where(hl, ub - lb, inf))
+            zlo = torch.where(hl, lb + pl, -inf)
+            zhi = torch.where(hu, ub - pu, inf)
+            return torch.minimum(torch.maximum(z, zlo), zhi)
+
+        # warm starts arrive in user units; work internally in scaled units
+        X_init = _nan0(X0) / sxa_t
+        X_init = torch.cat([x0a[:, None], push(X_init[:, 1:], lbx, ubx, hlx, hux)],
+                           dim=1)
+        U_init = push(_nan0(U0) / su_t, lbu, ubu, hlu, huu)
+
+        # gradient-based objective scaling (IPOPT gmax=100 analog)
+        pk = stage_params(p, N)
+        pN = {"xs": p["xs"]}
+        Zs0 = torch.cat([X_init[:, :N], U_init], dim=-1).reshape(L, nz)
+        g0 = v_grad_c0(Zs0, pk)
+        gN0 = v_grad_N0(X_init[:, N], pN)
+        gmax0 = torch.maximum(_amax0(g0.reshape(Bsz, -1).abs()), _amax0(gN0.abs()))
+        sf = torch.clamp(100.0 / torch.clamp(gmax0, min=1e-8), max=1.0)
+        p["_sf"] = sf
+        pk["_sf"] = sf.repeat_interleave(N)
+        pN["_sf"] = sf
+
+        S_init = push(v_ineq(Zs0, pk).reshape(Bsz, N, ni), lbi, ubi, hli, hui)
+
+        def dual_init(z, lb, ub, hl, hu):
+            m0 = _lane(mu0, z)
+            one = torch.ones_like(z)
+            zl = torch.where(hl, torch.clamp(m0 / torch.where(hl, z - lb, one),
+                                             1e-8, 1e8), 0.0)
+            zu = torch.where(hu, torch.clamp(m0 / torch.where(hu, ub - z, one),
+                                             1e-8, 1e8), 0.0)
+            return zl, zu
+
+        zl0, zu0 = dual_init(mkZ(X_init, U_init, S_init), lbz, ubz, hlz, huz)
+        full = lambda v: torch.full((Bsz,), v, **kw)  # noqa: E731
+        st = dict(
+            X=X_init, U=U_init, S=S_init,
+            lam=torch.zeros((Bsz, N, nxa), **kw),
+            nus=torch.zeros((Bsz, N, ni), **kw),
+            zl=zl0, zu=zu0, mu=mu0, nu_pen=full(1.0), delta=full(0.0),
+            it=torch.zeros(Bsz, dtype=torch.int32, device=dev),
+            done=torch.zeros(Bsz, dtype=torch.bool, device=dev),
+            kkt0=full(float("inf")), feas=full(float("inf")),
+            psi_prev=full(float("inf")), acap=full(1.0),
+            bX=X_init, bU=U_init, bS=S_init,
+            bkkt=full(float("inf")), bfeas=full(float("inf")),
+        )
+
+        def total_cost(X, U):
+            Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
+            return v_cost(Zs, pk).reshape(Bsz, N).sum(1) + v_cost_N(X[:, N], pN)
+
+        def bar_of(Z):
+            one = torch.ones_like(Z)
+            tl = torch.where(hlz, torch.log(torch.clamp(torch.where(hlz, Z - lbz, one),
+                                                        min=tiny)), 0.0)
+            tu = torch.where(huz, torch.log(torch.clamp(torch.where(huz, ubz - Z, one),
+                                                        min=tiny)), 0.0)
+            return tl.flatten(1).sum(1) + tu.flatten(1).sum(1)
+
+        def sweep(st):
+            X, U = st["X"], st["U"]
+            Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
+            H, gc, E, ival = v_stage(Zs, pk)
+            dval, A, Bm = s.stage_dyn_jac(X[:, :N], U, p)
+            return (H.reshape(Bsz, N, nz, nz), gc.reshape(Bsz, N, nz),
+                    A, Bm, E.reshape(Bsz, N, ni, nz), ival.reshape(Bsz, N, ni),
+                    dval)
+
+        def ipm_step(st, H, gc, A, Bm, E, ival, dval):
+            X, U, S = st["X"], st["U"], st["S"]
+            lam, nus, zl, zu = st["lam"], st["nus"], st["zl"], st["zu"]
+            mu_c = st["mu"]
+            Z = mkZ(X, U, S)
+            r_d = dval - X[:, 1:]
+            r_i = ival - S
+
+            # KKT errors at the current point from the stage data
+            AtL = torch.einsum("bkai,bka->bki", A, lam)
+            BtL = torch.einsum("bkai,bka->bki", Bm, lam)
+            EtZ = torch.einsum("bkia,bki->bka", E, nus)
+            gx_full = gc[..., :nxa] + AtL + EtZ[..., :nxa]
+            gu_full = gc[..., nxa:] + BtL + EtZ[..., nxa:]
+            gradN = v_grad_N(X[:, N], pN)
+            rx = torch.cat([gx_full[:, 1:] - lam[:, :N - 1],
+                            (gradN - lam[:, N - 1])[:, None]], dim=1)
+            stat_z = torch.cat([rx, gu_full, -nus], dim=-1) - (zl - zu)
+
+            cl_c = (Z - lbz) * zl
+            cu_c = (ubz - Z) * zu
+            cmax_all = torch.maximum(_amax(torch.where(hlz, cl_c, -inf)),
+                                     _amax(torch.where(huz, cu_c, -inf)))
+            cmin_all = torch.minimum(_amin(torch.where(hlz, cl_c, inf)),
+                                     _amin(torch.where(huz, cu_c, inf)))
+            e_stat = _amax0(stat_z.abs())
+            e_stat = torch.where(torch.isnan(e_stat), inf, e_stat)
+            e_feas = torch.maximum(_amax0(r_d.abs()), _amax0(r_i.abs()))
+            e_feas = torch.where(torch.isnan(e_feas), inf, e_feas)
+            scale = torch.clamp((lam.abs().flatten(1).sum(1)
+                                 + nus.abs().flatten(1).sum(1)
+                                 + (zl + zu).flatten(1).sum(1))
+                                / (N * (nz + ni) + nxa + 1.0), min=100.0) / 100.0
+
+            def kkt_at(mu_v):
+                e_comp = torch.clamp(torch.maximum(cmax_all - mu_v, mu_v - cmin_all),
+                                     min=0.0)
+                e = torch.maximum(e_stat / scale,
+                                  torch.maximum(e_feas, e_comp / scale))
+                return torch.where(torch.isnan(e), inf, e)
+
+            e_mu = kkt_at(mu_c)
+            e_0 = kkt_at(torch.zeros_like(mu_c))
+            feas = e_feas
+            done_now = e_0 <= opts.tol
+            if opts.track_best:
+                better = e_0 < st["bkkt"]
+                bX_n = torch.where(_lane(better, X), X, st["bX"])
+                bU_n = torch.where(_lane(better, U), U, st["bU"])
+                bS_n = torch.where(_lane(better, S), S, st["bS"])
+                bkkt_n = torch.where(better, e_0, st["bkkt"])
+                bfeas_n = torch.where(better, feas, st["bfeas"])
+            else:
+                bX_n, bU_n, bS_n = st["bX"], st["bU"], st["bS"]
+                bkkt_n, bfeas_n = st["bkkt"], st["bfeas"]
+            mu = torch.where(e_mu <= _KAPPA_EPS * mu_c,
+                             torch.clamp(torch.minimum(_KAPPA_MU * mu_c,
+                                                       mu_c ** _THETA_MU),
+                                         min=opts.tol / 10.0),
+                             mu_c)
+            mu_z = _lane(mu, Z)
+
+            # barrier sigmas and gradient on the merged Z layout
+            sigZ = _mdiv(zl, Z - lbz, hlz) + _mdiv(zu, ubz - Z, huz)
+            sigX_stage = torch.cat([torch.zeros((Bsz, 1, nxa), **kw),
+                                    sigZ[:, :N - 1, :nxa]], dim=1)
+            sigX_term = sigZ[:, N - 1, :nxa]
+            sigU = sigZ[..., nxa:nxa + nu]
+            sigS = torch.clamp(sigZ[..., nxa + nu:], min=1e-12)
+
+            Hs = H + torch.einsum("bkia,bki,bkic->bkac", E, sigS, E)
+            Hs = Hs + eye_nz * torch.cat([sigX_stage, sigU], dim=-1)[:, :, None, :]
+            PN_h = v_hess_N(X[:, N], pN) + torch.diag_embed(sigX_term)
+            pN_cost = gradN
+            Hs = Hs + st["delta"][:, None, None, None] * eye_nz
+            PN_h = PN_h + st["delta"][:, None, None] * eye_x
+
+            one = torch.ones_like(Z)
+            bgZ = _mdiv(mu_z * one, Z - lbz, hlz) - _mdiv(mu_z * one, ubz - Z, huz)
+            bgS = bgZ[..., nxa + nu:]
+
+            # one KKT solve
+            g_extra = torch.einsum("bkia,bki->bka", E, sigS * r_i - bgS)
+            bg_q = torch.cat([torch.cat([torch.zeros((Bsz, 1, nxa), **kw),
+                                         bgZ[:, :N - 1, :nxa]], dim=1),
+                              bgZ[..., nxa:nxa + nu]], dim=-1)
+            q = gc + g_extra - bg_q
+            pN_g = pN_cost - bgZ[:, N - 1, :nxa]
+            solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
+                Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw),
+                nxa=nxa, nu=nu)
+            dX, dU = _nan0(dX), _nan0(dU)
+            dS = torch.einsum("bkia,bka->bki", E,
+                              torch.cat([dX[:, :N], dU], dim=-1)) + r_i
+            dnu = _nan0(sigS * dS - (nus + bgS))
+            lam_new = _nan0(torch.einsum("bkij,bkj->bki", P_seq, dX[:, 1:]) + p_seq)
+            lam_new = torch.where(_lane(solvable, lam_new), lam_new, lam)
+            dlam = lam_new - lam
+
+            # fraction to boundary + adaptive step controller
+            tau = torch.clamp(1.0 - mu, min=_TAU_MIN)
+            tau_z = _lane(tau, Z)
+            dZ = torch.cat([dX[:, 1:], dU, dS], dim=-1)
+            neg, pos = dZ < 0, dZ > 0
+            al = torch.where(hlz & neg, -tau_z * (Z - lbz)
+                             / torch.where(neg, dZ, -one), inf)
+            au = torch.where(huz & pos, tau_z * (ubz - Z)
+                             / torch.where(pos, dZ, one), inf)
+            alpha_max = torch.clamp(torch.minimum(_amin(al), _amin(au)), max=1.0)
+
+            dzl = torch.where(hlz, -zl + _mdiv(mu_z * one - zl * dZ, Z - lbz, hlz), 0.0)
+            dzu = torch.where(huz, -zu + _mdiv(mu_z * one + zu * dZ, ubz - Z, huz), 0.0)
+
+            def ftb_dual(zv, dzv):
+                n_ = dzv < 0
+                return torch.where(n_, -tau_z * zv / torch.where(n_, dzv, -one), inf)
+
+            ad = torch.clamp(torch.minimum(_amin(ftb_dual(zl, dzl)),
+                                           _amin(ftb_dual(zu, dzu))), max=1.0)
+
+            c_norm = r_d.abs().flatten(1).sum(1) + r_i.abs().flatten(1).sum(1)
+            lam_inf = torch.maximum(_amax0(lam_new.abs()), _amax0((nus + dnu).abs()))
+            nu_pen = torch.maximum(1.5 * lam_inf + 1e-4, 0.5 * st["nu_pen"])
+            cost0 = total_cost(X, U)
+            psi0 = cost0 - mu * bar_of(Z) + nu_pen * c_norm
+            slack_tol = 10.0 * torch.finfo(dtype).eps * (psi0.abs() + 1.0)
+            psi0_c = torch.where(torch.isnan(psi0), inf, psi0)
+            increased = (~torch.isfinite(psi0_c)) | (psi0_c > st["psi_prev"] + slack_tol)
+            acap_n = torch.where(increased,
+                                 torch.clamp(st["acap"] * 0.25, min=0.5 ** _MAX_BACKTRACK),
+                                 torch.ones_like(psi0))
+            alpha = torch.where(solvable, alpha_max * acap_n, torch.zeros_like(psi0))
+            delta = st["delta"]
+            delta_n = torch.where(solvable,
+                                  torch.clamp(delta / 2.0, min=0.0) * (delta > 1e-9),
+                                  torch.clamp(delta * 10.0, min=1e-5))
+
+            a_x = _lane(alpha, X)
+            X_n = torch.cat([X[:, :1], X[:, 1:] + a_x * dX[:, 1:]], dim=1)
+            U_n = U + a_x * dU
+            S_n = S + a_x * dS
+            Z_n = Z + a_x * dZ
+            ks_sig = 1e6 if f32 else 1e10
+            gl_n = torch.clamp(torch.where(hlz, Z_n - lbz, one), min=tiny)
+            gu_n = torch.clamp(torch.where(huz, ubz - Z_n, one), min=tiny)
+            ad_z = _lane(ad, Z)
+            zl_n = torch.where(hlz, torch.minimum(torch.maximum(
+                zl + ad_z * dzl, mu_z / (ks_sig * gl_n)), ks_sig * mu_z / gl_n), 0.0)
+            zu_n = torch.where(huz, torch.minimum(torch.maximum(
+                zu + ad_z * dzu, mu_z / (ks_sig * gu_n)), ks_sig * mu_z / gu_n), 0.0)
+
+            new = dict(X=X_n, U=U_n, S=S_n, lam=lam + a_x * dlam,
+                       nus=nus + a_x * dnu, zl=zl_n, zu=zu_n, mu=mu,
+                       nu_pen=nu_pen, delta=delta_n, it=st["it"] + 1,
+                       done=torch.zeros_like(st["done"]), kkt0=e_0, feas=feas,
+                       psi_prev=psi0_c, acap=acap_n,
+                       bX=bX_n, bU=bU_n, bS=bS_n, bkkt=bkkt_n, bfeas=bfeas_n)
+            # a lane that converged at this point keeps its iterate
+            stay = dict(st, done=torch.ones_like(st["done"]), kkt0=e_0, feas=feas,
+                        bX=bX_n, bU=bU_n, bS=bS_n, bkkt=bkkt_n, bfeas=bfeas_n)
+            return {k: torch.where(_lane(done_now, new[k]), stay[k], new[k])
+                    for k in new}
+
+        it_cap = opts.max_iter if max_iter is None else int(max_iter)
+        while True:
+            active = (~st["done"]) & (st["it"] < it_cap)
+            if not bool(active.any()):       # one host sync per iteration
+                break
+            cand = ipm_step(st, *sweep(st))
+            st = {k: torch.where(_lane(active, v), cand[k], v)
+                  for k, v in st.items()}
+
+        # fall back to the best-KKT iterate only when the final one is
+        # materially worse (10x margin)
+        if opts.track_best:
+            use_best = st["bkkt"] < 0.1 * st["kkt0"]
+        else:
+            use_best = torch.zeros_like(st["done"])
+        X_fin = torch.where(_lane(use_best, st["X"]), st["bX"], st["X"])
+        U_fin = torch.where(_lane(use_best, st["U"]), st["bU"], st["U"])
+        kkt_fin = torch.where(use_best, st["bkkt"], st["kkt0"])
+        feas_fin = torch.where(use_best, st["bfeas"], st["feas"])
+        status = torch.where(
+            kkt_fin <= opts.tol, STATUS_SOLVED,
+            torch.where(feas_fin <= opts.constr_viol_tol, STATUS_ACCEPTABLE,
+                        STATUS_INFEASIBLE)).to(torch.int32)
+        pk1 = dict(pk, _sf=torch.ones(L, **kw))
+        pN1 = dict(pN, _sf=torch.ones(Bsz, **kw))
+        Zf = torch.cat([X_fin[:, :N], U_fin], dim=-1).reshape(L, nz)
+        f_val = v_cost(Zf, pk1).reshape(Bsz, N).sum(1) + v_cost_N(X_fin[:, N], pN1)
+        return StructResult(X=X_fin * sxa_t, U=U_fin * su_t, f=f_val,
+                            status=status, iters=st["it"], kkt_err=kkt_fin,
+                            feas_err=feas_fin, zl=st["zl"], zu=st["zu"],
+                            lam=st["lam"], nus=st["nus"], mu=st["mu"], sf=sf)
+
+    return solve

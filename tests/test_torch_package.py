@@ -1,0 +1,136 @@
+"""Package-level checks of the PyTorch port: no JAX imports, the same
+config dataclasses as the JAX package, state carried across by
+``convert``, and entry points that run on the card unless asked not to."""
+
+import ast
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "mpc_code_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "mpc_code_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_never_imports_jax():
+    files = _port_files()
+    assert len(files) > 10
+    bad = []
+    for fn in files:
+        with open(fn) as f:
+            tree = ast.parse(f.read(), fn)
+        for mod in _imported(tree):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                bad.append((os.path.relpath(fn, ROOT), mod))
+    assert not bad, bad
+
+
+def _dataclasses(mod):
+    return {n: c for n, c in vars(mod).items()
+            if isinstance(c, type) and dataclasses.is_dataclass(c)
+            and c.__module__ == mod.__name__}
+
+
+def test_config_field_sets_equal():
+    import mpc_code_tpu.config as jc
+    import mpc_code_tpu_torch.config as pc
+
+    jd, pd = _dataclasses(jc), _dataclasses(pc)
+    assert set(jd) == set(pd)
+    for name in jd:
+        assert ([f.name for f in dataclasses.fields(jd[name])]
+                == [f.name for f in dataclasses.fields(pd[name])]), name
+
+
+def _walk(a, b, path=""):
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            yield from _walk(getattr(a, f.name), getattr(b, f.name),
+                             f"{path}.{f.name}")
+    else:
+        yield path, a, b
+
+
+def test_convert_round_trips_config_arrays():
+    from mpc_code_tpu.examples.nmpc import make_config as j_make
+    from mpc_code_tpu_torch.convert import config_from_numpy
+    from mpc_code_tpu_torch.examples.nmpc import make_config as p_make
+
+    jcfg = j_make().replace(N=7, h=0.25)
+    base = p_make()
+    pcfg = config_from_numpy(jcfg, base)
+    n_arrays = 0
+    for path, a, b in _walk(jcfg, pcfg):
+        if callable(a) and not isinstance(a, np.ndarray):
+            assert b is not None and b.__module__.startswith("mpc_code_tpu_torch"), path
+        elif isinstance(a, (np.ndarray, list)) or hasattr(a, "__array__"):
+            np.testing.assert_array_equal(np.asarray(a), b, err_msg=path)
+            assert isinstance(b, np.ndarray)
+            n_arrays += 1
+        else:
+            assert a == b, path
+    assert n_arrays >= 10
+    assert pcfg.N == 7 and pcfg.h == 0.25 and pcfg.QForm
+
+
+def test_entry_points_default_to_the_card():
+    from mpc_code_tpu_torch.device import resolve_device
+    from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.models import (
+        build_model, build_stage_cost, build_terminal_cost,
+    )
+    from mpc_code_tpu_torch.solver.riccati import build_structured_ocp
+
+    cfg = make_config()
+    args = (cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
+            build_terminal_cost(cfg))
+    if torch.cuda.is_available():
+        assert build_structured_ocp(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_structured_ocp(*args)
+    assert build_structured_ocp(*args, device="cpu").device.type == "cpu"
+
+
+def test_unported_options_raise_with_roadmap_item():
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.models import (
+        build_model, build_stage_cost, build_terminal_cost,
+    )
+    from mpc_code_tpu_torch.solver.riccati import (
+        build_structured_ocp, make_structured_solver,
+    )
+
+    cfg = make_config()
+    args = (build_model(cfg), build_stage_cost(cfg.stage_cost),
+            build_terminal_cost(cfg))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_structured_ocp(cfg.replace(Collocation=True), *args, device="cpu")
+    socp = build_structured_ocp(cfg, *args, device="cpu")
+    for kw in (dict(hessian="exact"), dict(mu_strategy="mehrotra"),
+               dict(hessian="gauss_newton", ls_mode="backtrack")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_structured_solver(socp, SolverOptions(**kw))
