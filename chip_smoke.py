@@ -8,20 +8,31 @@ NVIDIA H100 and the CUDA toolkit:
 
 It never imports JAX or the JAX package.  Phases:
 
-1. the card's name and power limit (nvidia-smi), then builds both CUDA
-   kernels from ``mpc_code_tpu_torch/csrc`` in parallel;
-2. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, in f64 and f32, with the normalised error
-   ``|a-b|/(1+|b|)`` and the kernel and plain times (CUDA events);
-3. slice phase: the bench workload through the port's entry points —
+1. the card's name and power limit (nvidia-smi), then builds the CUDA
+   kernels of both paths from ``mpc_code_tpu_torch/csrc``, one ``nvcc``
+   each, all started together;
+2. kernel phases: each kernel against its plain PyTorch version on the
+   card at its path's shapes, in f64 and f32, with the normalised error
+   ``|a-b|/(1+|b|)`` and the kernel and plain times (CUDA events): the RK4
+   stage-Jacobian sweep and the Riccati KKT solve at the CSTR path's
+   shapes, the ContForm joint sweep and the Riccati KKT solve at the
+   ENMPC path's (N=25, nxa=2, nu=1);
+3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
    draws, pass-1 cap 12, one combined steady/coolhold rescue at 2x512
-   lanes with cap 40 — with both launch counters read around the timed run;
+   lanes with cap 40 — with the launch counters read around the timed run;
    the failing lanes are checked against ``fixtures/tail_verdict.json``;
    64 lanes are cross-checked against the port's plain path on the CPU in
    f64: the card's f64 run, the main run's f32 answers and the plain path
    in f32 on the CPU;
-4. one ``{"kernels": [...]}`` line, and as the last line
+4. ENMPC slice phase: ``examples/enmpc_workload.py`` — per lane the
+   economic target by the dense IPM, then a cold solve of the ContForm OCP
+   at it — B=16384, N=25, Mx=10, seed-0 draws, f32, with the launch
+   counters read around the timed run (each kernel once per OCP
+   iteration); every failing lane re-solved on the CPU in f64 and
+   classified; 64 lanes cross-checked as in phase 3, with the Riccati
+   ``ok`` flags of every iteration recorded in each run;
+5. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -42,11 +53,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-B = 16384                          # lanes of the bench workload
+B = 16384                          # lanes of the bench and ENMPC workloads
 N_CHECK = 64                       # lanes cross-checked on the CPU in f64
 
 TOL_F64 = 1e-10
-TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3}
+TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e-4}
 # Converged U against the CPU f64 path, over the input box.  Two f64 runs
 # differ only in rounding order and stop on the same iterate: U_TOL.  An f32
 # run measures its KKT error with f32 rounding, and near the 1e-3 tolerance
@@ -58,6 +69,17 @@ TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3}
 U_TOL = 1e-2
 U_TOL_MOVED = 3e-2
 OK_FRACTION_MIN = 0.998
+# ENMPC: converged U against the CPU f64 path over the input box [0, 2].
+# Measured on the 64 lanes: the card's f32 answers and the CPU f32 path lie
+# 3.727e-5 away and stop on the same iteration as f64 on every lane; the
+# card's f64 run 1.2e-15.  ENMPC_U_TOL keeps a 25x margin over that.  No
+# lane has stopped on another iteration; one that does is allowed
+# ENMPC_U_TOL_MOVED, ten times more, for a step more or less near the 1e-3
+# tolerance (not measured; PERF.md, ENMPC section).
+ENMPC_U_TOL = 1e-3
+ENMPC_U_TOL_MOVED = 1e-2
+ENMPC_OK_FRACTION_MIN = 0.999
+ENMPC_RESOLVE_MAX = 64             # failing lanes re-solved on the CPU in f64
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
 
@@ -118,10 +140,8 @@ def sweep_inputs(dtype, device, clip_lo, clip_hi, seed=1):
     return arrs, clip_lanes
 
 
-def riccati_inputs(dtype, device, nxa=3, nu=2, seed=2):
+def riccati_inputs(dtype, device, nxa=3, nu=2, N=50, seed=2):
     import torch
-
-    from mpc_code_tpu_torch.examples.bench_workload import N
 
     rng = np.random.default_rng(seed)
     nz = nxa + nu
@@ -147,7 +167,6 @@ def kernel_phase(dev, socp, results):
 
     from mpc_code_tpu_torch.examples.bench_workload import MX, N
     from mpc_code_tpu_torch.ops import sweep_cuda
-    from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
     failures = []
     sweep = socp.sweep
@@ -184,36 +203,112 @@ def kernel_phase(dev, socp, results):
             wrapper_ms=wrap_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
 
         # --- kernel 2: Riccati KKT
-        nxa, nu = socp.nxa, socp.nu
-        ins, bad_lane = riccati_inputs(dtype, dev, nxa, nu)
-        got = rk.riccati_kkt(*ins, nxa=nxa, nu=nu)
-        ref = rk.riccati_ref(*ins, nxa=nxa, nu=nu)
+        failures += riccati_check(dev, dtype, N, socp.nxa, socp.nu,
+                                  results["riccati_kkt"])
+    return failures
+
+
+def riccati_check(dev, dtype, N, nxa, nu, out):
+    """Kernel 2 against its plain version at (N, nxa, nu); the numbers go
+    into ``out[dtype name]``.  Returns the failures."""
+    import torch
+
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    tname = str(dtype).replace("torch.", "")
+    ins, bad_lane = riccati_inputs(dtype, dev, nxa, nu, N)
+    got = rk.riccati_kkt(*ins, nxa=nxa, nu=nu)
+    ref = rk.riccati_ref(*ins, nxa=nxa, nu=nu)
+    torch.cuda.synchronize()
+    ok_g, ok_r = got[0], ref[0]
+    flags_equal = bool((ok_g == ok_r).all())
+    okm = ok_r & ok_g
+    err = max(nerr(g[okm], r[okm]) for g, r in zip(got[1:], ref[1:]))
+    abs_err = max(float((g[okm] - r[okm]).abs().max())
+                  for g, r in zip(got[1:], ref[1:]))
+    planes = rk.pack(*ins, nxa=nxa, nu=nu)
+    ms = cuda_ms(lambda: rk.launch_planes(planes), 20)
+    wrap_ms = cuda_ms(lambda: rk.riccati_kkt(*ins, nxa=nxa, nu=nu), 10)
+    plain_ms = cuda_ms(lambda: rk.riccati_ref(*ins, nxa=nxa, nu=nu), 2)
+    byt = rk.riccati_bytes(B, N, nxa, nu, ins[0].element_size())
+    ops = rk.riccati_ops(B, N, nxa, nu)
+    t_b, t_o = byt / H100_BYTES_PER_S * 1e3, ops / H100_FLOPS[tname] * 1e3
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32["riccati_kkt"]
+    log(f"# kernel riccati_kkt ({N}, {nxa}, {nu}) {tname}: max_norm_err={err:.3e} "
+        f"max_abs_err={abs_err:.3e} (tol {tol:g}) ok_flags_equal={flags_equal} "
+        f"bad_lane_ok={bool(ok_g[bad_lane])} n_not_ok={int((~ok_r).sum())} "
+        f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f})")
+    out[tname] = dict(max_norm_err=err, max_abs_err=abs_err, ms=ms,
+                      wrapper_ms=wrap_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+    if not (err <= tol and flags_equal and not bool(ok_g[bad_lane])):
+        return [f"riccati_kkt ({N}, {nxa}, {nu}) {tname}: err {err:.3e} "
+                f"(tol {tol:g}), ok flags equal {flags_equal}"]
+    return []
+
+
+def cf_inputs(dtype, device, N, seed=3):
+    """Inputs of the ContForm sweep at the ENMPC path's shapes: states and
+    inputs over their boxes, small parameters, each lane's target near
+    the economic optimum."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrs = [rng.uniform(0.0, 1.0, size=(B, N, 2)), rng.uniform(0.0, 2.0, size=(B, N, 1)),
+            rng.normal(size=(B, N, 2)) * 1e-3, rng.normal(size=(B, N, 2)) * 1e-3,
+            np.zeros(B), np.full(B, 2.0), rng.uniform(-0.05, 0.05, size=(B, 2)),
+            rng.uniform([0.4, 0.4], [0.6, 0.5], size=(B, 2)),
+            rng.uniform(0.8, 1.3, size=(B, 1))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def enmpc_kernel_phase(dev, eprob, results):
+    """Kernel 4 (the ContForm joint sweep) and kernel 2 at the ENMPC
+    path's shapes, each against its plain version."""
+    import torch
+
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda
+
+    failures = []
+    cfg = eprob.cfg
+    sweep = eprob.socp.sweep
+    dims = (cfg.nx, cfg.nu, cfg.nd, cfg.npx, cfg.npy)
+    nz = cfg.nx + cfg.nu
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).replace("torch.", "")
+        arrs = cf_inputs(dtype, dev, cfg.N)
+        got = sweep(*arrs)
         torch.cuda.synchronize()
-        ok_g, ok_r = got[0], ref[0]
-        flags_equal = bool((ok_g == ok_r).all())
-        okm = ok_r & ok_g
-        err = max(nerr(g[okm], r[okm]) for g, r in zip(got[1:], ref[1:]))
-        abs_err = max(float((g[okm] - r[okm]).abs().max())
-                      for g, r in zip(got[1:], ref[1:]))
-        planes = rk.pack(*ins, nxa=nxa, nu=nu)
-        ms = cuda_ms(lambda: rk.launch_planes(planes), 20)
-        wrap_ms = cuda_ms(lambda: rk.riccati_kkt(*ins, nxa=nxa, nu=nu), 10)
-        plain_ms = cuda_ms(lambda: rk.riccati_ref(*ins, nxa=nxa, nu=nu), 2)
-        byt = rk.riccati_bytes(B, N, nxa, nu, ins[0].element_size())
-        ops = rk.riccati_ops(B, N, nxa, nu)
-        t_b, t_o = byt / H100_BYTES_PER_S * 1e3, ops / H100_FLOPS[tname] * 1e3
-        tol = TOL_F64 if dtype == torch.float64 else TOL_F32["riccati_kkt"]
-        log(f"# kernel riccati_kkt {tname}: max_norm_err={err:.3e} "
-            f"max_abs_err={abs_err:.3e} (tol {tol:g}) ok_flags_equal={flags_equal} "
-            f"bad_lane_ok={bool(ok_g[bad_lane])} n_not_ok={int((~ok_r).sum())} "
+        t0 = time.perf_counter()            # host-bound: seconds per call
+        ref = sweep.plain(*arrs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [nerr(g, r) for g, r in zip(got, ref)]
+        err = max(errs)
+        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        sym = float((got[5] - got[5].transpose(-1, -2)).abs().max())
+        planes = sweep.pack(*arrs)
+        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
+        byt = sweep_cf_cuda.cf_bytes(B, cfg.N, *dims, arrs[0].element_size())
+        ops_lane = sweep.ops_per_lane(*dims)
+        t_b = byt / H100_BYTES_PER_S * 1e3
+        t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32["rk4_quad_stage_hess"]
+        log(f"# kernel rk4_quad_stage_hess {tname}: max_norm_err={err:.3e} per output "
+            f"(xf, Jx, Ju, qv, gq, Hq) {['%.2e' % e for e in errs]} "
+            f"max_abs_err={abs_err:.3e} (tol {tol:g}) Hq_asym={sym:.1e} "
             f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f})")
-        if not (err <= tol and flags_equal and not bool(ok_g[bad_lane])):
-            failures.append(f"riccati_kkt {tname}: err {err:.3e} (tol {tol:g}), "
-                            f"ok flags equal {flags_equal}")
-        results["riccati_kkt"][tname] = dict(
+            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
+            f"{ops_lane} operations per lane, {nz} tangents and "
+            f"{nz * (nz + 1) // 2} second-order tangents)")
+        if not (err <= tol and sym == 0.0):
+            failures.append(f"rk4_quad_stage_hess {tname} error {err:.3e} > {tol:g}")
+        results["rk4_quad_stage_hess"][tname] = dict(
             max_norm_err=err, max_abs_err=abs_err, ms=ms, wrapper_ms=wrap_ms,
             plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+        failures += riccati_check(dev, dtype, cfg.N, eprob.socp.nxa, eprob.socp.nu,
+                                  results["riccati_kkt_enmpc"])
     return failures
 
 
@@ -223,12 +318,8 @@ def kernel_phase(dev, socp, results):
 
 
 def profile_pass1(cfg, model, solve, x0s):
-    """One pass-1 solve of the whole batch under torch.profiler: device
-    busy share (summed kernel time over the profiled wall time), kernel
-    launches per IPM iteration and the kernels that take the most time.
-    Raises when the profiler sees no device time."""
+    """One pass-1 solve of the whole CSTR batch under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mpc_code_tpu_torch.examples.bench_workload import (
         MAXIT1, U_SS, bench_params, warm_start,
@@ -238,10 +329,21 @@ def profile_pass1(cfg, model, solve, x0s):
     us_b = torch.as_tensor(U_SS, dtype=x0s.dtype, device=x0s.device).expand(nb, cfg.nu)
     X0, U0 = warm_start(cfg, model, x0s, us_b)
     par = bench_params(cfg, x0s)
+    return profile_solve(lambda: solve(par, X0, U0, max_iter=MAXIT1))
+
+
+def profile_solve(run):
+    """``run()`` (a structured solve) under torch.profiler: device busy
+    share (summed kernel time over the profiled wall time), kernel launches
+    per IPM iteration and the kernels that take the most time.  Raises when
+    the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r = solve(par, X0, U0, max_iter=MAXIT1)
+        r = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n_it = int(r.iters.max())
@@ -262,47 +364,51 @@ def profile_pass1(cfg, model, solve, x0s):
             "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
 
 
-def cross_check(name, run, ref, f32):
-    """Hold one run of the check lanes against the CPU f64 run.  ``run`` and
-    ``ref`` are (status, iters, kkt, U).  At most one lane may differ in
-    converged status; converged ``U`` must agree to U_TOL of the input box,
-    or, in an f32 run on a lane that stopped on another iteration than the
-    reference, to U_TOL_MOVED.  Returns (failures, report)."""
-    from mpc_code_tpu_torch.examples.bench_workload import U_BOX
-
-    (st_x, it_x, kkt_x, U_x), (st_c, it_c, kkt_c, U_c) = run, ref
-    conv_x, conv_c = st_x != 2, st_c != 2
+def cross_check(name, run, ref, f32, u_box, tol, tol_moved):
+    """Hold one run of the check lanes against the CPU f64 run.  ``run``
+    and ``ref`` hold per-lane ``status``, ``iters``, ``kkt`` and ``U`` (and
+    on the ENMPC path the targets' ``target_status`` and ``xs``).  At most
+    one lane may differ in converged status; converged ``U`` must agree to
+    ``tol`` of the input box ``u_box``, or, in an f32 run on a lane that
+    stopped on another iteration than the reference, to ``tol_moved``.
+    Returns (failures, report)."""
+    conv_x, conv_c = run["status"] != 2, ref["status"] != 2
+    it_x, it_c = run["iters"], ref["iters"]
     n_diff = int((conv_x != conv_c).sum())
     both = conv_x & conv_c
-    du = (np.abs(U_x - U_c) / U_BOX).max(axis=(1, 2))
-    same = both & (it_x == it_c)
+    du = (np.abs(run["U"] - ref["U"]) / u_box).max(axis=(1, 2))
     moved = both & (it_x != it_c) if f32 else np.zeros_like(both)
     du_same = float(du[both & ~moved].max()) if (both & ~moved).any() else 0.0
     du_moved = float(du[moved].max()) if moved.any() else 0.0
-    log(f"# cpu f64 cross-check, {name} ({len(st_x)} lanes): converged "
-        f"{int(conv_x.sum())} vs cpu {int(conv_c.sum())}, differ={n_diff}; "
+    report = dict(status_differ=n_diff, max_dU_over_box=du_same,
+                  max_dU_over_box_moved=du_moved, lanes_moved=int(moved.sum()))
+    target = ""
+    if "xs" in run:
+        report["max_dxs"] = float(np.abs(run["xs"] - ref["xs"]).max())
+        n_t = int((run["target_status"] != ref["target_status"]).sum())
+        target = f"target status differ={n_t}, max |dxs|={report['max_dxs']:.3e}; "
+    log(f"# cpu f64 cross-check, {name} ({len(du)} lanes): converged "
+        f"{int(conv_x.sum())} vs cpu {int(conv_c.sum())}, differ={n_diff}; {target}"
         f"max |dU|/box: {du_same:.3e} over {int((both & ~moved).sum())} lanes "
-        f"({int(same.sum())} stopped on the same iteration, tol {U_TOL:g}), "
-        f"{du_moved:.3e} over {int(moved.sum())} that stopped on another "
-        f"(tol {U_TOL_MOVED:g})")
-    for i in np.where(both & (du > U_TOL))[0]:
+        f"({int((both & (it_x == it_c)).sum())} stopped on the same iteration, "
+        f"tol {tol:g}), {du_moved:.3e} over {int(moved.sum())} that stopped on "
+        f"another (tol {tol_moved:g})")
+    for i in np.where(both & (du > tol))[0]:
         log(f"#   {name}, lane {i}: |dU|/box {du[i]:.3e}, iterations {it_x[i]} vs cpu "
-            f"{it_c[i]}, kkt {kkt_x[i]:.4e} vs cpu {kkt_c[i]:.4e}")
+            f"{it_c[i]}, kkt {run['kkt'][i]:.4e} vs cpu {ref['kkt'][i]:.4e}")
     failures = []
-    if n_diff > 1 or not (du_same <= U_TOL and du_moved <= U_TOL_MOVED):
+    if n_diff > 1 or not (du_same <= tol and du_moved <= tol_moved):
         failures.append(f"cpu cross-check, {name}: {n_diff} status differences, "
-                        f"max dU/box {du_same:.3e} (tol {U_TOL:g}), on lanes that "
-                        f"stopped elsewhere {du_moved:.3e} (tol {U_TOL_MOVED:g})")
-    return failures, dict(status_differ=n_diff, max_dU_over_box=du_same,
-                          max_dU_over_box_moved=du_moved,
-                          lanes_moved=int(moved.sum()))
+                        f"max dU/box {du_same:.3e} (tol {tol:g}), on lanes that "
+                        f"stopped elsewhere {du_moved:.3e} (tol {tol_moved:g})")
+    return failures, report
 
 
 def slice_phase(dev, problem, launches):
     import torch
 
     from mpc_code_tpu_torch.examples.bench_workload import (
-        MX, N, draw_x0, make_problem, run_pipeline,
+        MX, N, U_BOX, draw_x0, make_problem, run_pipeline,
     )
     from mpc_code_tpu_torch.ops import sweep_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
@@ -337,8 +443,8 @@ def slice_phase(dev, problem, launches):
     log("# slice " + json.dumps(report))
     if ok_fraction < OK_FRACTION_MIN:
         failures.append(f"ok_fraction {ok_fraction:.5f} < {OK_FRACTION_MIN}")
-    if min(launches.values()) <= 0:
-        failures.append(f"a kernel was not launched on the main path: {launches}")
+    if min(launches["rk4_stage_jac"], launches["riccati_kkt"]) <= 0:
+        failures.append(f"a kernel was not launched on the CSTR path: {launches}")
 
     report["profile"] = profile_pass1(cfg, model, solve, x0s)
     log("# profile " + json.dumps(report["profile"]))
@@ -362,19 +468,153 @@ def slice_phase(dev, problem, launches):
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
     ccfg, cmodel, _, csolve = make_problem(cpu)
+    keys = ("status", "iters", "kkt", "U")
     runs = {}
     for name, (c, m, slv, x0) in {
             "cpu f64": (ccfg, cmodel, csolve, draw_x0(N_CHECK, cpu, dtype=torch.float64)),
             "gpu f64": (cfg, model, solve, draw_x0(N_CHECK, dev, dtype=torch.float64)),
             "cpu f32": (ccfg, cmodel, csolve, draw_x0(N_CHECK, cpu))}.items():
         st, it, _, kk, Ux, _ = run_pipeline(c, m, slv, x0, rescue_cap=8)
-        runs[name] = (st, it, kk, Ux)
-    runs["gpu f32"] = (status[:N_CHECK], iters[:N_CHECK], kkt[:N_CHECK], U[:N_CHECK])
+        runs[name] = dict(zip(keys, (st, it, kk, Ux)))
+    runs["gpu f32"] = dict(zip(keys, (a[:N_CHECK] for a in (status, iters, kkt, U))))
     for name in ("gpu f64", "gpu f32", "cpu f32"):
         fails, report[f"xcheck_{name.replace(' ', '_')}"] = cross_check(
-            name, runs[name], runs["cpu f64"], f32=name.endswith("f32"))
+            name, runs[name], runs["cpu f64"], name.endswith("f32"),
+            U_BOX, U_TOL, U_TOL_MOVED)
         failures += fails
     log(f"# cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
+    return failures, report
+
+
+def record_ok_flags(runs):
+    """Wrap the Riccati KKT solve the structured solver calls so that every
+    call's ``ok`` flags (one per lane) are appended to ``runs[-1]``; returns
+    the function that undoes the wrap."""
+    from mpc_code_tpu_torch.solver import riccati
+
+    inner = riccati.riccati_kkt
+
+    def recording(*a, **k):
+        out = inner(*a, **k)
+        runs[-1].append(out[0].cpu().numpy().copy())
+        return out
+
+    riccati.riccati_kkt = recording
+    return lambda: setattr(riccati, "riccati_kkt", inner)
+
+
+def enmpc_phase(dev, eprob, launches):
+    """The ENMPC path at B lanes in f32: timed run with the launch counters
+    around it, a profiled OCP solve, the failing lanes re-solved in f64 on
+    the CPU, and the 64-lane cross-check."""
+    import torch
+
+    from mpc_code_tpu_torch.examples import enmpc_workload as ew
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    failures = []
+    x0, d = ew.draw_lanes(B, dev)
+    t0 = time.perf_counter()
+    ew.run_pipeline(eprob, x0, d)                  # warm-up run
+    log(f"# enmpc warm-up run: {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweep_cf_cuda.LAUNCHES = 0
+    rk.LAUNCHES = 0
+    out = ew.run_pipeline(eprob, x0, d)
+    launches["rk4_quad_stage_hess"] = sweep_cf_cuda.LAUNCHES
+    launches["riccati_kkt_enmpc"] = rk.LAUNCHES
+    it, tit = out["iters"], out["target_iters"]
+    ok_t, ok = out["target_status"] != 2, out["status"] != 2
+    n_iter = int(it.max())
+    # passes of the batched OCP loop: a lane that stops by converging takes
+    # one pass more than its iterations (that pass finds the KKT error under
+    # tol and takes no step); a lane stopped by the cap takes its iterations
+    n_pass = int((it + (out["status"] == 0)).max())
+    times = out["times"]
+    report = dict(
+        batch=B, N=eprob.cfg.N, Mx=eprob.cfg.model.Mx,
+        target_ok_fraction=float(ok_t.mean()), ok_fraction=float(ok.mean()),
+        target_iters_median=float(np.median(tit)), target_iters_p90=float(np.percentile(tit, 90)),
+        target_iters_max=int(tit.max()),
+        ocp_iters_median=float(np.median(it)), ocp_iters_p90=float(np.percentile(it, 90)),
+        ocp_iters_max=n_iter,
+        target_ms_per_iteration=times["target_s"] * 1e3 / max(int(tit.max()), 1),
+        ocp_ms_per_iteration=times["ocp_s"] * 1e3 / max(n_iter, 1),
+        solves_per_s=int(ok.sum()) / times["total_s"],
+        launches={k: launches[k] for k in ("rk4_quad_stage_hess", "riccati_kkt_enmpc")},
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        us_range=[float(out["us"].min()), float(out["us"].max())],
+        **times)
+    log("# enmpc " + json.dumps(report))
+    # one sweep and one KKT solve per pass of the batched OCP loop
+    report["ocp_loop_passes"] = n_pass
+    if not (launches["rk4_quad_stage_hess"] == n_pass == launches["riccati_kkt_enmpc"]):
+        failures.append(f"enmpc launches {report['launches']} != {n_pass} loop passes")
+    if min(report["target_ok_fraction"], report["ok_fraction"]) < ENMPC_OK_FRACTION_MIN:
+        failures.append(f"enmpc ok fractions {report['target_ok_fraction']:.5f} / "
+                        f"{report['ok_fraction']:.5f} < {ENMPC_OK_FRACTION_MIN}")
+
+    xs, us = (torch.as_tensor(out[k], device=dev) for k in ("xs", "us"))
+    report["profile"] = profile_solve(lambda: ew.solve_ocps(eprob, x0, xs, us, d))
+    log("# enmpc profile, OCP " + json.dumps(report["profile"]))
+    # two target iterations: the profiler's summary of the whole solve
+    # (~18k launches an iteration) takes minutes
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.solver.ipm import make_solver
+
+    short = eprob._replace(target_solve=make_solver(
+        eprob.tspec.nlp, SolverOptions.for_f32(max_iter=2)))
+    report["profile_target"] = profile_solve(lambda: ew.solve_targets(short, d)[2])
+    log("# enmpc profile, target (2 iterations) " + json.dumps(report["profile_target"]))
+
+    # failing lanes: re-solve each on the CPU in f64 at the same options
+    cpu = torch.device("cpu")
+    cprob = ew.make_problem(cpu)
+    bad = np.where(~ok | ~ok_t)[0]
+    classes = {}
+    if len(bad):
+        sel = bad[:ENMPC_RESOLVE_MAX]
+        r64 = ew.run_pipeline(cprob, x0[sel].double().cpu(), d[sel].double().cpu())
+        for k, i in enumerate(sel):
+            f64_fails = r64["status"][k] == 2 or r64["target_status"][k] == 2
+            classes[int(i)] = "fails in f64 too" if f64_fails else "f32 only"
+        f32_only = [i for i, c in classes.items() if c == "f32 only"]
+        log(f"# enmpc failing lanes: {len(bad)}; re-solved in f64 on the CPU: "
+            f"{len(sel)}; classes {classes}")
+        if f32_only or len(bad) > len(sel):
+            failures.append(f"enmpc: failures not shared by f64: {f32_only} "
+                            f"({len(bad) - len(sel)} lanes not re-solved)")
+    else:
+        log("# enmpc failing lanes: none")
+    report["failing_lanes"] = classes
+
+    # the first N_CHECK lanes against the CPU f64 plain path, with every
+    # Riccati ok flag recorded
+    t0 = time.perf_counter()
+    flags = {}
+    runs = {"gpu f32": {k: v[:N_CHECK] for k, v in out.items() if k != "times"}}
+    for name, (pr, dtype, dv) in {"cpu f64": (cprob, torch.float64, cpu),
+                                  "gpu f64": (eprob, torch.float64, dev),
+                                  "cpu f32": (cprob, torch.float32, cpu)}.items():
+        flags[name] = []
+        undo = record_ok_flags([flags[name]])
+        try:
+            xc, dc = ew.draw_lanes(N_CHECK, dv, dtype=dtype)
+            runs[name] = ew.run_pipeline(pr, xc, dc)
+        finally:
+            undo()
+    for name in ("gpu f64", "gpu f32", "cpu f32"):
+        fails, report[f"xcheck_{name.replace(' ', '_')}"] = cross_check(
+            name, runs[name], runs["cpu f64"], name.endswith("f32"),
+            ew.U_BOX, ENMPC_U_TOL, ENMPC_U_TOL_MOVED)
+        failures += fails
+    not_ok = {name: [(k, [int(i) for i in np.where(~f)[0]]) for k, f in enumerate(fl)
+                     if (~f).any()] for name, fl in flags.items()}
+    log(f"# enmpc riccati ok flags: (iteration, lanes not ok) per run: {not_ok}")
+    report["riccati_not_ok"] = not_ok
+    log(f"# enmpc cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
     return failures, report
 
 
@@ -401,25 +641,31 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from mpc_code_tpu_torch.device import pin_fp32_precision
+    from mpc_code_tpu_torch.examples import enmpc_workload
     from mpc_code_tpu_torch.examples.bench_workload import make_problem
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
     pin_fp32_precision()       # as bench.py:40-42 pins the matmul precision
     dev = torch.device("cuda")
     failures = []
-    results = {"rk4_stage_jac": {}, "riccati_kkt": {}}
-    launches = {"rk4_stage_jac": 0, "riccati_kkt": 0}
-    report = {}
+    results = {"rk4_stage_jac": {}, "riccati_kkt": {}, "riccati_kkt_enmpc": {},
+               "rk4_quad_stage_hess": {}}
+    launches = {"rk4_stage_jac": 0, "riccati_kkt": 0, "rk4_quad_stage_hess": 0,
+                "riccati_kkt_enmpc": 0}
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
+        eprob = enmpc_workload.make_problem(dev)
+        ec = eprob.cfg
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(2) as ex:
+        with cf.ThreadPoolExecutor(4) as ex:
             jobs = [ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
-                    ex.submit(rk.build_kernel, socp.nxa, socp.nu)]
+                    ex.submit(rk.build_kernel, socp.nxa, socp.nu),
+                    ex.submit(eprob.socp.sweep.build, ec.nx, ec.nu, ec.nd, ec.npx, ec.npy),
+                    ex.submit(rk.build_kernel, eprob.socp.nxa, eprob.socp.nu)]
             built = [j.result() for j in jobs]
-        log(f"# build: both kernels in {time.perf_counter() - t0:.1f} s")
+        log(f"# build: four kernel libraries in {time.perf_counter() - t0:.1f} s")
         for b in built:
             for line in b.log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -429,29 +675,25 @@ def main() -> int:
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
         return 1
 
-    for name, phase in (("kernel", lambda: kernel_phase(dev, socp, results)),
-                        ("slice", lambda: slice_phase(dev, problem, launches))):
+    phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
+              ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
+              ("slice", lambda: slice_phase(dev, problem, launches)),
+              ("enmpc", lambda: enmpc_phase(dev, eprob, launches)))
+    for name, phase in phases:
+        t0 = time.perf_counter()
         try:
             out = phase()
-            if name == "slice":
-                out, report = out
-            failures += out
+            failures += out[0] if name in ("slice", "enmpc") else out
         except Exception:
             traceback.print_exc()
             failures.append(f"{name} phase raised")
+        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
 
-    kernels = []
-    meta = {"rk4_stage_jac": ("mpc_code_tpu_torch/csrc/rk4_stage_jac.cu",
-                              "mpc_code_tpu/ops/sweep_pallas.py:241"),
-            "riccati_kkt": ("mpc_code_tpu_torch/csrc/riccati_kkt.cu",
-                            "mpc_code_tpu/solver/riccati_kernel.py:92")}
-    for name, (src, repl) in meta.items():
-        r32 = results[name].get("float32", {})
-        r64 = results[name].get("float64", {})
+    def entry(name, res, n_launch):
+        r32, r64 = res.get("float32", {}), res.get("float64", {})
         tb, to = r32.get("bytes_ms"), r32.get("ops_ms")
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=repl,
-            launches=launches[name], max_abs_err=r32.get("max_abs_err"),
+        return dict(
+            launches=n_launch, max_abs_err=r32.get("max_abs_err"),
             ms=r32.get("ms"), plain_ms=r32.get("plain_ms"),
             bound_ms=None if tb is None else max(tb, to),
             bound_by=None if tb is None else ("bytes" if tb >= to else "operations"),
@@ -459,7 +701,25 @@ def main() -> int:
             wrapper_ms=r32.get("wrapper_ms"),
             max_norm_err_f32=r32.get("max_norm_err"),
             max_norm_err_f64=r64.get("max_norm_err"),
-            ms_f64=r64.get("ms"), plain_ms_f64=r64.get("plain_ms")))
+            ms_f64=r64.get("ms"), plain_ms_f64=r64.get("plain_ms"))
+
+    kernels = []
+    meta = {"rk4_stage_jac": ("mpc_code_tpu_torch/csrc/rk4_stage_jac.cu",
+                              "mpc_code_tpu/ops/sweep_pallas.py:241", "cstr"),
+            "riccati_kkt": ("mpc_code_tpu_torch/csrc/riccati_kkt.cu",
+                            "mpc_code_tpu/solver/riccati_kernel.py:92", "cstr"),
+            "rk4_quad_stage_hess": ("mpc_code_tpu_torch/csrc/rk4_quad_stage_hess.cu",
+                                    "mpc_code_tpu/ops/sweep_pallas.py:407", "enmpc")}
+    for name, (src, repl, path) in meta.items():
+        k = dict(name=name, route="cuda", source=src, replaces=repl, path=path,
+                 **entry(name, results[name], launches[name]))
+        if name == "riccati_kkt":
+            # the same kernel on the ENMPC path, at (N, nxa, nu) = (25, 2, 1)
+            k["launches_by_path"] = {"cstr": launches["riccati_kkt"],
+                                     "enmpc": launches["riccati_kkt_enmpc"]}
+            k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
+                                         launches["riccati_kkt_enmpc"])
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
         for f in failures:

@@ -7,14 +7,19 @@ signatures (``defF_model``, Utilities.py:102-245):
 - ``Fy_model(x, u, d, t, py) -> y``
 
 The callables act on one point; a batch goes through ``torch.func.vmap``.
-This slice covers the NL-continuous model form (RK4 with Mx sub-steps and
-the optional saturation guard) with a user output map; the other forms
-raise ``NotImplementedError`` naming their ROADMAP item.
+They also take lanes-minor (dim, L) arguments, and ``torch.fx`` traces the
+output map for the CUDA sweeps.  This slice covers the NL-continuous model
+form (RK4 with Mx sub-steps and the optional saturation guard) with a user
+output map or StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the
+other forms raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
 
 from mpc_code_tpu_torch.config import ContinuousModel, MPCConfig
 from mpc_code_tpu_torch.ops.integrators import rk4, saturate
@@ -25,6 +30,10 @@ class ModelFns(NamedTuple):
     fy: Callable  # Fy_model(x, u, d, t, py)
 
 
+def _mat(M):
+    return None if M is None else torch.as_tensor(np.asarray(M, float))
+
+
 def build_model(cfg: MPCConfig) -> ModelFns:
     """Build (Fx_model, Fy_model) for a ``ContinuousModel`` config."""
     m = cfg.model
@@ -32,11 +41,15 @@ def build_model(cfg: MPCConfig) -> ModelFns:
         raise NotImplementedError(
             f"model form {type(m).__name__} is not ported yet (ROADMAP "
             "Queue 1 items 19 and 24)")
-    if cfg.dist.offree == "lin" or cfg.StateFeedback or m.fy is None:
+    if not cfg.StateFeedback and m.fy is None:
         raise NotImplementedError(
-            "offree='lin', StateFeedback and C-matrix outputs are not ported "
-            "yet (ROADMAP Queue 1 item 24)")
-    lin_par = cfg.LinPar
+            "C-matrix outputs are not ported yet (ROADMAP Queue 1 item 24)")
+    lin = cfg.dist.offree == "lin"
+    # the matrices stay f64 CPU tensors; ``.to(x)`` casts them at call time
+    # (and is what torch.fx records, so the CUDA code generator sees a
+    # constant matrix)
+    Bd, Cd = _mat(cfg.dist.Bd), _mat(cfg.dist.Cd)
+    lin_par, state_fb = cfg.LinPar, cfg.StateFeedback
     user_fx, user_fy = m.fx, m.fy
     lo, hi = m.clip_lo, m.clip_hi
 
@@ -49,12 +62,19 @@ def build_model(cfg: MPCConfig) -> ModelFns:
 
     def fx(x, u, k, d, t, px):
         out = integ(x, t, k, u, d, px)                     # Utilities.py:157-172
+        if lin:
+            out = out + Bd.to(out) @ d                     # Utilities.py:174-177
         if lin_par:
             out = out + px                                 # Utilities.py:180-183
         return out
 
     def fy(x, u, d, t, py):
-        out = user_fy(x, u, d, t, py)                      # Utilities.py:232-238
+        if state_fb:
+            out = x                                        # Utilities.py:201-205
+        else:
+            out = user_fy(x, u, d, t, py)                  # Utilities.py:232-238
+        if lin:
+            out = out + Cd.to(x) @ d
         if lin_par:
             out = out + py                                 # Utilities.py:240-243
         return out

@@ -1,0 +1,416 @@
+"""Lower a traced torch function to scalar C++ statements for the CUDA sweeps.
+
+The TPU sweep kernels run any user model because Pallas traces it.  The
+port keeps that property with this code generator: ``Program`` traces a
+torch function with ``torch.fx.symbolic_trace`` and lowers every node to
+per-component scalar statements, which the sweep kernels instantiate with
+forward-mode dual numbers (``csrc/dual.cuh``, ``csrc/dual2.cuh``).
+
+What it lowers: integer indexing and slices of inputs and intermediates,
+whole-vector use of an input, elementwise ``+ - * /``, negation, ``exp``,
+``log``, ``sqrt``, ``pow`` by a scalar, ``maximum``/``minimum``,
+comparisons, ``where``, ``stack``, ``@`` (a captured constant
+matrix or vector times a vector, or a dot product of two vectors, written
+as literal multiply-adds) and ``.to(...)`` (the cast of a captured
+constant).  Any other op raises ``NotImplementedError`` naming it.  The
+statements are the ones the compiler would keep: ``a * 1``, ``a / 1``,
+``a + 0``, ``a - 0`` and ``a * 0`` are folded, a statement that repeats
+an earlier one reuses its value, and statements no output needs are
+dropped.
+
+The statements are also valid Python: ``Program.execute`` runs them on
+torch tensors, so the CPU tests hold the lowering against the function it
+came from, derivatives included, without a CUDA compiler.
+
+``Program.ops`` counts the arithmetic of those statements per evaluation
+on values that carry ``nz`` tangents (``order=1``) or also the
+nz(nz+1)/2 second-order tangents (``order=2``): the bound of a sweep
+kernel comes from it.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+import operator
+import re
+import threading
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+_BIN = {operator.add: "+", operator.sub: "-", operator.mul: "*",
+        operator.truediv: "/", torch.add: "+", torch.sub: "-",
+        torch.mul: "*", torch.div: "/", torch.true_divide: "/"}
+_CMP = {operator.lt: "<", operator.le: "<=", operator.gt: ">",
+        operator.ge: ">=", operator.eq: "==", operator.ne: "!=",
+        torch.lt: "<", torch.le: "<=", torch.gt: ">", torch.ge: ">=",
+        torch.eq: "==", torch.ne: "!="}
+_UNARY = {torch.exp: "mpc_exp", torch.log: "mpc_log", torch.sqrt: "mpc_sqrt",
+          operator.neg: "-", torch.neg: "-"}
+_METHODS = {"exp": "mpc_exp", "log": "mpc_log", "sqrt": "mpc_sqrt",
+            "neg": "-", "__neg__": "-"}
+_MAXMIN = {torch.maximum: "mpc_max", torch.minimum: "mpc_min"}
+_POW = {operator.pow, torch.pow}
+_MATMUL = {operator.matmul, torch.matmul}
+# torch.fx tracing patches module globals and is not thread-safe; kernels
+# are built from several threads at once
+_TRACE_LOCK = threading.Lock()
+SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, exp, log, "
+             "sqrt, pow by a scalar, maximum, minimum, comparisons, where, "
+             "stack, matmul with a constant or a dot product, .to()")
+
+
+class Arg(NamedTuple):
+    """One positional argument of the traced function: ``kind`` is 'dual'
+    (a vector that carries tangents), 'vec' (a vector without tangents) or
+    'scalar' (a scalar without tangents)."""
+    name: str
+    kind: str
+    dim: int | None = None     # None: unknown, only indexed use is lowered
+
+
+class Scalar(NamedTuple):
+    """A scalar value of the program: a C++/Python expression (a variable
+    name or an input component) and whether it carries tangents."""
+    expr: str
+    dual: bool
+
+
+class _Input(NamedTuple):
+    name: str
+    dim: int
+    dual: bool
+
+
+def _op_name(node) -> str:
+    t = node.target
+    return t if isinstance(t, str) else getattr(t, "__name__", repr(t))
+
+
+def lit(c) -> str:
+    c = float(c)
+    if math.isnan(c):
+        return "S(NAN)"
+    if math.isinf(c):
+        return "S(INFINITY)" if c > 0 else "S(-INFINITY)"
+    return f"S({c!r})"
+
+
+def _is_num(a) -> bool:
+    return isinstance(a, (int, float)) and not isinstance(a, bool)
+
+
+_VAR = re.compile(r"\bv_\w+")
+
+
+class _Stmt(NamedTuple):
+    name: str
+    expr: str
+    ops: int
+
+
+class Program:
+    """``f`` traced and lowered to scalar statements (``lines``) that write
+    ``out[i]`` for a vector result of ``out_dim`` components, or ``out[0]``
+    for a scalar result (``out_dim=None``)."""
+
+    def __init__(self, f: Callable, args: Sequence[Arg], nz: int,
+                 out_dim: int | None, order: int = 1, what: str = "function"):
+        self.args = tuple(args)
+        self.nz = nz
+        self.np2 = nz * (nz + 1) // 2 if order == 2 else 0
+        self.what = what
+        self._stmts: list[_Stmt] = []
+        self._seen: dict[str, Scalar] = {}     # expression -> its statement
+        with _TRACE_LOCK:
+            gm = torch.fx.symbolic_trace(f)
+        gm.graph.eliminate_dead_code()   # e.g. a steady-state output f_obj ignores
+        env = {}
+        placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        if len(placeholders) != len(self.args):
+            raise NotImplementedError(
+                f"the {what} must take exactly {tuple(a.name for a in self.args)}, "
+                f"got {[n.name for n in placeholders]}")
+        for n, a in zip(placeholders, self.args):
+            env[n] = (Scalar(a.name, False) if a.kind == "scalar"
+                      else _Input(a.name, a.dim, a.kind == "dual"))
+        result = None
+        for n in gm.graph.nodes:
+            if n.op == "placeholder":
+                continue
+            if n.op == "output":
+                result = self._value(env, n.args[0])
+                continue
+            env[n] = self._lower(gm, env, n)
+        self._write_out(result, out_dim)
+        self.body = "\n".join(self.lines)
+
+    # ----- values --------------------------------------------------------
+    def _value(self, env, a):
+        if isinstance(a, torch.fx.Node):
+            return env[a]
+        if _is_num(a):
+            return float(a)
+        if isinstance(a, (list, tuple)):
+            return [self._scalar(self._value(env, x)) for x in a]
+        raise NotImplementedError(f"unsupported operand {a!r} in the {self.what}")
+
+    @staticmethod
+    def _vec(v):
+        """The value as a list of scalars, or the value itself if scalar."""
+        if isinstance(v, _Input):
+            if v.dim is None:
+                raise NotImplementedError(
+                    f"whole-vector use of input {v.name!r} of unknown length")
+            return [Scalar(f"{v.name}[{i}]", v.dual) for i in range(v.dim)]
+        if isinstance(v, np.ndarray):
+            if v.ndim == 0:
+                return float(v)
+            if v.ndim != 1:
+                raise NotImplementedError(
+                    f"a constant of shape {v.shape} used elementwise")
+            return [float(c) for c in v]
+        return v
+
+    def _scalar(self, v):
+        v = self._vec(v)
+        if isinstance(v, list):
+            raise NotImplementedError(
+                f"a vector where the {self.what} needs a scalar")
+        return v
+
+    def _emit(self, name, expr, dual, ops=0):
+        """A statement ``name = expr`` of ``ops`` operations, or the value
+        of an earlier statement with the same expression."""
+        if expr not in self._seen:
+            self._stmts.append(_Stmt(name, expr, ops))
+            self._seen[expr] = Scalar(name, dual)
+        return self._seen[expr]
+
+    @staticmethod
+    def _x(a) -> str:
+        return lit(a) if _is_num(a) else a.expr
+
+    # ----- scalar ops and their operation counts -------------------------
+    def _bin(self, name, sym, a, b):
+        if _is_num(a) and _is_num(b):
+            return float({"+": operator.add, "-": operator.sub,
+                          "*": operator.mul, "/": operator.truediv}[sym](a, b))
+        # exact identities, folded as the compiler folds them
+        if sym == "*" and (a == 1.0 or b == 1.0):
+            return b if a == 1.0 else a
+        if sym == "*" and (a == 0.0 or b == 0.0):
+            return 0.0
+        if (sym == "/" and b == 1.0) or (sym in "+-" and b == 0.0):
+            return a
+        if sym == "+" and a == 0.0:
+            return b
+        da = not _is_num(a) and a.dual
+        db = not _is_num(b) and b.dual
+        nz, np2 = self.nz, self.np2
+        # the operations the function needs: tangents of a dual plus or
+        # minus a non-dual are copied (or negated, folded into the
+        # consumer); 1/b is one operation
+        if sym in "+-":
+            ops = 1 + (nz + np2) * (da and db)
+        elif sym == "*":
+            ops = 1 + (3 * nz + 7 * np2 if da and db else (nz + np2) * (da or db))
+        elif da and db:                  # (da - q db) / b
+            ops = 2 + 3 * nz + 7 * np2
+        elif db:                         # -(q / b) db
+            ops = 2 + nz + 5 * np2
+        else:
+            ops = 1 + (nz + np2) * da
+        return self._emit(name, f"({self._x(a)} {sym} {self._x(b)})", da or db, ops)
+
+    def _unary(self, name, fn, a):
+        if _is_num(a):
+            return float({"-": operator.neg, "mpc_exp": math.exp,
+                          "mpc_log": math.log, "mpc_sqrt": math.sqrt}[fn](a))
+        if fn == "-":
+            return self._emit(name, f"(-{a.expr})", a.dual, 1)
+        ops = 1
+        if a.dual:                       # value, f'(a), nz products
+            ops = ((1 if fn == "mpc_exp" else 2) + self.nz
+                   + ((0 if fn == "mpc_exp" else 1) + 4 * self.np2 if self.np2 else 0))
+        return self._emit(name, f"{fn}({a.expr})", a.dual, ops)
+
+    def _pow(self, name, a, c):
+        if _is_num(a):
+            return float(a) ** c
+        ops = 1 + ((2 + self.nz + (2 + 4 * self.np2 if self.np2 else 0))
+                   if a.dual else 0)
+        return self._emit(name, f"mpc_pow({a.expr}, {lit(c)})", a.dual, ops)
+
+    def _select(self, name, expr, dual):
+        # compare, select
+        return self._emit(name, expr, dual, 1 + ((self.nz + self.np2) if dual else 0))
+
+    # ----- elementwise over vectors -------------------------------------
+    def _map(self, name, fn, *vals):
+        vals = [self._vec(v) for v in vals]
+        lens = {len(v) for v in vals if isinstance(v, list)}
+        if len(lens) > 1:
+            raise NotImplementedError(f"vectors of lengths {sorted(lens)} "
+                                      f"combined elementwise in {name}")
+        if not lens:
+            return fn(name, *vals)
+        n = lens.pop()
+        return [fn(f"{name}__{i}", *[v[i] if isinstance(v, list) else v
+                                    for v in vals]) for i in range(n)]
+
+    def _dot(self, name, a, b):
+        """sum_i a_i b_i, left to right, one statement per operation."""
+        acc = 0.0
+        for k, (x, y) in enumerate(zip(a, b)):
+            acc = self._bin(f"{name}__s{k}", "+", acc,
+                            self._bin(f"{name}__m{k}", "*", x, y))
+        return acc
+
+    def _matmul(self, name, a, b):
+        if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+            return a @ b
+        if isinstance(a, np.ndarray) and a.ndim == 2:
+            bv = self._vec(b)
+            if not isinstance(bv, list) or len(bv) != a.shape[1]:
+                raise NotImplementedError(f"matmul of a {a.shape} constant with "
+                                          "a value of another length")
+            return [self._dot(f"{name}__{i}", [float(c) for c in a[i]], bv)
+                    for i in range(a.shape[0])]
+        if isinstance(b, np.ndarray) and b.ndim == 2:
+            av = self._vec(a)
+            if not isinstance(av, list) or len(av) != b.shape[0]:
+                raise NotImplementedError(f"matmul of a value with a {b.shape} "
+                                          "constant of another length")
+            return [self._dot(f"{name}__{j}", av, [float(c) for c in b[:, j]])
+                    for j in range(b.shape[1])]
+        av, bv = self._vec(a), self._vec(b)
+        if not (isinstance(av, list) and isinstance(bv, list) and len(av) == len(bv)):
+            raise NotImplementedError("matmul is supported for a constant matrix "
+                                      "times a vector or a dot product of two "
+                                      "vectors of one length")
+        return self._dot(name, av, bv)
+
+    # ----- one fx node -----------------------------------------------------
+    def _lower(self, gm, env, n):
+        name = "v_" + n.name
+        tgt = n.target
+        call = n.op == "call_function"
+        meth = n.op == "call_method"
+        if n.op == "get_attr":
+            c = functools.reduce(getattr, tgt.split("."), gm)
+            return np.asarray(torch.as_tensor(c).detach().cpu().double().numpy())
+        if meth and tgt == "to":
+            return self._value(env, n.args[0])
+        if call and tgt is torch.stack:
+            dim = n.kwargs.get("dim", n.args[1] if len(n.args) > 1 else 0)
+            if dim != 0 or set(n.kwargs) - {"dim"}:
+                raise NotImplementedError("torch.stack is supported only over dim 0")
+            return self._value(env, list(n.args[0]))
+        if n.kwargs:
+            raise NotImplementedError(
+                f"op {_op_name(n)!r} with keyword arguments {dict(n.kwargs)}")
+        args = [self._value(env, a) for a in n.args]
+        if call and tgt is operator.getitem:
+            base, idx = args[0], n.args[1]
+            if isinstance(base, _Input) and isinstance(idx, int):
+                if base.dim is not None:
+                    if not -base.dim <= idx < base.dim:
+                        raise NotImplementedError(
+                            f"index {idx} out of range for input {base.name!r} "
+                            f"({base.dim})")
+                    idx %= base.dim
+                return self._emit(name, f"{base.name}[{idx}]", base.dual)
+            if not isinstance(idx, (int, slice)):
+                raise NotImplementedError(
+                    "getitem is supported only with an integer or a slice")
+            v = base if isinstance(base, np.ndarray) else self._vec(base)
+            if not isinstance(v, (list, np.ndarray)):
+                raise NotImplementedError("getitem on a scalar")
+            return v[idx]
+        if call and tgt in _BIN:
+            sym = _BIN[tgt]
+            return self._map(name, lambda nm, x, y: self._bin(nm, sym, x, y), *args)
+        if (call and tgt in _UNARY) or (meth and tgt in _METHODS):
+            fn = _UNARY[tgt] if call else _METHODS[tgt]
+            return self._map(name, lambda nm, x: self._unary(nm, fn, x), args[0])
+        if call and tgt in _POW:
+            a, c = args
+            if not _is_num(c):
+                raise NotImplementedError(
+                    "pow is supported only with a scalar exponent")
+            return self._map(name, lambda nm, x: self._pow(nm, x, c), a)
+        if call and tgt in _MAXMIN:
+            fn = _MAXMIN[tgt]
+            return self._map(
+                name, lambda nm, x, y: self._select(
+                    nm, f"{fn}({self._x(x)}, {self._x(y)})",
+                    not _is_num(x) and x.dual or not _is_num(y) and y.dual),
+                *args)
+        if call and tgt in _CMP:
+            sym = _CMP[tgt]
+
+            def cmp(nm, x, y):
+                return self._emit(nm, f"(mpc_val({self._x(x)}) {sym} "
+                                  f"mpc_val({self._x(y)}))", False, 1)
+            return self._map(name, cmp, *args)
+        if call and tgt is torch.where:
+            return self._map(
+                name, lambda nm, c, x, y: self._select(
+                    nm, f"mpc_where({c.expr}, {self._x(x)}, {self._x(y)})",
+                    not _is_num(x) and x.dual or not _is_num(y) and y.dual),
+                *args)
+        if (call and tgt in _MATMUL) or (meth and tgt in ("matmul", "__matmul__")):
+            return self._matmul(name, *args)
+        raise NotImplementedError(
+            f"op {_op_name(n)!r} ({n.op}) is not supported by the CUDA "
+            f"sweep's code generator; supported: {SUPPORTED}")
+
+    def _write_out(self, result, out_dim):
+        if out_dim is None:
+            val = self._vec(result) if result is not None else None
+            if not (_is_num(val) or isinstance(val, Scalar)):
+                raise NotImplementedError(f"the {self.what} must return a scalar")
+            items = [val]
+        else:
+            items = self._vec(result) if result is not None else None
+            if not isinstance(items, list) or len(items) != out_dim:
+                raise NotImplementedError(
+                    f"the {self.what} must return {out_dim} stacked components")
+        self.out = [self._x(self._scalar(it)) for it in items]
+        # keep the statements an output needs, as the compiler does
+        live = set(_VAR.findall(" ".join(self.out)))
+        keep = []
+        for st in reversed(self._stmts):
+            if st.name in live:
+                keep.append(st)
+                live.update(_VAR.findall(st.expr))
+        keep.reverse()
+        self.ops = sum(st.ops for st in keep)
+        self.lines = [f"  auto {st.name} = {st.expr};" for st in keep]
+        self.lines += [f"  out[{i}] = {e};" for i, e in enumerate(self.out)]
+
+    # ----- run the statements in Python ------------------------------------
+    def execute(self, **inputs):
+        """Run the lowered statements on torch tensors: each named input is
+        a tensor (a vector input indexed along its first dimension).
+        Returns the list of output components.  Used by the CPU tests."""
+        def val(a):
+            return a if torch.is_tensor(a) else torch.tensor(a, dtype=torch.float64)
+
+        def where(c, a, b):
+            return torch.where(c, val(a), val(b))
+
+        scope = dict(
+            S=float, NAN=math.nan, INFINITY=math.inf,
+            mpc_exp=torch.exp, mpc_log=torch.log, mpc_sqrt=torch.sqrt,
+            mpc_pow=torch.pow, mpc_val=lambda a: a, mpc_where=where,
+            mpc_max=lambda a, b: torch.maximum(val(a), val(b)),
+            mpc_min=lambda a, b: torch.minimum(val(a), val(b)))
+        scope.update(inputs)
+        scope["out"] = [None] * len(self.out)
+        for line in self.lines:
+            exec(line.strip().removeprefix("auto ").rstrip(";"), scope)
+        return scope["out"]

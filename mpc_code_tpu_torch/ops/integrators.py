@@ -68,3 +68,51 @@ def rk4_stage_jac(f: Callable, Mx: int, clip_lo=None, clip_hi=None):
     from mpc_code_tpu_torch.ops.sweep_cuda import Rk4StageJac
 
     return Rk4StageJac(f, Mx, clip_lo=clip_lo, clip_hi=clip_hi)
+
+
+def rk4_quad(f: Callable, q: Callable, Mx: int) -> Callable:
+    """Integrate ``x' = f(x, t, *args)`` and the quadrature ``L' = q(x, t, *args)``.
+
+    Returns ``F(x, t0, h, *args) -> (x(t0+h), ∫ q dt)``, the fixed-step RK4
+    quadrature that replaces the reference's IDAS quadrature for ContForm
+    economic objectives (reference: Control_Calc.py:109-111).
+    """
+
+    def step(x, t0, h, *args):
+        dt = h / Mx
+        tk = (t0.to(x.dtype) if torch.is_tensor(t0)
+              else torch.tensor(t0, dtype=x.dtype, device=x.device))
+        xk = x
+        acc = torch.zeros((), dtype=x.dtype, device=x.device)
+        for _ in range(Mx):
+            k1 = f(xk, tk, *args)
+            q1 = q(xk, tk, *args)
+            k2 = f(xk + dt / 2 * k1, tk + dt / 2, *args)
+            q2 = q(xk + dt / 2 * k1, tk + dt / 2, *args)
+            k3 = f(xk + dt / 2 * k2, tk + dt / 2, *args)
+            q3 = q(xk + dt / 2 * k2, tk + dt / 2, *args)
+            k4 = f(xk + dt * k3, tk + dt, *args)
+            q4 = q(xk + dt * k3, tk + dt, *args)
+            xk = xk + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+            acc = acc + dt / 6 * (q1 + 2 * q2 + 2 * q3 + q4)
+            tk = tk + dt
+        return xk, acc
+
+    return step
+
+
+def rk4_quad_stage_hess(f: Callable, q: Callable, Mx: int):
+    """ContForm stage sweep: dynamics value and Jacobians, and the
+    quadrature cost's value, gradient and Hessian, batched.
+
+    ``f(x, t, u, d, px, xs, us, py)`` and ``q(...)`` (same arguments,
+    scalar result) are written so that each argument may arrive as one
+    point or lanes-minor (dim, L).  Returns ``F(xs (B,N,nx), us (B,N,nu),
+    pxs (B,N,npx), pys (B,N,npy), t (B,), h (B,), d (B,nd), x_ss (B,nx),
+    u_ss (B,nu)) -> (xf (B,N,nx), Jx, Ju, qv (B,N), gq (B,N,nz),
+    Hq (B,N,nz,nz))``: on CUDA tensors the hand-written kernel of
+    ``ops/sweep_cf_cuda.py``, on CPU tensors its plain PyTorch version.
+    """
+    from mpc_code_tpu_torch.ops.sweep_cf_cuda import Rk4QuadStageHess
+
+    return Rk4QuadStageHess(f, q, Mx)

@@ -1,7 +1,8 @@
-"""Structure-exploiting interior-point solver for shooting OCPs (part 1).
+"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-2).
 
-Port of ``mpc_code_tpu/solver/riccati.py`` for the configuration of the
-batched CSTR NMPC bench: plain continuous shooting with output bounds,
+Port of ``mpc_code_tpu/solver/riccati.py`` for two configurations: plain
+continuous shooting (the batched CSTR NMPC bench) and the ContForm
+economic transcription (Ex_ENMPC), each with or without output bounds, with
 the Gauss-Newton Hessian, the monotone barrier, the rollout-free adaptive
 step controller (``ls_mode='adaptive'``) and best-iterate bookkeeping.
 Every other configuration raises ``NotImplementedError`` naming its
@@ -15,9 +16,13 @@ point and their derivatives come from ``torch.func`` (``grad``,
 ``hessian``, ``jacfwd``) vmapped over the B*N (scenario, stage) points.
 
 Per iteration the solver runs two hand-written CUDA kernels on the card:
-the RK4 stage-Jacobian sweep (``ops/sweep_cuda.py``, through
-``StructuredOCP.stage_dyn_jac``) and the Riccati KKT solve
-(``solver/riccati_kernel.py``).  The rest is IPM algebra on whole tensors.
+a derivative sweep, either the RK4 stage-Jacobian sweep
+(``ops/sweep_cuda.py``, through ``StructuredOCP.stage_dyn_jac``) or, for a
+ContForm OCP, the joint dynamics-and-quadrature sweep
+(``ops/sweep_cf_cuda.py``, through ``StructuredOCP.stage_cf``, which also
+gives the stage cost's value, gradient and Hessian), and the Riccati KKT
+solve (``solver/riccati_kernel.py``).  The rest is IPM algebra on whole
+tensors.
 
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
 freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
@@ -67,6 +72,10 @@ class StructuredOCP:
     ``cost_N`` on one ``(xa, pN)`` with ``pN = {"xs", "_sf"}``.
     ``stage_dyn_jac`` is batched: ``(X (B,N,nxa), U (B,N,nu), p) ->
     (dval, A, B)`` in scaled units through the CUDA sweep on the card.
+    A ContForm OCP has ``stage_cf`` instead: ``(X, U, p) -> (dval, A, B,
+    qv (B,N), gq (B,N,nz), Hq (B,N,nz,nz))``, the quadrature cost's value,
+    gradient and Hessian (scaled) from the same rollout.  ``ineq`` is None
+    when ``ni = 0``.
     """
 
     N: int
@@ -75,7 +84,7 @@ class StructuredOCP:
     ni: int
     cost: Callable
     cost_N: Callable
-    ineq: Callable
+    ineq: Optional[Callable]
     lbi: np.ndarray
     ubi: np.ndarray
     lbx: np.ndarray
@@ -86,9 +95,10 @@ class StructuredOCP:
     sxa: np.ndarray
     su: np.ndarray
     si: np.ndarray
-    stage_dyn_jac: Callable
+    stage_dyn_jac: Optional[Callable]
     device: torch.device
-    sweep: Optional[Callable] = None   # the RK4 stage-Jacobian sweep it runs
+    sweep: Optional[Callable] = None   # the sweep kernel's wrapper it runs
+    stage_cf: Optional[Callable] = None
 
 
 class StructResult(NamedTuple):
@@ -156,52 +166,78 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     py (N,npy)}.  Runs on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     b = cfg.bounds
-    if cfg.ContForm:
-        raise _todo("ContForm (continuous-quadrature stage cost)",
-                    "Queue 1 item 15")
-    if cfg.Collocation:
+    cont_form = cfg.ContForm
+    # ContForm wins over Collocation, and ignores Delta-u rows and the
+    # discrete cost forms, as in the reference (JAX riccati.py:244-249, 287-290)
+    if cfg.Collocation and not cont_form:
         raise _todo("Collocation", "Queue 1 item 20")
     if not isinstance(cfg.model, ContinuousModel):
         raise _todo(f"the structured OCP for {type(cfg.model).__name__}",
                     "Queue 1 items 19 and 24")
-    if cfg.slacks:
+    ymin = b.resolved("dyn", "ymin")
+    ymax = b.resolved("dyn", "ymax")
+    y_free = ymin is None and ymax is None
+    if cfg.slacks and not y_free:
         raise _todo("shared output slacks", "Queue 1 item 21")
     if cfg.TermCons:
         raise _todo("TermCons", "Queue 1 item 21")
     if cfg.H_eq is not None or cfg.G_ineq is not None:
         raise _todo("user stage constraints H_eq / G_ineq", "Queue 1 item 21")
-    if (b.Dumin is not None or b.Dumax is not None or cfg.DUForm
-            or cfg.DUFormEcon):
+    if not cont_form and (b.Dumin is not None or b.Dumax is not None
+                          or cfg.DUForm or cfg.DUFormEcon):
         raise _todo("Delta-u bounds and costs (u_prev augmentation)",
                     "Queue 1 item 21")
     nx, nu, ny = cfg.nx, cfg.nu, cfg.ny
-    ymin = b.resolved("dyn", "ymin")
-    ymax = b.resolved("dyn", "ymax")
-    if ymin is None and ymax is None:
-        raise _todo("OCPs without output bounds (ni = 0)", "Queue 1 item 21")
     xmin = b.resolved("dyn", "xmin")
     xmax = b.resolved("dyn", "xmax")
     umin = b.resolved("dyn", "umin")
     umax = b.resolved("dyn", "umax")
-    nxa, ni = nx, ny
+    nxa, ni = nx, (0 if y_free else ny)
     h = float(cfg.h)
     qform = cfg.QForm
 
     def y_of(x, u, pk):
         return model.fy(x, u, pk["d"], pk["t"], pk["py"]) + pk["lam"] @ (u - pk["us"])
 
-    def raw_cost(x, u, pk):
-        yk = y_of(x, u, pk)
-        ys = model.fy(pk["xs"], pk["us"], pk["d"], pk["t"], pk["py0"])
-        dx, du, dy = x, u, yk
-        if qform:
-            dx = dx - pk["xs"]
-            du = du - pk["us"]
-            dy = dy - ys
-        return f_obj(dx, du, dy, pk["xs"], pk["us"], ys)
+    if cont_form:
+        # integrate xdot = fx(x,u,d,t,px) + px and the continuous economic
+        # stage cost as a quadrature over each interval (JAX riccati.py:
+        # 311-333; Control_Calc.py:102-111,153-158)
+        from mpc_code_tpu_torch.ops.integrators import (
+            rk4_quad, rk4_quad_stage_hess,
+        )
 
-    lbi = np.asarray(ymin, float).reshape(-1) if ymin is not None else np.full(ny, -np.inf)
-    ubi = np.asarray(ymax, float).reshape(-1) if ymax is not None else np.full(ny, np.inf)
+        user_fx_c, Mx_c = cfg.model.fx, cfg.model.Mx
+
+        def _ode(x, t, u, d, px, xs, us, py):
+            return user_fx_c(x, u, d, t, px) + px
+
+        def _quad(x, t, u, d, px, xs, us, py):
+            y = model.fy(x, u, d, t, py)
+            ystat = model.fy(xs, us, d, t, py)
+            return f_obj(x, u, y, xs, us, ystat)
+
+        integ_cont = rk4_quad(_ode, _quad, Mx_c)
+
+        def raw_cost(x, u, pk):
+            return integ_cont(x, pk["t"], h, u, pk["d"], pk["px"], pk["xs"],
+                              pk["us"], pk["py"])[1]
+    else:
+        def raw_cost(x, u, pk):
+            yk = y_of(x, u, pk)
+            ys = model.fy(pk["xs"], pk["us"], pk["d"], pk["t"], pk["py0"])
+            dx, du, dy = x, u, yk
+            if qform:
+                dx = dx - pk["xs"]
+                du = du - pk["us"]
+                dy = dy - ys
+            return f_obj(dx, du, dy, pk["xs"], pk["us"], ys)
+
+    if y_free:
+        lbi = ubi = np.zeros(0)
+    else:
+        lbi = np.asarray(ymin, float).reshape(-1) if ymin is not None else np.full(ny, -np.inf)
+        ubi = np.asarray(ymax, float).reshape(-1) if ymax is not None else np.full(ny, np.inf)
     lbx = np.asarray(xmin, float) if xmin is not None else np.full(nx, -np.inf)
     ubx = np.asarray(xmax, float) if xmax is not None else np.full(nx, np.inf)
     lbu = np.asarray(umin, float).reshape(-1) if umin is not None else np.full(nu, -np.inf)
@@ -228,6 +264,32 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     def x0_s(p):
         return p["x0"] / _t(sxa, p["x0"])
 
+    common = dict(N=cfg.N, nxa=nxa, nu=nu, ni=ni, cost=cost_s,
+                  cost_N=cost_N_s, ineq=ineq_s if ni else None,
+                  lbi=lbi / si, ubi=ubi / si, lbx=lbx / sxa, ubx=ubx / sxa,
+                  lbu=lbu / su, ubu=ubu / su, x0_of_p=x0_s,
+                  sxa=sxa, su=su, si=si, device=dev)
+
+    if cont_form:
+        # the joint rollout sweep: dynamics Jacobians and the quadrature
+        # cost's gradient and Hessian from one pass (JAX riccati.py:686-715)
+        sweep_cf = rk4_quad_stage_hess(_ode, _quad, Mx_c)
+        sz = np.concatenate([sxa, su])
+
+        def stage_cf(Xs, Us, p):
+            s_x, s_u, s_z = _t(sxa, Xs), _t(su, Us), _t(sz, Xs)
+            hb = torch.full((Xs.shape[0],), h, dtype=Xs.dtype, device=Xs.device)
+            xf, Jx, Ju, qv, gq, Hq = sweep_cf(
+                Xs * s_x, Us * s_u, p["px"], p["py"], p["t"], hb, p["d"],
+                p["xs"], p["us"])
+            A = Jx * (s_x[None, :] / s_x[:, None])
+            Bm = Ju * (s_u[None, :] / s_x[:, None])
+            return (xf / s_x, A, Bm, qv, gq * s_z,
+                    Hq * (s_z[:, None] * s_z[None, :]))
+
+        return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
+                             stage_cf=stage_cf)
+
     from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
 
     m = cfg.model
@@ -251,21 +313,18 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         Bm = Ju * (s_u[None, :] / s_x[:, None])
         return dval, A, Bm
 
-    return StructuredOCP(N=cfg.N, nxa=nxa, nu=nu, ni=ni, cost=cost_s,
-                         cost_N=cost_N_s, ineq=ineq_s,
-                         lbi=lbi / si, ubi=ubi / si, lbx=lbx / sxa, ubx=ubx / sxa,
-                         lbu=lbu / su, ubu=ubu / su, x0_of_p=x0_s,
-                         sxa=sxa, su=su, si=si, stage_dyn_jac=stage_dyn_jac,
-                         device=dev, sweep=sweep)
+    return StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep)
 
 
-def make_stage_derivs(s: StructuredOCP) -> Callable:
+def make_stage_derivs(s: StructuredOCP, skip_cost: bool = False) -> Callable:
     """Per-point derivative sweep ``(z (nz,), pk) -> (H, gc, E, ival)``: the
     Gauss-Newton cost Hessian and gradient (``pk["_sf"]`` scales the
     objective) and the inequality Jacobian with its value — the JAX
     ``make_stage_derivs(s, 'gauss_newton', skip_dyn=True)``.  The dynamics
     value and Jacobians come from ``s.stage_dyn_jac`` (the CUDA sweep).
-    Batch it with ``torch.func.vmap`` over (scenario, stage) points."""
+    With ``skip_cost`` (the ContForm joint sweep gives H and gc) H and gc
+    are left out, and with ``s.ni == 0`` E and ival.  Batch it with
+    ``torch.func.vmap`` over (scenario, stage) points."""
     nxa = s.nxa
 
     def c_of_z(zz, pk):
@@ -276,10 +335,10 @@ def make_stage_derivs(s: StructuredOCP) -> Callable:
         return v, v
 
     def stage_derivs(z, pk):
-        H = hessian(c_of_z)(z, pk)
-        gc = grad(c_of_z)(z, pk)
-        E, ival = jacfwd(ineq_aux, has_aux=True)(z, pk)
-        return H, gc, E, ival
+        out = () if skip_cost else (hessian(c_of_z)(z, pk), grad(c_of_z)(z, pk))
+        if s.ni:
+            out += jacfwd(ineq_aux, has_aux=True)(z, pk)
+        return out
 
     return stage_derivs
 
@@ -336,13 +395,16 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
     N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
     nz = nxa + nu
-    v_stage = vmap(make_stage_derivs(s))
-
-    def _cN(xx, pN):
-        return pN["_sf"] * s.cost_N(xx, pN)
+    # ContForm: the joint sweep gives the stage cost's value, gradient and
+    # Hessian beside the dynamics (JAX fast_cf, riccati.py:1150)
+    fast_cf = s.stage_cf is not None
+    v_stage = vmap(make_stage_derivs(s, skip_cost=fast_cf)) if (ni or not fast_cf) else None
 
     def _cstage(zz, pk):
         return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
+
+    def _cN(xx, pN):
+        return pN["_sf"] * s.cost_N(xx, pN)
 
     v_cost = vmap(_cstage)
     v_grad_c0 = vmap(grad(lambda zz, pk: s.cost(zz[:nxa], zz[nxa:], pk)))
@@ -350,7 +412,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     v_grad_N = vmap(grad(_cN))
     v_hess_N = vmap(hessian(_cN))
     v_grad_N0 = vmap(grad(lambda xx, pN: s.cost_N(xx, pN)))
-    v_ineq = vmap(lambda zz, pk: s.ineq(zz[:nxa], zz[nxa:], pk))
+    v_ineq = vmap(lambda zz, pk: s.ineq(zz[:nxa], zz[nxa:], pk)) if ni else None
 
     def _mdiv(num, den, mask):
         return torch.where(mask, num / torch.where(mask, den, torch.ones_like(den)),
@@ -420,7 +482,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         pk["_sf"] = sf.repeat_interleave(N)
         pN["_sf"] = sf
 
-        S_init = push(v_ineq(Zs0, pk).reshape(Bsz, N, ni), lbi, ubi, hli, hui)
+        S_init = (push(v_ineq(Zs0, pk).reshape(Bsz, N, ni), lbi, ubi, hli, hui)
+                  if ni else torch.zeros((Bsz, N, 0), **kw))
 
         def dual_init(z, lb, ub, hl, hu):
             m0 = _lane(mu0, z)
@@ -459,15 +522,26 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             return tl.flatten(1).sum(1) + tu.flatten(1).sum(1)
 
         def sweep(st):
+            """H, gc, A, Bm, E, ival, dval at the iterate, and qv, the
+            ContForm quadrature there (None otherwise)."""
             X, U = st["X"], st["U"]
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
-            H, gc, E, ival = v_stage(Zs, pk)
-            dval, A, Bm = s.stage_dyn_jac(X[:, :N], U, p)
-            return (H.reshape(Bsz, N, nz, nz), gc.reshape(Bsz, N, nz),
-                    A, Bm, E.reshape(Bsz, N, ni, nz), ival.reshape(Bsz, N, ni),
-                    dval)
+            derivs = v_stage(Zs, pk) if v_stage is not None else ()
+            qv = None
+            if fast_cf:
+                dval, A, Bm, qv, gq, Hq = s.stage_cf(X[:, :N], U, p)
+                H, gc = sf[:, None, None, None] * Hq, sf[:, None, None] * gq
+            else:
+                H, gc = derivs[0].reshape(Bsz, N, nz, nz), derivs[1].reshape(Bsz, N, nz)
+                derivs = derivs[2:]
+                dval, A, Bm = s.stage_dyn_jac(X[:, :N], U, p)
+            if ni:
+                E, ival = derivs[0].reshape(Bsz, N, ni, nz), derivs[1].reshape(Bsz, N, ni)
+            else:
+                E, ival = torch.zeros((Bsz, N, 0, nz), **kw), torch.zeros((Bsz, N, 0), **kw)
+            return H, gc, A, Bm, E, ival, dval, qv
 
-        def ipm_step(st, H, gc, A, Bm, E, ival, dval):
+        def ipm_step(st, H, gc, A, Bm, E, ival, dval, qv):
             X, U, S = st["X"], st["U"], st["S"]
             lam, nus, zl, zu = st["lam"], st["nus"], st["zl"], st["zu"]
             mu_c = st["mu"]
@@ -590,7 +664,12 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             c_norm = r_d.abs().flatten(1).sum(1) + r_i.abs().flatten(1).sum(1)
             lam_inf = torch.maximum(_amax0(lam_new.abs()), _amax0((nus + dnu).abs()))
             nu_pen = torch.maximum(1.5 * lam_inf + 1e-4, 0.5 * st["nu_pen"])
-            cost0 = total_cost(X, U)
+            if qv is not None:
+                # the ContForm sweep already integrated the stage quadrature
+                # at this point: no second cost rollout (JAX riccati.py:1883-1888)
+                cost0 = sf * qv.sum(1) + v_cost_N(X[:, N], pN)
+            else:
+                cost0 = total_cost(X, U)
             psi0 = cost0 - mu * bar_of(Z) + nu_pen * c_norm
             slack_tol = 10.0 * torch.finfo(dtype).eps * (psi0.abs() + 1.0)
             psi0_c = torch.where(torch.isnan(psi0), inf, psi0)

@@ -9,7 +9,7 @@ import torch
 
 torch.set_num_threads(1)
 
-NH, MX, LANES = 8, 4, 3
+NH, MX, LANES = 6, 2, 3
 
 
 def test_pipeline_merges_the_rescue_answers():
