@@ -9,14 +9,16 @@ NVIDIA H100 and the CUDA toolkit:
 It never imports JAX or the JAX package.  Phases:
 
 1. the card's name and power limit (nvidia-smi), then builds the CUDA
-   kernels of both paths from ``mpc_code_tpu_torch/csrc``, one ``nvcc``
-   each, all started together;
+   kernels of the three paths from ``mpc_code_tpu_torch/csrc``, one
+   ``nvcc`` each, all started together;
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
    ``|a-b|/(1+|b|)`` and the kernel and plain times (CUDA events): the RK4
    stage-Jacobian sweep and the Riccati KKT solve at the CSTR path's
    shapes, the ContForm joint sweep and the Riccati KKT solve at the
-   ENMPC path's (N=25, nxa=2, nu=1);
+   ENMPC path's (N=25, nxa=2, nu=1), the discrete map's stage-Jacobian
+   sweep and the Riccati KKT solve at the quadruple tank's (N=50, nxa=8,
+   nu=2);
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
    draws, pass-1 cap 12, one combined steady/coolhold rescue at 2x512
@@ -32,7 +34,11 @@ It never imports JAX or the JAX package.  Phases:
    iteration); every failing lane re-solved on the CPU in f64 and
    classified; 64 lanes cross-checked as in phase 3, with the Riccati
    ``ok`` flags of every iteration recorded in each run;
-5. one ``{"kernels": [...]}`` line, and as the last line
+5. quadruple-tank (nmpc_dis) slice phase: ``examples/nmpc_dis_workload.py``
+   — per lane the steady-state target by the dense IPM, then a cold solve
+   of the Delta-u OCP (the u_prev augmentation, nxa=8) at it — B=16384,
+   N=50, seed-0 draws, f32, checked as in phase 4;
+6. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -48,6 +54,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -57,7 +64,13 @@ B = 16384                          # lanes of the bench and ENMPC workloads
 N_CHECK = 64                       # lanes cross-checked on the CPU in f64
 
 TOL_F64 = 1e-10
-TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e-4}
+# map_stage_jac: the kernel and the plain version, each in f32, differ by
+# up to 3.608e-4 on the check's lanes: levels down to 0.5 with little
+# inflow drain towards 0 inside the map, where the square root's
+# derivative grows (PERF.md, kernel 3; each is also held to the plain
+# version in f64 there)
+TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e-4,
+           "map_stage_jac": 1e-3}
 # Converged U against the CPU f64 path, over the input box.  Two f64 runs
 # differ only in rounding order and stop on the same iterate: U_TOL.  An f32
 # run measures its KKT error with f32 rounding, and near the 1e-3 tolerance
@@ -69,17 +82,22 @@ TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e
 U_TOL = 1e-2
 U_TOL_MOVED = 3e-2
 OK_FRACTION_MIN = 0.998
-# ENMPC: converged U against the CPU f64 path over the input box [0, 2].
-# Measured on the 64 lanes: the card's f32 answers and the CPU f32 path lie
-# 3.727e-5 away and stop on the same iteration as f64 on every lane; the
-# card's f64 run 1.2e-15.  ENMPC_U_TOL keeps a 25x margin over that.  No
-# lane has stopped on another iteration; one that does is allowed
-# ENMPC_U_TOL_MOVED, ten times more, for a step more or less near the 1e-3
-# tolerance (not measured; PERF.md, ENMPC section).
+# The controller paths (ENMPC, nmpc_dis): converged U against the CPU f64
+# path, over the input box.  A lane that stops on another iteration than
+# f64 is allowed CONTROLLER_U_TOL_MOVED, a step of 1% of the box (not
+# measured: no lane has; PERF.md, section 2).  Either path fails on any
+# failing lane (status 2) that f64 does not share.
+# ENMPC, box [0, 2]: the card's f32 answers and the CPU f32 path lie
+# 3.727e-5 away on the 64 lanes and stop on the same iteration as f64 on
+# every lane, the card's f64 run 1.2e-15; ENMPC_U_TOL keeps a 25x margin.
+# nmpc_dis, box [0, 100] (targets in f64 on every run): 9.076e-8, the
+# card's f64 run 1.1e-15; the f32 OCP stops on an iterate that f64 also
+# reaches, so NMPC_DIS_U_TOL allows 100x that.
 ENMPC_U_TOL = 1e-3
-ENMPC_U_TOL_MOVED = 1e-2
-ENMPC_OK_FRACTION_MIN = 0.999
-ENMPC_RESOLVE_MAX = 64             # failing lanes re-solved on the CPU in f64
+NMPC_DIS_U_TOL = 1e-5
+CONTROLLER_U_TOL_MOVED = 1e-2
+CONTROLLER_OK_FRACTION_MIN = 0.999
+RESOLVE_MAX = 64                   # failing lanes re-solved on the CPU in f64
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
 
@@ -312,6 +330,98 @@ def enmpc_kernel_phase(dev, eprob, results):
     return failures
 
 
+def map_inputs(dtype, device, N, seed=4):
+    """Inputs of the discrete-map sweep at the nmpc_dis path's shapes:
+    valve states and inputs over [0, 100], tank levels over [0.5, 20],
+    small parameters, disturbances over the lane box.  Lane 0 has a level
+    exactly on the clip bound 20 (a tie, F1), lane 1 one above it, and lane
+    2 an empty tank 3 with no inflow (sqrt at 0: non-finite tangents, as in
+    JAX)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xs = np.concatenate([rng.uniform(0.0, 100.0, size=(B, N, 2)),
+                         rng.uniform(0.5, 20.0, size=(B, N, 4))], -1)
+    us = rng.uniform(0.0, 100.0, size=(B, N, 2))
+    xs[0, :, 2] = 20.0
+    xs[1, :, 3] = 21.0
+    xs[2, :, 4] = 0.0
+    us[2, :, 1] = 0.0
+    arrs = [xs, us, rng.normal(size=(B, N, 6)) * 1e-3, np.zeros(B),
+            rng.uniform(-0.5, 0.5, size=(B, 2))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def nonfinite_err(got, ref):
+    """(max normalised error over entries finite in both, whether the
+    non-finite entries sit in the same places, lanes with any)."""
+    err, same, lanes = 0.0, True, set()
+    for g, r in zip(got, ref):
+        fg, fr = g.isfinite(), r.isfinite()
+        same = same and bool((fg == fr).all())
+        lanes |= {int(i) for i in (~fr.flatten(1).all(1)).nonzero().flatten()}
+        m = fg & fr
+        if m.any():
+            err = max(err, nerr(g[m], r[m]))
+    return err, same, sorted(lanes)
+
+
+def nmpc_dis_kernel_phase(dev, dprob, results):
+    """Kernel 3 (the discrete map's stage-Jacobian sweep) and kernel 2 at
+    the nmpc_dis path's shapes, each against its plain version."""
+    import torch
+
+    from mpc_code_tpu_torch.ops import sweep_map_cuda
+
+    failures = []
+    cfg = dprob.cfg
+    sweep = dprob.socp.sweep
+    nx, nu, nd, npx = cfg.nx, cfg.nu, cfg.nd, cfg.npx
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).replace("torch.", "")
+        arrs = map_inputs(dtype, dev, cfg.N)
+        got = sweep(*arrs)
+        ref = sweep.plain(*arrs)
+        torch.cuda.synchronize()
+        err, same, nf_lanes = nonfinite_err(got, ref)
+        # each f32 result against the plain version in f64 on the same inputs
+        ref64 = sweep.plain(*[a.double() for a in arrs])
+        err64 = [nonfinite_err(r, ref64)[0] for r in (got, ref)]
+        abs_err = max(float((g - r)[g.isfinite() & r.isfinite()].abs().max())
+                      for g, r in zip(got, ref))
+        err_tie = max(nerr(g[:2], r[:2]) for g, r in zip(got, ref))
+        planes = sweep.pack(*arrs)
+        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
+        plain_ms = cuda_ms(lambda: sweep.plain(*arrs), 2)
+        byt = sweep_map_cuda.map_bytes(B, cfg.N, nx, nu, nd, npx, arrs[0].element_size())
+        ops_lane = sweep_map_cuda.map_ops_per_lane(sweep.f, nx, nu, nd, npx)
+        t_b = byt / H100_BYTES_PER_S * 1e3
+        t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32["map_stage_jac"]
+        log(f"# kernel map_stage_jac {tname}: max_norm_err={err:.3e} "
+            f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
+            f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
+            f"nonfinite_lanes={nf_lanes} nonfinite_pattern_equal={same} "
+            f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
+            f"{ops_lane} operations per lane)")
+        # and the kernel no farther from the f64 plain version than twice
+        # the plain version in the same dtype
+        closer = err64[0] <= 2 * err64[1] + TOL_F64
+        if not (err <= tol and err_tie <= tol and same and closer):
+            failures.append(f"map_stage_jac {tname} error {err:.3e} > {tol:g}, "
+                            f"non-finite pattern equal {same}, against f64 "
+                            f"{err64[0]:.3e} vs plain {err64[1]:.3e}")
+        results["map_stage_jac"][tname] = dict(
+            max_norm_err=err, tie_norm_err=err_tie, max_abs_err=abs_err,
+            err_vs_f64=err64, nonfinite_lanes=nf_lanes, ms=ms, wrapper_ms=wrap_ms,
+            plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+        failures += riccati_check(dev, dtype, cfg.N, dprob.socp.nxa, dprob.socp.nu,
+                                  results["riccati_kkt_nmpc_dis"])
+    return failures
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -503,30 +613,68 @@ def record_ok_flags(runs):
     return lambda: setattr(riccati, "riccati_kkt", inner)
 
 
-def enmpc_phase(dev, eprob, launches):
-    """The ENMPC path at B lanes in f32: timed run with the launch counters
-    around it, a profiled OCP solve, the failing lanes re-solved in f64 on
-    the CPU, and the 64-lane cross-check."""
+class Path(NamedTuple):
+    """One controller-solve path (per lane a target by the dense IPM, then
+    a cold OCP solve at it) as the smoke drives it, through its workload
+    module's ``draw_lanes``, ``run_pipeline``, ``solve_targets`` and
+    ``solve_ocps``."""
+    name: str
+    wl: Any                # the workload module
+    prob: Any              # its Problem on the card
+    sweep_mod: Any         # the module that counts the sweep's launches
+    sweep_key: str         # the sweep kernel's key in results and launches
+    rk_key: str            # kernel 2's key on this path
+    u_tol: float           # converged U against the CPU f64 path, over the box
+
+
+def record_nonfinite(sweep, seen: set):
+    """Wrap a sweep kernel's launch so that the scenarios whose outputs hold
+    a non-finite value (a square root's derivative at an empty tank) are
+    added to ``seen``; returns the function that undoes the wrap."""
+    inner = sweep.launch
+
+    def launch(*a):
+        out = inner(*a)
+        bad = sum((~o.flatten(1).isfinite()).any(1).int() for o in out)
+        seen.update(int(i) for i in bad.nonzero().flatten())
+        return out
+
+    sweep.launch = launch
+    return lambda: delattr(sweep, "launch")
+
+
+def controller_phase(dev, path: Path, launches):
+    """A controller path at B lanes in f32: timed run with the launch
+    counters around it, a profiled OCP solve, the failing lanes re-solved
+    in f64 on the CPU, and the 64-lane cross-check."""
     import torch
 
-    from mpc_code_tpu_torch.examples import enmpc_workload as ew
-    from mpc_code_tpu_torch.ops import sweep_cf_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
+    name, wl, prob = path.name, path.wl, path.prob
     failures = []
-    x0, d = ew.draw_lanes(B, dev)
+    lanes = wl.draw_lanes(B, dev, dtype=torch.float32)
+    nonfinite = set()
+    undo = record_nonfinite(prob.socp.sweep, nonfinite)
     t0 = time.perf_counter()
-    ew.run_pipeline(eprob, x0, d)                  # warm-up run
-    log(f"# enmpc warm-up run: {time.perf_counter() - t0:.2f} s")
+    try:
+        wl.run_pipeline(prob, lanes)               # warm-up run
+    finally:
+        undo()
+    log(f"# {name} warm-up run: {time.perf_counter() - t0:.2f} s; scenarios whose "
+        f"sweep gave a non-finite derivative on some iteration: {sorted(nonfinite)}")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    sweep_cf_cuda.LAUNCHES = 0
+    path.sweep_mod.LAUNCHES = 0
     rk.LAUNCHES = 0
-    out = ew.run_pipeline(eprob, x0, d)
-    launches["rk4_quad_stage_hess"] = sweep_cf_cuda.LAUNCHES
-    launches["riccati_kkt_enmpc"] = rk.LAUNCHES
+    out = wl.run_pipeline(prob, lanes)
+    launches[path.sweep_key] = path.sweep_mod.LAUNCHES
+    launches[path.rk_key] = rk.LAUNCHES
     it, tit = out["iters"], out["target_iters"]
     ok_t, ok = out["target_status"] != 2, out["status"] != 2
+    # a solve counts when the target and the OCP both reached the tolerance
+    # (status 0); ok_fraction also counts status 1 (stopped short of it)
+    solved = (out["target_status"] == 0) & (out["status"] == 0)
     n_iter = int(it.max())
     # passes of the batched OCP loop: a lane that stops by converging takes
     # one pass more than its iterations (that pass finds the KKT error under
@@ -534,60 +682,76 @@ def enmpc_phase(dev, eprob, launches):
     n_pass = int((it + (out["status"] == 0)).max())
     times = out["times"]
     report = dict(
-        batch=B, N=eprob.cfg.N, Mx=eprob.cfg.model.Mx,
+        batch=B, N=prob.cfg.N,
         target_ok_fraction=float(ok_t.mean()), ok_fraction=float(ok.mean()),
+        solved_fraction=float(solved.mean()),
+        target_status_counts=np.bincount(out["target_status"], minlength=3).tolist(),
+        ocp_status_counts=np.bincount(out["status"], minlength=3).tolist(),
         target_iters_median=float(np.median(tit)), target_iters_p90=float(np.percentile(tit, 90)),
         target_iters_max=int(tit.max()),
         ocp_iters_median=float(np.median(it)), ocp_iters_p90=float(np.percentile(it, 90)),
         ocp_iters_max=n_iter,
         target_ms_per_iteration=times["target_s"] * 1e3 / max(int(tit.max()), 1),
         ocp_ms_per_iteration=times["ocp_s"] * 1e3 / max(n_iter, 1),
-        solves_per_s=int(ok.sum()) / times["total_s"],
-        launches={k: launches[k] for k in ("rk4_quad_stage_hess", "riccati_kkt_enmpc")},
+        solves_per_s=int(solved.sum()) / times["total_s"],
+        launches={k: launches[k] for k in (path.sweep_key, path.rk_key)},
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         us_range=[float(out["us"].min()), float(out["us"].max())],
         **times)
-    log("# enmpc " + json.dumps(report))
+    log(f"# {name} " + json.dumps(report))
     # one sweep and one KKT solve per pass of the batched OCP loop
     report["ocp_loop_passes"] = n_pass
-    if not (launches["rk4_quad_stage_hess"] == n_pass == launches["riccati_kkt_enmpc"]):
-        failures.append(f"enmpc launches {report['launches']} != {n_pass} loop passes")
-    if min(report["target_ok_fraction"], report["ok_fraction"]) < ENMPC_OK_FRACTION_MIN:
-        failures.append(f"enmpc ok fractions {report['target_ok_fraction']:.5f} / "
-                        f"{report['ok_fraction']:.5f} < {ENMPC_OK_FRACTION_MIN}")
+    if not (launches[path.sweep_key] == n_pass == launches[path.rk_key]):
+        failures.append(f"{name} launches {report['launches']} != {n_pass} loop passes")
+    if min(report["target_ok_fraction"], report["ok_fraction"]) < CONTROLLER_OK_FRACTION_MIN:
+        failures.append(f"{name} ok fractions {report['target_ok_fraction']:.5f} / "
+                        f"{report['ok_fraction']:.5f} < {CONTROLLER_OK_FRACTION_MIN}")
 
     xs, us = (torch.as_tensor(out[k], device=dev) for k in ("xs", "us"))
-    report["profile"] = profile_solve(lambda: ew.solve_ocps(eprob, x0, xs, us, d))
-    log("# enmpc profile, OCP " + json.dumps(report["profile"]))
-    # two target iterations: the profiler's summary of the whole solve
-    # (~18k launches an iteration) takes minutes
+    report["profile"] = profile_solve(lambda: wl.solve_ocps(prob, lanes, xs, us))
+    log(f"# {name} profile, OCP " + json.dumps(report["profile"]))
+    # two target iterations: the profiler's summary of a whole dense-IPM
+    # solve (~18k launches an iteration on the ENMPC path) takes minutes
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.solver.ipm import make_solver
 
-    short = eprob._replace(target_solve=make_solver(
-        eprob.tspec.nlp, SolverOptions.for_f32(max_iter=2)))
-    report["profile_target"] = profile_solve(lambda: ew.solve_targets(short, d)[2])
-    log("# enmpc profile, target (2 iterations) " + json.dumps(report["profile_target"]))
+    short = prob._replace(target_solve=make_solver(
+        prob.tspec.nlp, SolverOptions.for_f32(max_iter=2)))
+    report["profile_target"] = profile_solve(lambda: wl.solve_targets(short, lanes)[2])
+    log(f"# {name} profile, target (2 iterations) " + json.dumps(report["profile_target"]))
 
-    # failing lanes: re-solve each on the CPU in f64 at the same options
+    # failing lanes (status 2), then lanes that stopped short of the
+    # tolerance (status 1): re-solve each on the CPU in f64 at the same options
     cpu = torch.device("cpu")
-    cprob = ew.make_problem(cpu)
+    cprob = wl.make_problem(cpu)
     bad = np.where(~ok | ~ok_t)[0]
+    loose = np.where(ok & ok_t & ((out["status"] == 1) | (out["target_status"] == 1)))[0]
     classes = {}
-    if len(bad):
-        sel = bad[:ENMPC_RESOLVE_MAX]
-        r64 = ew.run_pipeline(cprob, x0[sel].double().cpu(), d[sel].double().cpu())
+    if len(bad) or len(loose):
+        sel = np.concatenate([bad, loose])[:RESOLVE_MAX]
+        idx = torch.as_tensor(sel, device=dev)
+        r64 = wl.run_pipeline(cprob, lanes._make(a[idx].to(cpu, torch.float64)
+                                                 for a in lanes))
         for k, i in enumerate(sel):
             f64_fails = r64["status"][k] == 2 or r64["target_status"][k] == 2
-            classes[int(i)] = "fails in f64 too" if f64_fails else "f32 only"
+            if i in bad:
+                classes[int(i)] = "fails in f64 too" if f64_fails else "f32 only"
+            else:
+                classes[int(i)] = (f"status 1 in f32, {r64['target_status'][k]}/"
+                                   f"{r64['status'][k]} in f64")
+            log(f"#   {name} lane {i}: target {out['target_status'][i]}/"
+                f"{r64['target_status'][k]}, OCP {out['status'][i]}/{r64['status'][k]} "
+                f"(f32 card / f64 cpu), iterations {it[i]}/{r64['iters'][k]}, "
+                f"kkt {out['kkt'][i]:.3e}/{r64['kkt'][k]:.3e}, "
+                f"feas {out['feas'][i]:.3e}/{r64['feas'][k]:.3e}")
         f32_only = [i for i, c in classes.items() if c == "f32 only"]
-        log(f"# enmpc failing lanes: {len(bad)}; re-solved in f64 on the CPU: "
-            f"{len(sel)}; classes {classes}")
-        if f32_only or len(bad) > len(sel):
-            failures.append(f"enmpc: failures not shared by f64: {f32_only} "
-                            f"({len(bad) - len(sel)} lanes not re-solved)")
+        log(f"# {name} failing lanes: {len(bad)}, short of tol: {len(loose)}; "
+            f"re-solved in f64 on the CPU: {len(sel)}; classes {classes}")
+        if f32_only or len(bad) > RESOLVE_MAX:
+            failures.append(f"{name}: failures not shared by f64: {f32_only} "
+                            f"({max(len(bad) - RESOLVE_MAX, 0)} lanes not re-solved)")
     else:
-        log("# enmpc failing lanes: none")
+        log(f"# {name} failing lanes: none")
     report["failing_lanes"] = classes
 
     # the first N_CHECK lanes against the CPU f64 plain path, with every
@@ -595,26 +759,25 @@ def enmpc_phase(dev, eprob, launches):
     t0 = time.perf_counter()
     flags = {}
     runs = {"gpu f32": {k: v[:N_CHECK] for k, v in out.items() if k != "times"}}
-    for name, (pr, dtype, dv) in {"cpu f64": (cprob, torch.float64, cpu),
-                                  "gpu f64": (eprob, torch.float64, dev),
-                                  "cpu f32": (cprob, torch.float32, cpu)}.items():
-        flags[name] = []
-        undo = record_ok_flags([flags[name]])
+    for rname, (pr, dtype, dv) in {"cpu f64": (cprob, torch.float64, cpu),
+                                   "gpu f64": (prob, torch.float64, dev),
+                                   "cpu f32": (cprob, torch.float32, cpu)}.items():
+        flags[rname] = []
+        undo = record_ok_flags([flags[rname]])
         try:
-            xc, dc = ew.draw_lanes(N_CHECK, dv, dtype=dtype)
-            runs[name] = ew.run_pipeline(pr, xc, dc)
+            runs[rname] = wl.run_pipeline(pr, wl.draw_lanes(N_CHECK, dv, dtype=dtype))
         finally:
             undo()
-    for name in ("gpu f64", "gpu f32", "cpu f32"):
-        fails, report[f"xcheck_{name.replace(' ', '_')}"] = cross_check(
-            name, runs[name], runs["cpu f64"], name.endswith("f32"),
-            ew.U_BOX, ENMPC_U_TOL, ENMPC_U_TOL_MOVED)
+    for rname in ("gpu f64", "gpu f32", "cpu f32"):
+        fails, report[f"xcheck_{rname.replace(' ', '_')}"] = cross_check(
+            f"{name}, {rname}", runs[rname], runs["cpu f64"], rname.endswith("f32"),
+            wl.U_BOX, path.u_tol, CONTROLLER_U_TOL_MOVED)
         failures += fails
-    not_ok = {name: [(k, [int(i) for i in np.where(~f)[0]]) for k, f in enumerate(fl)
-                     if (~f).any()] for name, fl in flags.items()}
-    log(f"# enmpc riccati ok flags: (iteration, lanes not ok) per run: {not_ok}")
+    not_ok = {rname: [(k, [int(i) for i in np.where(~f)[0]]) for k, f in enumerate(fl)
+                      if (~f).any()] for rname, fl in flags.items()}
+    log(f"# {name} riccati ok flags: (iteration, lanes not ok) per run: {not_ok}")
     report["riccati_not_ok"] = not_ok
-    log(f"# enmpc cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
+    log(f"# {name} cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
     return failures, report
 
 
@@ -641,31 +804,36 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from mpc_code_tpu_torch.device import pin_fp32_precision
-    from mpc_code_tpu_torch.examples import enmpc_workload
+    from mpc_code_tpu_torch.examples import enmpc_workload as ew
+    from mpc_code_tpu_torch.examples import nmpc_dis_workload as dw
     from mpc_code_tpu_torch.examples.bench_workload import make_problem
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_map_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
     pin_fp32_precision()       # as bench.py:40-42 pins the matmul precision
     dev = torch.device("cuda")
     failures = []
-    results = {"rk4_stage_jac": {}, "riccati_kkt": {}, "riccati_kkt_enmpc": {},
-               "rk4_quad_stage_hess": {}}
-    launches = {"rk4_stage_jac": 0, "riccati_kkt": 0, "rk4_quad_stage_hess": 0,
-                "riccati_kkt_enmpc": 0}
+    keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
+            "map_stage_jac", "riccati_kkt_nmpc_dis")
+    results = {k: {} for k in keys}
+    launches = dict.fromkeys(keys, 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
-        eprob = enmpc_workload.make_problem(dev)
-        ec = eprob.cfg
+        eprob = ew.make_problem(dev)
+        dprob = dw.make_problem(dev)
+        ec, dc = eprob.cfg, dprob.cfg
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(4) as ex:
+        with cf.ThreadPoolExecutor(6) as ex:
             jobs = [ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                     ex.submit(rk.build_kernel, socp.nxa, socp.nu),
                     ex.submit(eprob.socp.sweep.build, ec.nx, ec.nu, ec.nd, ec.npx, ec.npy),
-                    ex.submit(rk.build_kernel, eprob.socp.nxa, eprob.socp.nu)]
+                    ex.submit(rk.build_kernel, eprob.socp.nxa, eprob.socp.nu),
+                    ex.submit(dprob.socp.sweep.build, dc.nx, dc.nu, dc.nd, dc.npx),
+                    ex.submit(rk.build_kernel, dprob.socp.nxa, dprob.socp.nu)]
             built = [j.result() for j in jobs]
-        log(f"# build: four kernel libraries in {time.perf_counter() - t0:.1f} s")
+        log(f"# build: six kernel libraries in {time.perf_counter() - t0:.1f} s")
         for b in built:
             for line in b.log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -675,15 +843,21 @@ def main() -> int:
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
         return 1
 
+    enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
+                 "riccati_kkt_enmpc", ENMPC_U_TOL)
+    nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
+                    "riccati_kkt_nmpc_dis", NMPC_DIS_U_TOL)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
+              ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
               ("slice", lambda: slice_phase(dev, problem, launches)),
-              ("enmpc", lambda: enmpc_phase(dev, eprob, launches)))
+              ("enmpc", lambda: controller_phase(dev, enmpc, launches)),
+              ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches)))
     for name, phase in phases:
         t0 = time.perf_counter()
         try:
             out = phase()
-            failures += out[0] if name in ("slice", "enmpc") else out
+            failures += out if name.endswith("kernel") else out[0]
         except Exception:
             traceback.print_exc()
             failures.append(f"{name} phase raised")
@@ -709,16 +883,22 @@ def main() -> int:
             "riccati_kkt": ("mpc_code_tpu_torch/csrc/riccati_kkt.cu",
                             "mpc_code_tpu/solver/riccati_kernel.py:92", "cstr"),
             "rk4_quad_stage_hess": ("mpc_code_tpu_torch/csrc/rk4_quad_stage_hess.cu",
-                                    "mpc_code_tpu/ops/sweep_pallas.py:407", "enmpc")}
+                                    "mpc_code_tpu/ops/sweep_pallas.py:407", "enmpc"),
+            "map_stage_jac": ("mpc_code_tpu_torch/csrc/map_stage_jac.cu",
+                              "mpc_code_tpu/ops/sweep_pallas.py:342", "nmpc_dis")}
     for name, (src, repl, path) in meta.items():
         k = dict(name=name, route="cuda", source=src, replaces=repl, path=path,
                  **entry(name, results[name], launches[name]))
         if name == "riccati_kkt":
-            # the same kernel on the ENMPC path, at (N, nxa, nu) = (25, 2, 1)
+            # the same kernel on the ENMPC path, at (N, nxa, nu) = (25, 2, 1),
+            # and on the nmpc_dis path, at (50, 8, 2)
             k["launches_by_path"] = {"cstr": launches["riccati_kkt"],
-                                     "enmpc": launches["riccati_kkt_enmpc"]}
+                                     "enmpc": launches["riccati_kkt_enmpc"],
+                                     "nmpc_dis": launches["riccati_kkt_nmpc_dis"]}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
+            k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
+                                            launches["riccati_kkt_nmpc_dis"])
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

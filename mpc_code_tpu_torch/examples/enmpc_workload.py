@@ -14,8 +14,8 @@ uniform on D_LO..D_HI, so each lane has its own economic target.  The OCP
 starts from X tiled with x0 and U tiled with the lane's target input.
 
     prob = make_problem(device)
-    x0, d = draw_lanes(16384, device)
-    out = run_pipeline(prob, x0, d)
+    lanes = draw_lanes(16384, device)
+    out = run_pipeline(prob, lanes)
 """
 
 from __future__ import annotations
@@ -63,6 +63,12 @@ class Problem(NamedTuple):
     device: torch.device
 
 
+class Lanes(NamedTuple):
+    """Per-lane inputs of one controller step, each with a leading B."""
+    x0: torch.Tensor     # (B, nx) initial state
+    d: torch.Tensor      # (B, nd) output-disturbance estimate
+
+
 def make_problem(device=None, Nh=N, Mx=MX, target_opts=TARGET_OPTS,
                  ocp_opts=OCP_OPTS) -> Problem:
     """The Ex_ENMPC target and OCP solvers on ``device`` (default the card)."""
@@ -77,22 +83,23 @@ def make_problem(device=None, Nh=N, Mx=MX, target_opts=TARGET_OPTS,
                    make_structured_solver(socp, ocp_opts), dev)
 
 
-def draw_lanes(batch, device=None, seed=0, dtype=torch.float32):
-    """``(x0 (B, nx), d (B, nd))`` drawn from the boxes with ``seed``, one
+def draw_lanes(batch, device=None, seed=0, dtype=torch.float32) -> Lanes:
+    """``Lanes(x0 (B, nx), d (B, nd))`` drawn from the boxes with ``seed``, one
     row per lane (so the first k lanes of any batch are the same), rounded
     to f32 so that every dtype sees the same lanes."""
     lo, hi = np.concatenate([X0_LO, D_LO]), np.concatenate([X0_HI, D_HI])
     rows = np.random.default_rng(seed).uniform(lo, hi, size=(batch, 4))
     rows = torch.as_tensor(rows.astype(np.float32), dtype=dtype,
                            device=resolve_device(device))
-    return rows[:, :2].contiguous(), rows[:, 2:].contiguous()
+    return Lanes(rows[:, :2].contiguous(), rows[:, 2:].contiguous())
 
 
-def solve_targets(prob: Problem, d):
+def solve_targets(prob: Problem, lanes: Lanes):
     """The economic target of every lane: ``(xs, us, result)``.  A lane
     whose target solve is infeasible keeps the closed loop's initial target
     (x0_m, u0), as the JAX loop keeps its carried one."""
     cfg, model = prob.cfg, prob.model
+    d = lanes.d
     kw = dict(dtype=d.dtype, device=d.device)
     Bsz = d.shape[0]
     nx, nu, ny = cfg.nx, cfg.nu, cfg.ny
@@ -112,38 +119,39 @@ def solve_targets(prob: Problem, d):
     return xs, us, r
 
 
-def ocp_params(cfg, x0, xs, us, d):
+def ocp_params(cfg, lanes: Lanes, xs, us):
+    x0 = lanes.x0
     Bsz = x0.shape[0]
     kw = dict(dtype=x0.dtype, device=x0.device)
-    return dict(x0=x0, xs=xs, us=us, d=d,
+    return dict(x0=x0, xs=xs, us=us, d=lanes.d,
                 um1=torch.as_tensor(np.asarray(cfg.u0, float), **kw).expand(Bsz, cfg.nu),
                 t=0.0, lam=torch.zeros((cfg.ny, cfg.nu), **kw),
                 px=torch.zeros((cfg.N, cfg.npx), **kw),
                 py=torch.zeros((cfg.N, cfg.npy), **kw))
 
 
-def solve_ocps(prob: Problem, x0, xs, us, d):
+def solve_ocps(prob: Problem, lanes: Lanes, xs, us):
     """Cold solves of the ContForm OCP at each lane's target."""
     Nh = prob.cfg.N
-    X0 = x0[:, None].expand(-1, Nh + 1, -1)
+    X0 = lanes.x0[:, None].expand(-1, Nh + 1, -1)
     U0 = us[:, None].expand(-1, Nh, -1)
-    return prob.ocp_solve(ocp_params(prob.cfg, x0, xs, us, d), X0, U0)
+    return prob.ocp_solve(ocp_params(prob.cfg, lanes, xs, us), X0, U0)
 
 
-def run_pipeline(prob: Problem, x0, d) -> dict:
+def run_pipeline(prob: Problem, lanes: Lanes) -> dict:
     """Targets, then OCPs, for a batch of lanes.  Returns numpy per-lane
     results and the phases' host times (each ends in a device sync)."""
-    dev = x0.device
+    dev = lanes.x0.device
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    xs, us, rt = solve_targets(prob, d)
+    xs, us, rt = solve_targets(prob, lanes)
     sync()
     t1 = time.perf_counter()
-    r = solve_ocps(prob, x0, xs, us, d)
+    r = solve_ocps(prob, lanes, xs, us)
     sync()
     t2 = time.perf_counter()
     out = {k: v.cpu().numpy() for k, v in dict(

@@ -9,9 +9,10 @@ signatures (``defF_model``, Utilities.py:102-245):
 The callables act on one point; a batch goes through ``torch.func.vmap``.
 They also take lanes-minor (dim, L) arguments, and ``torch.fx`` traces the
 output map for the CUDA sweeps.  This slice covers the NL-continuous model
-form (RK4 with Mx sub-steps and the optional saturation guard) with a user
-output map or StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the
-other forms raise ``NotImplementedError`` naming their ROADMAP item.
+form (RK4 with Mx sub-steps and the optional saturation guard) and the
+NL-discrete form (a user one-step map), with a user output map or
+StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the linear form and
+C-matrix outputs raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from mpc_code_tpu_torch.config import ContinuousModel, MPCConfig
+from mpc_code_tpu_torch.config import ContinuousModel, DiscreteModel, MPCConfig
 from mpc_code_tpu_torch.ops.integrators import rk4, saturate
 
 
@@ -35,12 +36,13 @@ def _mat(M):
 
 
 def build_model(cfg: MPCConfig) -> ModelFns:
-    """Build (Fx_model, Fy_model) for a ``ContinuousModel`` config."""
+    """Build (Fx_model, Fy_model) for a ``ContinuousModel`` or
+    ``DiscreteModel`` config."""
     m = cfg.model
-    if not isinstance(m, ContinuousModel):
+    if not isinstance(m, (ContinuousModel, DiscreteModel)):
         raise NotImplementedError(
             f"model form {type(m).__name__} is not ported yet (ROADMAP "
-            "Queue 1 items 19 and 24)")
+            "Queue 1 item 24)")
     if not cfg.StateFeedback and m.fy is None:
         raise NotImplementedError(
             "C-matrix outputs are not ported yet (ROADMAP Queue 1 item 24)")
@@ -50,18 +52,27 @@ def build_model(cfg: MPCConfig) -> ModelFns:
     # constant matrix)
     Bd, Cd = _mat(cfg.dist.Bd), _mat(cfg.dist.Cd)
     lin_par, state_fb = cfg.LinPar, cfg.StateFeedback
-    user_fx, user_fy = m.fx, m.fy
-    lo, hi = m.clip_lo, m.clip_hi
+    user_fy = m.fy
+    if isinstance(m, DiscreteModel):
+        user_map = m.Fx
 
-    def fx_eval(xx, tt, uu, dd, pp):
-        # ODE-input saturation (the reference's own stability guard
-        # pattern, Ex_NMPC_dis.py:75-77)
-        return user_fx(saturate(xx, lo, hi), uu, dd, tt, pp)
+        def step(x, u, k, d, t, px):
+            return user_map(x, u, d, t, px)                # Utilities.py:186-190
+    else:
+        user_fx, lo, hi = m.fx, m.clip_lo, m.clip_hi
 
-    integ = rk4(fx_eval, m.Mx)
+        def fx_eval(xx, tt, uu, dd, pp):
+            # ODE-input saturation (the reference's own stability guard
+            # pattern, Ex_NMPC_dis.py:75-77)
+            return user_fx(saturate(xx, lo, hi), uu, dd, tt, pp)
+
+        integ = rk4(fx_eval, m.Mx)
+
+        def step(x, u, k, d, t, px):
+            return integ(x, t, k, u, d, px)                # Utilities.py:157-172
 
     def fx(x, u, k, d, t, px):
-        out = integ(x, t, k, u, d, px)                     # Utilities.py:157-172
+        out = step(x, u, k, d, t, px)
         if lin:
             out = out + Bd.to(out) @ d                     # Utilities.py:174-177
         if lin_par:

@@ -9,14 +9,14 @@ forward-mode dual numbers (``csrc/dual.cuh``, ``csrc/dual2.cuh``).
 What it lowers: integer indexing and slices of inputs and intermediates,
 whole-vector use of an input, elementwise ``+ - * /``, negation, ``exp``,
 ``log``, ``sqrt``, ``pow`` by a scalar, ``maximum``/``minimum``,
-comparisons, ``where``, ``stack``, ``@`` (a captured constant
-matrix or vector times a vector, or a dot product of two vectors, written
-as literal multiply-adds) and ``.to(...)`` (the cast of a captured
-constant).  Any other op raises ``NotImplementedError`` naming it.  The
-statements are the ones the compiler would keep: ``a * 1``, ``a / 1``,
-``a + 0``, ``a - 0`` and ``a * 0`` are folded, a statement that repeats
-an earlier one reuses its value, and statements no output needs are
-dropped.
+comparisons, ``where``, ``stack`` and ``cat`` over dim 0, ``@`` (a
+captured constant matrix or vector times a vector, or a dot product of two
+vectors, written as literal multiply-adds) and ``.to(...)`` (the cast of a
+captured constant).  Any other op raises ``NotImplementedError`` naming
+it.  The statements are the ones the compiler would keep: ``a * 1``,
+``a / 1``, ``a + 0``, ``a - 0`` and ``a * 0`` are folded, a statement
+that repeats an earlier one reuses its value, and statements no output
+needs are dropped.
 
 The statements are also valid Python: ``Program.execute`` runs them on
 torch tensors, so the CPU tests hold the lowering against the function it
@@ -59,7 +59,8 @@ _MATMUL = {operator.matmul, torch.matmul}
 _TRACE_LOCK = threading.Lock()
 SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, exp, log, "
              "sqrt, pow by a scalar, maximum, minimum, comparisons, where, "
-             "stack, matmul with a constant or a dot product, .to()")
+             "stack and cat over dim 0, matmul with a constant or a dot "
+             "product, .to()")
 
 
 class Arg(NamedTuple):
@@ -309,12 +310,19 @@ class Program:
             if dim != 0 or set(n.kwargs) - {"dim"}:
                 raise NotImplementedError("torch.stack is supported only over dim 0")
             return self._value(env, list(n.args[0]))
+        if call and tgt is torch.cat:
+            dim = n.kwargs.get("dim", n.args[1] if len(n.args) > 1 else 0)
+            if dim != 0 or set(n.kwargs) - {"dim"}:
+                raise NotImplementedError("torch.cat is supported only over dim 0")
+            parts = [self._vec(self._value(env, a)) for a in n.args[0]]
+            if not all(isinstance(v, list) for v in parts):
+                raise NotImplementedError("torch.cat of a scalar")
+            return [c for v in parts for c in v]
         if n.kwargs:
             raise NotImplementedError(
                 f"op {_op_name(n)!r} with keyword arguments {dict(n.kwargs)}")
-        args = [self._value(env, a) for a in n.args]
         if call and tgt is operator.getitem:
-            base, idx = args[0], n.args[1]
+            base, idx = self._value(env, n.args[0]), n.args[1]
             if isinstance(base, _Input) and isinstance(idx, int):
                 if base.dim is not None:
                     if not -base.dim <= idx < base.dim:
@@ -330,6 +338,7 @@ class Program:
             if not isinstance(v, (list, np.ndarray)):
                 raise NotImplementedError("getitem on a scalar")
             return v[idx]
+        args = [self._value(env, a) for a in n.args]
         if call and tgt in _BIN:
             sym = _BIN[tgt]
             return self._map(name, lambda nm, x, y: self._bin(nm, sym, x, y), *args)

@@ -70,6 +70,22 @@ def rk4_stage_jac(f: Callable, Mx: int, clip_lo=None, clip_hi=None):
     return Rk4StageJac(f, Mx, clip_lo=clip_lo, clip_hi=clip_hi)
 
 
+def map_stage_jac(f: Callable):
+    """Discrete-map analog of ``rk4_stage_jac``.
+
+    ``f`` is the model's one-step map ``x_next = f(x, u, d, t, px)`` (the
+    NL-discrete form, Utilities.py:186-198), written so that each argument
+    may arrive as one point or lanes-minor (dim, L).  Returns ``F(xs
+    (B,N,nx), us (B,N,nu), pxs (B,N,npx), t (B,), d (B,nd)) -> (xf
+    (B,N,nx), Jx (B,N,nx,nx), Ju (B,N,nx,nu))``: on CUDA tensors the
+    hand-written kernel of ``ops/sweep_map_cuda.py``, on CPU tensors its
+    plain PyTorch version (one evaluation plus nx+nu forward tangents).
+    """
+    from mpc_code_tpu_torch.ops.sweep_map_cuda import MapStageJac
+
+    return MapStageJac(f)
+
+
 def rk4_quad(f: Callable, q: Callable, Mx: int) -> Callable:
     """Integrate ``x' = f(x, t, *args)`` and the quadrature ``L' = q(x, t, *args)``.
 

@@ -3,8 +3,9 @@
 A sweep kernel (``csrc/rk4_stage_jac.cu``, ``csrc/rk4_quad_stage_hess.cu``)
 runs one thread per (scenario, stage) lane, lane = b * N + n, on planes
 laid out lanes innermost: a per-stage input (B, N, k) as (k, L), the
-scalars ``t`` and ``h`` as (B,), any other per-scenario input (B, k) as
-(k, B), and an empty input as a one-element dummy.  Its C launchers
+per-scenario scalars (``t`` and ``h``, or ``t`` alone) as (B,), any other
+per-scenario input (B, k) as (k, B), and an empty input as a one-element
+dummy.  Its C launchers
 ``<kernel>_f32`` and ``<kernel>_f64`` take the input planes, then the
 output planes, then L, N, B and the stream, and return a ``cudaError_t``.
 The user's functions reach the kernel through a generated header, built
@@ -35,7 +36,8 @@ class LaneSweep:
     kernel = ""                  # csrc/<kernel>.cu and its launchers
     header = ""                  # file name of the generated header
     stage_inputs: tuple = ()     # (B, N, k) inputs, in the launcher's order
-    scenario_inputs: tuple = ()  # (B, k) inputs after t and h
+    scalar_inputs: tuple = ("t", "h")  # (B,) inputs after them
+    scenario_inputs: tuple = ()  # (B, k) inputs after the scalars
 
     def __init__(self):
         self._libs = {}
@@ -51,7 +53,8 @@ class LaneSweep:
 
             built = build(self.kernel, self.kernel + ".cu",
                           generated={self.header: self.source(*dims)})
-            n_ptr = (len(self.stage_inputs) + 2 + len(self.scenario_inputs)
+            n_ptr = (len(self.stage_inputs) + len(self.scalar_inputs)
+                     + len(self.scenario_inputs)
                      + len(self.out_rows(*dims[:2])))
             for fn in (getattr(built.lib, self.kernel + "_f32"),
                        getattr(built.lib, self.kernel + "_f64")):
@@ -64,7 +67,7 @@ class LaneSweep:
     def pack(self, *args) -> Planes:
         """Check the inputs and lay them out as the kernel's planes.  Raises
         on a bad device, dtype or shape."""
-        names = self.stage_inputs + ("t", "h") + self.scenario_inputs
+        names = self.stage_inputs + self.scalar_inputs + self.scenario_inputs
         if len(args) != len(names):
             raise TypeError(f"{self.kernel} takes {names}, got {len(args)} inputs")
         named = dict(zip(names, args))
@@ -86,10 +89,10 @@ class LaneSweep:
         if any(a.shape[:2] != (Bsz, N) for a in stage):
             raise ValueError(f"{', '.join(self.stage_inputs)} do not match in "
                              f"(B, N) = {(Bsz, N)}")
-        if (named["t"].shape != (Bsz,) or named["h"].shape != (Bsz,)
+        if (any(named[k].shape != (Bsz,) for k in self.scalar_inputs)
                 or any(a.dim() != 2 or a.shape[0] != Bsz for a in scen)):
-            raise ValueError(f"t, h must be (B,) and {', '.join(self.scenario_inputs)} "
-                             "(B, dim)")
+            raise ValueError(f"{', '.join(self.scalar_inputs)} must be (B,) and "
+                             f"{', '.join(self.scenario_inputs)} (B, dim)")
         widths = {k: a.shape[-1] for k, a in named.items() if a.dim() > 1}
         dims = self.dims(widths)
         dummy = torch.zeros(1, dtype=x.dtype, device=dev)
@@ -98,7 +101,7 @@ class LaneSweep:
             return a.reshape(-1, a.shape[-1]).t().contiguous() if a.shape[-1] else dummy
 
         ins = ([plane(a) for a in stage]
-               + [named["t"].contiguous(), named["h"].contiguous()]
+               + [named[k].contiguous() for k in self.scalar_inputs]
                + [plane(a) for a in scen])
         return Planes(ins, Bsz, N, dims)
 

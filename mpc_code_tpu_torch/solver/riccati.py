@@ -1,12 +1,14 @@
-"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-2).
+"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-3).
 
-Port of ``mpc_code_tpu/solver/riccati.py`` for two configurations: plain
-continuous shooting (the batched CSTR NMPC bench) and the ContForm
-economic transcription (Ex_ENMPC), each with or without output bounds, with
-the Gauss-Newton Hessian, the monotone barrier, the rollout-free adaptive
-step controller (``ls_mode='adaptive'``) and best-iterate bookkeeping.
-Every other configuration raises ``NotImplementedError`` naming its
-ROADMAP item.
+Port of ``mpc_code_tpu/solver/riccati.py`` for three configurations: plain
+continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
+(the quadruple tank, Ex_NMPC_dis) and the ContForm economic transcription
+(Ex_ENMPC), each with or without output bounds, the shooting forms also
+with the u_prev state augmentation that Delta-u bounds and Delta-u costs
+(``DUForm``, ``DUFormEcon``) need, with the Gauss-Newton Hessian, the
+monotone barrier, the rollout-free adaptive step controller
+(``ls_mode='adaptive'``) and best-iterate bookkeeping.  Every other
+configuration raises ``NotImplementedError`` naming its ROADMAP item.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
@@ -17,11 +19,13 @@ point and their derivatives come from ``torch.func`` (``grad``,
 
 Per iteration the solver runs two hand-written CUDA kernels on the card:
 a derivative sweep, either the RK4 stage-Jacobian sweep
-(``ops/sweep_cuda.py``, through ``StructuredOCP.stage_dyn_jac``) or, for a
-ContForm OCP, the joint dynamics-and-quadrature sweep
-(``ops/sweep_cf_cuda.py``, through ``StructuredOCP.stage_cf``, which also
-gives the stage cost's value, gradient and Hessian), and the Riccati KKT
-solve (``solver/riccati_kernel.py``).  The rest is IPM algebra on whole
+(``ops/sweep_cuda.py``) or, for a discrete model, the map's stage-Jacobian
+sweep (``ops/sweep_map_cuda.py``), both through
+``StructuredOCP.stage_dyn_jac``, or, for a ContForm OCP, the joint
+dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
+``StructuredOCP.stage_cf``, which also gives the stage cost's value,
+gradient and Hessian), and the Riccati KKT solve
+(``solver/riccati_kernel.py``).  The rest is IPM algebra on whole
 tensors.
 
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
@@ -40,7 +44,9 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
-from mpc_code_tpu_torch.config import ContinuousModel, MPCConfig, SolverOptions
+from mpc_code_tpu_torch.config import (
+    ContinuousModel, DiscreteModel, MPCConfig, SolverOptions,
+)
 from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.models.model import ModelFns
 from mpc_code_tpu_torch.solver.nlp import (
@@ -138,7 +144,9 @@ def batch_params(p: dict, Bsz: int, dtype, device) -> dict:
 
 def stage_params(p: dict, N: int) -> dict:
     """One entry per (scenario, stage) point, flattened to B*N: the shared
-    per-lane data, ``px``/``py`` of that stage and ``py0`` (stage 0)."""
+    per-lane data, ``px``/``py`` of that stage, ``py0`` (stage 0) and
+    ``k0``, whether the point is stage 0 (the JAX stage functions' ``k ==
+    0``)."""
     Bsz = p["x0"].shape[0]
 
     def rep(v):
@@ -149,6 +157,7 @@ def stage_params(p: dict, N: int) -> dict:
     pk["px"] = p["px"].reshape(Bsz * N, -1)
     pk["py"] = p["py"].reshape(Bsz * N, -1)
     pk["py0"] = rep(p["py"][:, 0])
+    pk["k0"] = (torch.arange(N, device=p["x0"].device) == 0).repeat(Bsz)
     if "_sf" in p:
         pk["_sf"] = rep(p["_sf"])
     return pk
@@ -171,9 +180,9 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     # discrete cost forms, as in the reference (JAX riccati.py:244-249, 287-290)
     if cfg.Collocation and not cont_form:
         raise _todo("Collocation", "Queue 1 item 20")
-    if not isinstance(cfg.model, ContinuousModel):
+    if not isinstance(cfg.model, (ContinuousModel, DiscreteModel)):
         raise _todo(f"the structured OCP for {type(cfg.model).__name__}",
-                    "Queue 1 items 19 and 24")
+                    "Queue 1 item 24")
     ymin = b.resolved("dyn", "ymin")
     ymax = b.resolved("dyn", "ymax")
     y_free = ymin is None and ymax is None
@@ -183,21 +192,30 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         raise _todo("TermCons", "Queue 1 item 21")
     if cfg.H_eq is not None or cfg.G_ineq is not None:
         raise _todo("user stage constraints H_eq / G_ineq", "Queue 1 item 21")
-    if not cont_form and (b.Dumin is not None or b.Dumax is not None
-                          or cfg.DUForm or cfg.DUFormEcon):
-        raise _todo("Delta-u bounds and costs (u_prev augmentation)",
-                    "Queue 1 item 21")
     nx, nu, ny = cfg.nx, cfg.nu, cfg.ny
+    # the state is augmented with u_{k-1} whenever Delta-u appears in the
+    # bounds or in the cost (JAX riccati.py:238-249)
+    du_bounds = not cont_form and not (b.Dumin is None and b.Dumax is None)
+    du_coupled = not cont_form and (du_bounds or cfg.DUForm or cfg.DUFormEcon)
+    nup = nu if du_coupled else 0
     xmin = b.resolved("dyn", "xmin")
     xmax = b.resolved("dyn", "xmax")
     umin = b.resolved("dyn", "umin")
     umax = b.resolved("dyn", "umax")
-    nxa, ni = nx, (0 if y_free else ny)
+    nxa = nx + nup
+    ni = (0 if y_free else ny) + (nu if du_bounds else 0)
     h = float(cfg.h)
     qform = cfg.QForm
 
     def y_of(x, u, pk):
         return model.fy(x, u, pk["d"], pk["t"], pk["py"]) + pk["lam"] @ (u - pk["us"])
+
+    def um1_of(xa, pk):
+        """u_{k-1}: the parameter at stage 0, the carried slot after it
+        (JAX riccati.py:405, 454)."""
+        if not du_coupled:
+            return pk["um1"]
+        return torch.where(pk["k0"], pk["um1"], xa[nx:])
 
     if cont_form:
         # integrate xdot = fx(x,u,d,t,px) + px and the continuous economic
@@ -219,29 +237,50 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
 
         integ_cont = rk4_quad(_ode, _quad, Mx_c)
 
-        def raw_cost(x, u, pk):
-            return integ_cont(x, pk["t"], h, u, pk["d"], pk["px"], pk["xs"],
+        def raw_cost(xa, u, pk):
+            return integ_cont(xa, pk["t"], h, u, pk["d"], pk["px"], pk["xs"],
                               pk["us"], pk["py"])[1]
     else:
-        def raw_cost(x, u, pk):
+        def raw_cost(xa, u, pk):
+            x = xa[:nx]
             yk = y_of(x, u, pk)
             ys = model.fy(pk["xs"], pk["us"], pk["d"], pk["t"], pk["py0"])
+            du_k = u - um1_of(xa, pk)
             dx, du, dy = x, u, yk
             if qform:
                 dx = dx - pk["xs"]
                 du = du - pk["us"]
                 dy = dy - ys
-            return f_obj(dx, du, dy, pk["xs"], pk["us"], ys)
+            if cfg.DUForm:
+                du = du_k
+            us_obj = du_k if cfg.DUFormEcon else pk["us"]
+            return f_obj(dx, du, dy, pk["xs"], us_obj, ys)
 
-    if y_free:
-        lbi = ubi = np.zeros(0)
-    else:
-        lbi = np.asarray(ymin, float).reshape(-1) if ymin is not None else np.full(ny, -np.inf)
-        ubi = np.asarray(ymax, float).reshape(-1) if ymax is not None else np.full(ny, np.inf)
-    lbx = np.asarray(xmin, float) if xmin is not None else np.full(nx, -np.inf)
-    ubx = np.asarray(xmax, float) if xmax is not None else np.full(nx, np.inf)
-    lbu = np.asarray(umin, float).reshape(-1) if umin is not None else np.full(nu, -np.inf)
-    ubu = np.asarray(umax, float).reshape(-1) if umax is not None else np.full(nu, np.inf)
+    def raw_ineq(xa, u, pk):
+        rows = [] if y_free else [y_of(xa[:nx], u, pk)]
+        if du_bounds:
+            rows.append(u - um1_of(xa, pk))
+        return torch.cat(rows)
+
+    def row_bounds(lo, hi, n):
+        return (np.asarray(lo, float).reshape(-1) if lo is not None else np.full(n, -np.inf),
+                np.asarray(hi, float).reshape(-1) if hi is not None else np.full(n, np.inf))
+
+    rows_lo, rows_hi = [], []
+    if not y_free:
+        lo, hi = row_bounds(ymin, ymax, ny)
+        rows_lo.append(lo)
+        rows_hi.append(hi)
+    if du_bounds:
+        lo, hi = row_bounds(b.Dumin, b.Dumax, nu)
+        rows_lo.append(lo)
+        rows_hi.append(hi)
+    lbi = np.concatenate(rows_lo) if ni else np.zeros(0)
+    ubi = np.concatenate(rows_hi) if ni else np.zeros(0)
+    lbx, ubx = row_bounds(xmin, xmax, nx)
+    lbx = np.concatenate([lbx, np.full(nup, -np.inf)])
+    ubx = np.concatenate([ubx, np.full(nup, np.inf)])
+    lbu, ubu = row_bounds(umin, umax, nu)
 
     # per-variable scaling from the box bounds: internally x~ = x / sxa
     def _scales(lo, hi):
@@ -255,14 +294,15 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         return raw_cost(_t(sxa, xa) * xa, _t(su, u) * u, pk)
 
     def cost_N_s(xa, pN):
-        x = _t(sxa, xa) * xa
+        x = (_t(sxa, xa) * xa)[:nx]
         return vfin(x - pN["xs"] if qform else x, pN["xs"])
 
     def ineq_s(xa, u, pk):
-        return y_of(_t(sxa, xa) * xa, _t(su, u) * u, pk) / _t(si, xa)
+        return raw_ineq(_t(sxa, xa) * xa, _t(su, u) * u, pk) / _t(si, xa)
 
     def x0_s(p):
-        return p["x0"] / _t(sxa, p["x0"])
+        x0a = torch.cat([p["x0"], p["um1"]], -1) if du_coupled else p["x0"]
+        return x0a / _t(sxa, x0a)
 
     common = dict(N=cfg.N, nxa=nxa, nu=nu, ni=ni, cost=cost_s,
                   cost_N=cost_N_s, ineq=ineq_s if ni else None,
@@ -290,24 +330,48 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
                              stage_cf=stage_cf)
 
-    from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
-
+    # the dynamics sweep: value and Jacobians of the model's step for all
+    # stages in one pass; the augmented u_prev rows have a constant
+    # Jacobian structure assembled here (JAX riccati.py:600-679)
     m = cfg.model
-    _ufx = m.fx
+    if isinstance(m, DiscreteModel):
+        from mpc_code_tpu_torch.ops.integrators import map_stage_jac
 
-    def _ode(xx, tt, uu, dd, pp):
-        return _ufx(xx, uu, dd, tt, pp)
+        sweep = map_stage_jac(m.Fx)
 
-    sweep = rk4_stage_jac(_ode, m.Mx, clip_lo=m.clip_lo, clip_hi=m.clip_hi)
+        def run_sweep(x, u, p):
+            return sweep(x, u, p["px"], p["t"], p["d"])
+    else:
+        from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
+
+        _ufx = m.fx
+
+        def _ode(xx, tt, uu, dd, pp):
+            return _ufx(xx, uu, dd, tt, pp)
+
+        sweep = rk4_stage_jac(_ode, m.Mx, clip_lo=m.clip_lo, clip_hi=m.clip_hi)
+
+        def run_sweep(x, u, p):
+            hb = torch.full((x.shape[0],), h, dtype=x.dtype, device=x.device)
+            return sweep(x, u, p["px"], p["t"], hb, p["d"])
+
+    Bd = (np.asarray(cfg.dist.Bd, float)
+          if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
     lin_par = cfg.LinPar
 
     def stage_dyn_jac(Xs, Us, p):
         s_x, s_u = _t(sxa, Xs), _t(su, Us)
-        Bsz = Xs.shape[0]
-        hb = torch.full((Bsz,), h, dtype=Xs.dtype, device=Xs.device)
-        xf, Jx, Ju = sweep(Xs * s_x, Us * s_u, p["px"], p["t"], hb, p["d"])
+        u = Us * s_u
+        xf, Jx, Ju = run_sweep((Xs * s_x)[..., :nx], u, p)
+        if Bd is not None:
+            xf = xf + (p["d"] @ _t(Bd, Xs).T)[:, None]
         if lin_par:
             xf = xf + p["px"]
+        if du_coupled:
+            xf = torch.cat([xf, u], -1)
+            Jx = torch.nn.functional.pad(Jx, (0, nup, 0, nup))
+            eye_u = torch.eye(nu, dtype=Us.dtype, device=Us.device)
+            Ju = torch.cat([Ju, eye_u.expand(Ju.shape[:2] + (nu, nu))], -2)
         dval = xf / s_x
         A = Jx * (s_x[None, :] / s_x[:, None])
         Bm = Ju * (s_u[None, :] / s_x[:, None])

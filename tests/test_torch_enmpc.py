@@ -109,12 +109,12 @@ def jax_results():
 def port_results():
     """``run_pipeline`` on the same lanes at the same options."""
     from mpc_code_tpu_torch.config import SolverOptions
-    from mpc_code_tpu_torch.examples.enmpc_workload import make_problem, run_pipeline
+    from mpc_code_tpu_torch.examples.enmpc_workload import Lanes, make_problem, run_pipeline
 
     prob = make_problem("cpu", Nh=N, Mx=MX, target_opts=SolverOptions(**TARGET_OPTS),
                         ocp_opts=SolverOptions(**OCP_OPTS))
     x0s, ds = _lanes()
-    return run_pipeline(prob, torch.tensor(x0s), torch.tensor(ds))
+    return run_pipeline(prob, Lanes(torch.tensor(x0s), torch.tensor(ds)))
 
 
 @pytest.mark.parametrize("Bd", ["zero", "random"])
@@ -184,8 +184,7 @@ def test_target_solves_in_f32():
     )
 
     prob = make_problem("cpu", Nh=2, Mx=1)
-    _, d = draw_lanes(2, "cpu")
-    xs, us, r = solve_targets(prob, d)
+    xs, us, r = solve_targets(prob, draw_lanes(2, "cpu"))
     assert r.w.dtype == xs.dtype == torch.float32
     assert (r.status.numpy() == 0).all() and (r.iters.numpy() > 1).all()
 
