@@ -9,7 +9,7 @@ NVIDIA H100 and the CUDA toolkit:
 It never imports JAX or the JAX package.  Phases:
 
 1. the card's name and power limit (nvidia-smi), then builds the CUDA
-   kernels of the three paths from ``mpc_code_tpu_torch/csrc``, one
+   kernels of the four paths from ``mpc_code_tpu_torch/csrc``, one
    ``nvcc`` each, all started together;
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
@@ -18,7 +18,8 @@ It never imports JAX or the JAX package.  Phases:
    shapes, the ContForm joint sweep and the Riccati KKT solve at the
    ENMPC path's (N=25, nxa=2, nu=1), the discrete map's stage-Jacobian
    sweep and the Riccati KKT solve at the quadruple tank's (N=50, nxa=8,
-   nu=2);
+   nu=2), the fused stage sweep at the exact-Hessian CSTR path's (N=50,
+   nz=5, ni=2; the Riccati KKT solve has the CSTR path's shapes there);
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
    draws, pass-1 cap 12, one combined steady/coolhold rescue at 2x512
@@ -26,7 +27,8 @@ It never imports JAX or the JAX package.  Phases:
    the failing lanes are checked against ``fixtures/tail_verdict.json``;
    64 lanes are cross-checked against the port's plain path on the CPU in
    f64: the card's f64 run, the main run's f32 answers and the plain path
-   in f32 on the CPU;
+   in f32 on the CPU (every phase's CPU runs go to two worker processes at
+   the start and run beside the card's phases);
 4. ENMPC slice phase: ``examples/enmpc_workload.py`` — per lane the
    economic target by the dense IPM, then a cold solve of the ContForm OCP
    at it — B=16384, N=25, Mx=10, seed-0 draws, f32, with the launch
@@ -38,7 +40,14 @@ It never imports JAX or the JAX package.  Phases:
    — per lane the steady-state target by the dense IPM, then a cold solve
    of the Delta-u OCP (the u_prev augmentation, nxa=8) at it — B=16384,
    N=50, seed-0 draws, f32, checked as in phase 4;
-6. one ``{"kernels": [...]}`` line, and as the last line
+6. exact-Hessian CSTR phase (``cstr_exact``): phase 3's workload with
+   ``hessian="exact"``, whose derivative sweep is the fused stage sweep
+   (kernel 1 must not launch); the Riccati ``ok`` flags of a pass-1 solve
+   and the lanes on which the regularisation delta rose; every failing
+   lane classified infeasible by ``fixtures/tail_verdict.json`` or failing
+   its re-solve on the CPU in f64 too; the 64-lane cross-check of phase 3
+   against the CPU f64 exact path;
+7. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -49,6 +58,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
@@ -62,15 +72,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 B = 16384                          # lanes of the bench and ENMPC workloads
 N_CHECK = 64                       # lanes cross-checked on the CPU in f64
+CPU_REF_WORKERS = 2                # processes that run the CPU cross-check paths
+CPU_REF_THREADS = 2                # torch threads in each
 
 TOL_F64 = 1e-10
 # map_stage_jac: the kernel and the plain version, each in f32, differ by
 # up to 3.608e-4 on the check's lanes: levels down to 0.5 with little
 # inflow drain towards 0 inside the map, where the square root's
 # derivative grows (PERF.md, kernel 3; each is also held to the plain
-# version in f64 there)
+# version in f64 there).  stage_sweep: 4.379e-4 (in gc), while the kernel
+# and the plain version, each in f32, lie 4.267e-3 from the plain version
+# in f64, to the digit: f32 rounding of the second-order tangents through
+# the exponential, not the kernel (PERF.md, kernel 5)
 TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e-4,
-           "map_stage_jac": 1e-3}
+           "map_stage_jac": 1e-3, "stage_sweep": 1e-3}
 # Converged U against the CPU f64 path, over the input box.  Two f64 runs
 # differ only in rounding order and stop on the same iterate: U_TOL.  An f32
 # run measures its KKT error with f32 rounding, and near the 1e-3 tolerance
@@ -81,6 +96,13 @@ TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e
 # runs on these 64 lanes, on the card and on the CPU (PERF.md, section 2).
 U_TOL = 1e-2
 U_TOL_MOVED = 3e-2
+# The exact-Hessian CSTR path (cstr_exact) keeps these rules and measures
+# its own largest move: its f32 runs stop on another iteration than f64 on
+# 10-12 of the 64 lanes and go further along the valley, up to 5.409e-2 of
+# the box on the card and 5.408e-2 in the plain f32 path on the CPU (lane
+# 8: 9 iterations against f64's 7; PERF.md, section 2), while the card's f64
+# run agrees with the CPU to 9.5e-14.
+EXACT_U_TOL_MOVED = 6e-2
 OK_FRACTION_MIN = 0.998
 # The controller paths (ENMPC, nmpc_dis): converged U against the CPU f64
 # path, over the input box.  A lane that stops on another iteration than
@@ -422,6 +444,98 @@ def nmpc_dis_kernel_phase(dev, dprob, results):
     return failures
 
 
+def stage_sweep_inputs(dtype, device, socp, seed=5):
+    """Inputs of the fused stage sweep at the exact-Hessian CSTR path's
+    shapes: states and inputs over the bench's box (scaled), multipliers
+    of the size the solves meet, small parameters.  Scenario 0 has its
+    third state on the guard's lower bound at every stage, 1 its first
+    state on its lower bound and 2 its third on its upper bound (ties,
+    F1); those states have unit scale, so the bound is exact in the
+    working dtype."""
+    import torch
+
+    from mpc_code_tpu_torch.examples.bench_workload import N, XHI, XLO
+
+    rng = np.random.default_rng(seed)
+    low = socp.lowering
+    X = rng.uniform(XLO, XHI, size=(B, N, 3)) / socp.sxa
+    X[0, :, 2] = float(low.clip_lo[2])
+    X[1, :, 0] = float(low.clip_lo[0])
+    X[2, :, 2] = float(low.clip_hi[2])
+    U = rng.uniform([295.0, 0.0], [305.0, 0.25], size=(B, N, 2)) / socp.su
+    arrs = [X, U, rng.normal(size=(B, N, 3)), rng.normal(size=(B, N, 2)) * 0.1,
+            rng.normal(size=(B, N, 3)) * 1e-3, rng.normal(size=(B, N, 2)) * 1e-3,
+            np.zeros(B), rng.uniform(0.5, 1.0, B),
+            np.array([0.874317, 325.0, 0.6528]) + rng.normal(size=(B, 3)) * 1e-2,
+            np.array([300.157, 0.1]) + rng.normal(size=(B, 2)) * 1e-3,
+            np.stack([np.zeros(B), rng.uniform(0.08, 0.12, B)], 1),
+            np.tile([300.157, 0.1], (B, 1)), rng.normal(size=(B, 4)) * 1e-2]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], [0, 1, 2]
+
+
+def stage_sweep_kernel_phase(dev, xprob, results):
+    """Kernel 5 (the fused stage sweep, exact Hessian) against its plain
+    version at the exact-Hessian CSTR path's shapes."""
+    import torch
+
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    failures = []
+    cfg, _, socp, _ = xprob
+    sweep = sk.make_stage_sweep(socp, "exact")
+    dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).replace("torch.", "")
+        arrs, tie = stage_sweep_inputs(dtype, dev, socp)
+        got = sweep(*arrs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()            # host-bound: seconds per call
+        ref = sweep.plain(*arrs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [nerr(g, r) for g, r in zip(got, ref)]
+        err = max(errs)
+        err_tie = max(nerr(g[tie], r[tie]) for g, r in zip(got, ref))
+        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        finite = all(bool(g.isfinite().all()) for g in got)
+        sym = float((got[0] - got[0].transpose(-1, -2)).abs().max())
+        # each f32 result against the plain version in f64 on the same inputs
+        err64 = [0.0, 0.0]
+        if dtype == torch.float32:
+            ref64 = sweep.plain(*[a.double() for a in arrs])
+            err64 = [max(nerr(x, r) for x, r in zip(res, ref64)) for res in (got, ref)]
+            del ref64
+        planes = sweep.pack(*arrs)
+        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
+        byt = sk.stage_bytes(B, cfg.N, *dims, cfg.ny * cfg.nu, arrs[0].element_size())
+        ops_lane = sweep.ops_per_lane(*dims)
+        t_b = byt / H100_BYTES_PER_S * 1e3
+        t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32["stage_sweep"]
+        log(f"# kernel stage_sweep {tname}: max_norm_err={err:.3e} per output "
+            f"(H, gc, A, B, E, ival, dval) {['%.2e' % e for e in errs]} "
+            f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
+            f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
+            f"H_asym={sym:.1e} finite={finite} "
+            f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
+            f"{ops_lane} operations per lane)")
+        # in f32 the kernel also lies no farther from the f64 plain version
+        # than twice the f32 plain version does
+        closer = err64[0] <= 2 * err64[1] + TOL_F64
+        if not (err <= tol and err_tie <= tol and sym == 0.0 and finite and closer):
+            failures.append(f"stage_sweep {tname} error {err:.3e} > {tol:g}, "
+                            f"asymmetry {sym:.1e}, finite {finite}, against f64 "
+                            f"{err64[0]:.3e} vs plain {err64[1]:.3e}")
+        results["stage_sweep"][tname] = dict(
+            max_norm_err=err, tie_norm_err=err_tie, max_abs_err=abs_err,
+            err_vs_f64=err64, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+            bytes_ms=t_b, ops_ms=t_o)
+        del got, ref
+    return failures
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -514,7 +628,36 @@ def cross_check(name, run, ref, f32, u_box, tol, tol_moved):
     return failures, report
 
 
-def slice_phase(dev, problem, launches):
+def delta_lanes(cfg, model, solve, x0s):
+    """One pass-1 solve of the batch with the Riccati ``ok`` flags of every
+    loop pass recorded: the lanes on which the solver raised its
+    regularisation delta (a pass, before the lane stopped, whose KKT
+    solve was not ok), and the passes with any such lane."""
+    import torch
+
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        MAXIT1, U_SS, bench_params, warm_start,
+    )
+
+    nb = x0s.shape[0]
+    us_b = torch.as_tensor(U_SS, dtype=x0s.dtype, device=x0s.device).expand(nb, cfg.nu)
+    X0, U0 = warm_start(cfg, model, x0s, us_b)
+    flags = []
+    undo = record_ok_flags([flags])
+    try:
+        r = solve(bench_params(cfg, x0s), X0, U0, max_iter=MAXIT1)
+    finally:
+        undo()
+    it = r.iters.cpu().numpy()
+    F = np.array(flags)
+    rose = (~F) & (np.arange(len(F))[:, None] < it[None, :])
+    return [int(i) for i in np.where(rose.any(0))[0]], int(rose.any(1).sum())
+
+
+def slice_phase(dev, problem, launches, cpu_refs, exact=False):
+    """The CSTR bench workload at B lanes in f32, with the Gauss-Newton
+    Hessian (phase ``slice``: kernels 1 and 2) or the exact one (phase
+    ``cstr_exact``: kernels 5 and 2, kernel 1 idle)."""
     import torch
 
     from mpc_code_tpu_torch.examples.bench_workload import (
@@ -522,77 +665,108 @@ def slice_phase(dev, problem, launches):
     )
     from mpc_code_tpu_torch.ops import sweep_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
+    name = "cstr_exact" if exact else "slice"
+    sweep_mod, sweep_key = (sk, "stage_sweep") if exact else (sweep_cuda, "rk4_stage_jac")
+    rk_key = "riccati_kkt_cstr_exact" if exact else "riccati_kkt"
+    hessian = "exact" if exact else "gauss_newton"
     failures = []
     cfg, model, socp, solve = problem
     x0s = draw_x0(B, dev)
 
     t0 = time.perf_counter()
     run_pipeline(cfg, model, solve, x0s)      # warm-up run
-    log(f"# slice warm-up run: {time.perf_counter() - t0:.2f} s")
+    log(f"# {name} warm-up run: {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats(dev)
     sweep_cuda.LAUNCHES = 0
+    sk.LAUNCHES = 0
     rk.LAUNCHES = 0
     status, iters, feas, kkt, U, times = run_pipeline(cfg, model, solve, x0s)
-    launches["rk4_stage_jac"] = sweep_cuda.LAUNCHES
-    launches["riccati_kkt"] = rk.LAUNCHES
+    launches[sweep_key] = sweep_mod.LAUNCHES
+    launches[rk_key] = rk.LAUNCHES
+    k1_launches = sweep_cuda.LAUNCHES
     ok = status != 2
     n_ok = int(ok.sum())
     ok_fraction = n_ok / B
     report = dict(
-        batch=B, N=N, Mx=MX, ok=n_ok, ok_fraction=ok_fraction,
+        batch=B, N=N, Mx=MX, hessian=hessian, ok=n_ok, ok_fraction=ok_fraction,
         solves_per_s=n_ok / times["total_s"],
         median_iters=float(np.median(iters)),
         max_feas_ok=float(feas[ok].max()) if n_ok else float("inf"),
         kkt_ok_p50=float(np.percentile(kkt[ok], 50)) if n_ok else float("inf"),
-        launches=dict(launches),
+        launches={sweep_key: launches[sweep_key], rk_key: launches[rk_key]},
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         **{k: (round(v, 6) if isinstance(v, float) else v)
            for k, v in times.items()})
-    log("# slice " + json.dumps(report))
+    if exact:
+        report["launches"]["rk4_stage_jac"] = k1_launches
+    log(f"# {name} " + json.dumps(report))
     if ok_fraction < OK_FRACTION_MIN:
-        failures.append(f"ok_fraction {ok_fraction:.5f} < {OK_FRACTION_MIN}")
-    if min(launches["rk4_stage_jac"], launches["riccati_kkt"]) <= 0:
-        failures.append(f"a kernel was not launched on the CSTR path: {launches}")
+        failures.append(f"{name} ok_fraction {ok_fraction:.5f} < {OK_FRACTION_MIN}")
+    if min(launches[sweep_key], launches[rk_key]) <= 0:
+        failures.append(f"a kernel was not launched on the {name} path: {report['launches']}")
+    if exact and not (launches[sweep_key] == launches[rk_key] and k1_launches == 0):
+        # one fused sweep and one KKT solve per pass of the solver loop,
+        # and no split dynamics sweep
+        failures.append(f"{name} launches {report['launches']}: kernels 5 and 2 "
+                        "not once per loop pass, or kernel 1 launched")
 
     report["profile"] = profile_pass1(cfg, model, solve, x0s)
-    log("# profile " + json.dumps(report["profile"]))
+    log(f"# {name} profile " + json.dumps(report["profile"]))
+    if exact:
+        rose, n_pass = delta_lanes(cfg, model, solve, x0s)
+        report["delta_rose_lanes"] = len(rose)
+        log(f"# {name} pass 1: delta rose on {len(rose)} lanes ({rose[:32]}...), "
+            f"on {n_pass} loop passes")
 
-    # the failing lanes against the classified tail (bench.py:397-429)
+    # the failing lanes against the classified tail (bench.py:397-429); on
+    # the exact path each unclassified one must also fail in f64 on the CPU
     tv_path = os.path.join(ROOT, "fixtures", "tail_verdict.json")
     bad_now = {int(i) for i in np.where(~ok)[0]}
+    classified = set()
     if os.path.exists(tv_path):
         with open(tv_path) as f:
-            tv = json.load(f)
-        classified = {int(lane["idx"]) for lane in tv.get("lanes", [])}
-        log(f"# tail: failed {sorted(bad_now)}; classified physically "
-            f"infeasible {sorted(classified)}; unclassified "
-            f"{sorted(bad_now - classified)}")
-    else:
-        log(f"# tail: failed {sorted(bad_now)} (no tail_verdict.json)")
+            classified = {int(lane["idx"]) for lane in json.load(f).get("lanes", [])}
+    log(f"# {name} tail: failed {sorted(bad_now)}; classified physically "
+        f"infeasible {sorted(classified)}; unclassified {sorted(bad_now - classified)}")
+    if exact:
+        other = sorted(bad_now - classified)
+        report["unclassified_failing"] = other
+        if len(other) > RESOLVE_MAX:
+            failures.append(f"{name}: {len(other)} unclassified failing lanes")
+        elif other:
+            cpu = torch.device("cpu")
+            ccfg, cmodel, _, csolve = make_problem(cpu, hessian=hessian)
+            x64 = draw_x0(B, cpu, dtype=torch.float64)[other]
+            st64 = run_pipeline(ccfg, cmodel, csolve, x64, rescue_cap=len(other))[0]
+            f32_only = [i for i, s64 in zip(other, st64) if s64 != 2]
+            log(f"# {name} unclassified failing lanes re-solved in f64 on the CPU: "
+                f"status {dict(zip(other, st64.tolist()))}")
+            if f32_only:
+                failures.append(f"{name}: failures not shared by f64: {f32_only}")
 
     # the first N_CHECK lanes against the port's plain path on the CPU in
     # f64: the card's path run in f64 (both kernels in f64), the main run's
-    # f32 answers, and the plain path in f32 on the CPU
+    # f32 answers, and the plain path in f32 on the CPU (the CPU runs come
+    # from the worker processes)
     t0 = time.perf_counter()
-    cpu = torch.device("cpu")
-    ccfg, cmodel, _, csolve = make_problem(cpu)
     keys = ("status", "iters", "kkt", "U")
-    runs = {}
-    for name, (c, m, slv, x0) in {
-            "cpu f64": (ccfg, cmodel, csolve, draw_x0(N_CHECK, cpu, dtype=torch.float64)),
-            "gpu f64": (cfg, model, solve, draw_x0(N_CHECK, dev, dtype=torch.float64)),
-            "cpu f32": (ccfg, cmodel, csolve, draw_x0(N_CHECK, cpu))}.items():
-        st, it, _, kk, Ux, _ = run_pipeline(c, m, slv, x0, rescue_cap=8)
-        runs[name] = dict(zip(keys, (st, it, kk, Ux)))
-    runs["gpu f32"] = dict(zip(keys, (a[:N_CHECK] for a in (status, iters, kkt, U))))
-    for name in ("gpu f64", "gpu f32", "cpu f32"):
-        fails, report[f"xcheck_{name.replace(' ', '_')}"] = cross_check(
-            name, runs[name], runs["cpu f64"], name.endswith("f32"),
-            U_BOX, U_TOL, U_TOL_MOVED)
+    st, it, _, kk, Ux, _ = run_pipeline(cfg, model, solve,
+                                        draw_x0(N_CHECK, dev, dtype=torch.float64),
+                                        rescue_cap=8)
+    runs = {"gpu f64": dict(zip(keys, (st, it, kk, Ux))),
+            "gpu f32": dict(zip(keys, (a[:N_CHECK] for a in (status, iters, kkt, U))))}
+    for dt in ("float64", "float32"):
+        runs[f"cpu {dt.replace('float', 'f')}"] = cpu_refs[(name, dt)].result()[0]
+    for rname in ("gpu f64", "gpu f32", "cpu f32"):
+        fails, report[f"xcheck_{rname.replace(' ', '_')}"] = cross_check(
+            f"{name}, {rname}" if exact else rname, runs[rname], runs["cpu f64"],
+            rname.endswith("f32"), U_BOX, U_TOL,
+            EXACT_U_TOL_MOVED if exact else U_TOL_MOVED)
         failures += fails
-    log(f"# cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
+    log(f"# {name} cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
     return failures, report
 
 
@@ -611,6 +785,45 @@ def record_ok_flags(runs):
 
     riccati.riccati_kkt = recording
     return lambda: setattr(riccati, "riccati_kkt", inner)
+
+
+def cpu_reference(path, dtype_name):
+    """The reference side of a phase's cross-check: the port's plain path
+    on the CPU over the first N_CHECK lanes of ``path`` ("slice",
+    "enmpc", "nmpc_dis" or "cstr_exact") in one dtype, with the Riccati
+    ``ok`` flags of every call.  Returns (per-lane results, flags).  It runs
+    in a worker process while the card's phases run (``main``), so it
+    imports what it needs itself."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    cpu = torch.device("cpu")
+    dtype = getattr(torch, dtype_name)
+    flags = []
+    undo = record_ok_flags([flags])
+    try:
+        if path in ("slice", "cstr_exact"):
+            from mpc_code_tpu_torch.examples.bench_workload import (
+                draw_x0, make_problem, run_pipeline,
+            )
+
+            cfg, model, _, solve = make_problem(
+                cpu, hessian="exact" if path == "cstr_exact" else "gauss_newton")
+            st, it, _, kk, U, _ = run_pipeline(cfg, model, solve,
+                                               draw_x0(N_CHECK, cpu, dtype=dtype),
+                                               rescue_cap=8)
+            run = dict(status=st, iters=it, kkt=kk, U=U)
+        else:
+            from mpc_code_tpu_torch.examples import enmpc_workload, nmpc_dis_workload
+
+            wl = {"enmpc": enmpc_workload, "nmpc_dis": nmpc_dis_workload}[path]
+            run = wl.run_pipeline(wl.make_problem(cpu), wl.draw_lanes(N_CHECK, cpu,
+                                                                       dtype=dtype))
+    finally:
+        undo()
+    return run, flags
 
 
 class Path(NamedTuple):
@@ -643,7 +856,7 @@ def record_nonfinite(sweep, seen: set):
     return lambda: delattr(sweep, "launch")
 
 
-def controller_phase(dev, path: Path, launches):
+def controller_phase(dev, path: Path, launches, cpu_refs):
     """A controller path at B lanes in f32: timed run with the launch
     counters around it, a profiled OCP solve, the failing lanes re-solved
     in f64 on the CPU, and the 64-lane cross-check."""
@@ -757,17 +970,17 @@ def controller_phase(dev, path: Path, launches):
     # the first N_CHECK lanes against the CPU f64 plain path, with every
     # Riccati ok flag recorded
     t0 = time.perf_counter()
-    flags = {}
+    flags = {"gpu f64": []}
     runs = {"gpu f32": {k: v[:N_CHECK] for k, v in out.items() if k != "times"}}
-    for rname, (pr, dtype, dv) in {"cpu f64": (cprob, torch.float64, cpu),
-                                   "gpu f64": (prob, torch.float64, dev),
-                                   "cpu f32": (cprob, torch.float32, cpu)}.items():
-        flags[rname] = []
-        undo = record_ok_flags([flags[rname]])
-        try:
-            runs[rname] = wl.run_pipeline(pr, wl.draw_lanes(N_CHECK, dv, dtype=dtype))
-        finally:
-            undo()
+    undo = record_ok_flags([flags["gpu f64"]])
+    try:
+        runs["gpu f64"] = wl.run_pipeline(prob, wl.draw_lanes(N_CHECK, dev,
+                                                              dtype=torch.float64))
+    finally:
+        undo()
+    for dt in ("float64", "float32"):
+        rname = f"cpu {dt.replace('float', 'f')}"
+        runs[rname], flags[rname] = cpu_refs[(name, dt)].result()
     for rname in ("gpu f64", "gpu f32", "cpu f32"):
         fails, report[f"xcheck_{rname.replace(' ', '_')}"] = cross_check(
             f"{name}, {rname}", runs[rname], runs["cpu f64"], rname.endswith("f32"),
@@ -809,12 +1022,13 @@ def main() -> int:
     from mpc_code_tpu_torch.examples.bench_workload import make_problem
     from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_map_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     pin_fp32_precision()       # as bench.py:40-42 pins the matmul precision
     dev = torch.device("cuda")
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
-            "map_stage_jac", "riccati_kkt_nmpc_dis")
+            "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "riccati_kkt_cstr_exact")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys, 0)
     try:
@@ -822,18 +1036,21 @@ def main() -> int:
         cfg, model, socp, _ = problem
         eprob = ew.make_problem(dev)
         dprob = dw.make_problem(dev)
-        ec, dc = eprob.cfg, dprob.cfg
+        xprob = make_problem(dev, hessian="exact")
+        ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(6) as ex:
+        with cf.ThreadPoolExecutor(7) as ex:
             jobs = [ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                     ex.submit(rk.build_kernel, socp.nxa, socp.nu),
                     ex.submit(eprob.socp.sweep.build, ec.nx, ec.nu, ec.nd, ec.npx, ec.npy),
                     ex.submit(rk.build_kernel, eprob.socp.nxa, eprob.socp.nu),
                     ex.submit(dprob.socp.sweep.build, dc.nx, dc.nu, dc.nd, dc.npx),
-                    ex.submit(rk.build_kernel, dprob.socp.nxa, dprob.socp.nu)]
+                    ex.submit(rk.build_kernel, dprob.socp.nxa, dprob.socp.nu),
+                    ex.submit(sk.make_stage_sweep(xsocp, "exact").build, xsocp.nxa,
+                              xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)]
             built = [j.result() for j in jobs]
-        log(f"# build: six kernel libraries in {time.perf_counter() - t0:.1f} s")
+        log(f"# build: seven kernel libraries in {time.perf_counter() - t0:.1f} s")
         for b in built:
             for line in b.log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -843,6 +1060,12 @@ def main() -> int:
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
         return 1
 
+    # the CPU side of every cross-check, in worker processes beside the
+    # card's phases
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=mp.get_context("spawn"))
+    cpu_refs = {(p, dt): pool.submit(cpu_reference, p, dt)
+                for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact")
+                for dt in ("float64", "float32")}
     enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
                  "riccati_kkt_enmpc", ENMPC_U_TOL)
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
@@ -850,18 +1073,24 @@ def main() -> int:
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
-              ("slice", lambda: slice_phase(dev, problem, launches)),
-              ("enmpc", lambda: controller_phase(dev, enmpc, launches)),
-              ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches)))
-    for name, phase in phases:
-        t0 = time.perf_counter()
-        try:
-            out = phase()
-            failures += out if name.endswith("kernel") else out[0]
-        except Exception:
-            traceback.print_exc()
-            failures.append(f"{name} phase raised")
-        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
+              ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprob, results)),
+              ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
+              ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
+              ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches, cpu_refs)),
+              ("cstr_exact", lambda: slice_phase(dev, xprob, launches, cpu_refs,
+                                                 exact=True)))
+    try:
+        for name, phase in phases:
+            t0 = time.perf_counter()
+            try:
+                out = phase()
+                failures += out if name.endswith("kernel") else out[0]
+            except Exception:
+                traceback.print_exc()
+                failures.append(f"{name} phase raised")
+            log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        pool.shutdown(cancel_futures=True)
 
     def entry(name, res, n_launch):
         r32, r64 = res.get("float32", {}), res.get("float64", {})
@@ -885,16 +1114,20 @@ def main() -> int:
             "rk4_quad_stage_hess": ("mpc_code_tpu_torch/csrc/rk4_quad_stage_hess.cu",
                                     "mpc_code_tpu/ops/sweep_pallas.py:407", "enmpc"),
             "map_stage_jac": ("mpc_code_tpu_torch/csrc/map_stage_jac.cu",
-                              "mpc_code_tpu/ops/sweep_pallas.py:342", "nmpc_dis")}
+                              "mpc_code_tpu/ops/sweep_pallas.py:342", "nmpc_dis"),
+            "stage_sweep": ("mpc_code_tpu_torch/csrc/stage_sweep.cu",
+                            "mpc_code_tpu/solver/sweep_kernel.py:107", "cstr_exact")}
     for name, (src, repl, path) in meta.items():
         k = dict(name=name, route="cuda", source=src, replaces=repl, path=path,
                  **entry(name, results[name], launches[name]))
         if name == "riccati_kkt":
             # the same kernel on the ENMPC path, at (N, nxa, nu) = (25, 2, 1),
-            # and on the nmpc_dis path, at (50, 8, 2)
+            # on the nmpc_dis path, at (50, 8, 2), and on the exact-Hessian
+            # CSTR path, at the CSTR path's shapes
             k["launches_by_path"] = {"cstr": launches["riccati_kkt"],
                                      "enmpc": launches["riccati_kkt_enmpc"],
-                                     "nmpc_dis": launches["riccati_kkt_nmpc_dis"]}
+                                     "nmpc_dis": launches["riccati_kkt_nmpc_dis"],
+                                     "cstr_exact": launches["riccati_kkt_cstr_exact"]}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],

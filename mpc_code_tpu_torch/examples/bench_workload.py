@@ -2,8 +2,10 @@
 
 Batched cold solves of the CSTR NMPC OCP (``examples/nmpc.py``, N=50, RK4
 Mx=10, the bench's saturation guard, ``bench.py:81-84``) by the structured
-solver with the Gauss-Newton Hessian, the monotone barrier, adaptive line
-search and ``track_best``.  The pipeline is ``bench.py:236-295``: a
+solver with the Gauss-Newton Hessian (or, with ``hessian="exact"``, the
+exact Lagrangian Hessian, as ``bench.py:100`` runs under
+``BENCH_HESS=exact``), the monotone barrier, adaptive line search and
+``track_best``.  The pipeline is ``bench.py:236-295``: a
 forward-simulated warm start, pass 1 at a cap of 12 iterations, then one
 combined steady/coolhold rescue call at cap 40 for the lanes that failed.
 
@@ -44,9 +46,9 @@ CLIP_HI = np.array([2.0, 420.0, 1.0])
 U_BOX = np.array([305.0 - 295.0, 0.25])   # width of the input bounds
 
 
-def make_problem(device=None, Nh=N, Mx=MX):
+def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton"):
     """``(cfg, model, socp, solve)`` for the bench configuration on
-    ``device`` (default the card)."""
+    ``device`` (default the card), with the OCP Hessian ``hessian``."""
     cfg = make_config().replace(N=Nh, R_wn=None)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, Mx=Mx, clip_lo=CLIP_LO.astype(np.float32),
@@ -55,7 +57,7 @@ def make_problem(device=None, Nh=N, Mx=MX):
     socp = build_structured_ocp(cfg, model, build_stage_cost(cfg.stage_cost),
                                 build_terminal_cost(cfg), device=device)
     opts = SolverOptions(max_iter=MAXIT_R, tol=1e-3, constr_viol_tol=1e-3,
-                         mu_init=1e-1, hessian="gauss_newton",
+                         mu_init=1e-1, hessian=hessian,
                          mu_strategy="monotone", ls_mode="adaptive",
                          track_best=True)
     return cfg, model, socp, make_structured_solver(socp, opts)

@@ -3,7 +3,9 @@
 Plain callables over torch tensors: stage cost ``F_obj(x, u, y, xs, us,
 ys)`` (Utilities.defF_obj:323-381), steady-state cost (defFss_obj:267-321)
 and terminal cost ``Vfin(dx, xs)`` (defVfin:383-420).  Matrix weights are
-kept as numpy and cast to the argument's dtype and device at call time.
+kept as f64 CPU tensors and cast to the argument's dtype and device at call
+time with ``.to(x)``, which ``torch.fx`` records, so the CUDA code
+generator (``ops/codegen.py``) sees a constant matrix.
 """
 
 from __future__ import annotations
@@ -16,28 +18,27 @@ import torch
 from mpc_code_tpu_torch.config import MPCConfig, SSCost, StageCost
 
 
-def _w(M, like):
-    return torch.as_tensor(np.asarray(M, float), dtype=like.dtype,
-                           device=like.device)
+def _w(M):
+    return torch.as_tensor(np.asarray(M, float))
 
 
 def build_stage_cost(sc: StageCost) -> Callable:
     """F_obj(x, u, y, xs, us, ys) — LP, QP or user form."""
     if sc.r_x is not None:
-        r_x = np.asarray(sc.r_x, float)
-        r_u = np.asarray(sc.r_u if sc.r_u is not None else sc.r_Du, float)
+        r_x = _w(sc.r_x)
+        r_u = _w(sc.r_u if sc.r_u is not None else sc.r_Du)
 
         def f_obj(x, u, y, xs, us, ys):
-            return (torch.sum(_w(r_x, x) @ torch.abs(x))
-                    + torch.sum(_w(r_u, u) @ torch.abs(u)))
+            return (torch.sum(r_x.to(x) @ torch.abs(x))
+                    + torch.sum(r_u.to(u) @ torch.abs(u)))
 
         return f_obj
     if sc.Q is not None:
-        Q = np.asarray(sc.Q, float)
-        Ru = np.asarray(sc.R if sc.R is not None else sc.S, float)
+        Q = _w(sc.Q)
+        Ru = _w(sc.R if sc.R is not None else sc.S)
 
         def f_obj(x, u, y, xs, us, ys):
-            return 0.5 * (x @ (_w(Q, x) @ x) + u @ (_w(Ru, u) @ u))
+            return 0.5 * (x @ (Q.to(x) @ x) + u @ (Ru.to(u) @ u))
 
         return f_obj
     for f in (sc.f_cont, sc.f_dis, sc.f_coll):
@@ -49,19 +50,19 @@ def build_stage_cost(sc: StageCost) -> Callable:
 def build_ss_cost(ssc: SSCost) -> Callable:
     """Fss_obj(x, u, y, xsp, usp, ysp) — LP, QP or user form."""
     if ssc.rss_y is not None:
-        r_y = np.asarray(ssc.rss_y, float)
-        r_u = np.asarray(ssc.rss_u if ssc.rss_u is not None else ssc.rss_Du, float)
+        r_y = _w(ssc.rss_y)
+        r_u = _w(ssc.rss_u if ssc.rss_u is not None else ssc.rss_Du)
 
         def f(x, u, y, xsp, usp, ysp):
-            return torch.sum(_w(r_y, y) @ y) + torch.sum(_w(r_u, u) @ torch.abs(u))
+            return torch.sum(r_y.to(y) @ y) + torch.sum(r_u.to(u) @ torch.abs(u))
 
         return f
     if ssc.Qss is not None:
-        Q = np.asarray(ssc.Qss, float)
-        Ru = np.asarray(ssc.Rss if ssc.Rss is not None else ssc.Sss, float)
+        Q = _w(ssc.Qss)
+        Ru = _w(ssc.Rss if ssc.Rss is not None else ssc.Sss)
 
         def f(x, u, y, xsp, usp, ysp):
-            return 0.5 * (y @ (_w(Q, y) @ y) + u @ (_w(Ru, u) @ u))
+            return 0.5 * (y @ (Q.to(y) @ y) + u @ (Ru.to(u) @ u))
 
         return f
     if ssc.f_obj is not None:

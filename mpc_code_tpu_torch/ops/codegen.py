@@ -10,9 +10,9 @@ What it lowers: integer indexing and slices of inputs and intermediates,
 whole-vector use of an input, elementwise ``+ - * /``, negation, ``exp``,
 ``log``, ``sqrt``, ``pow`` by a scalar, ``maximum``/``minimum``,
 comparisons, ``where``, ``stack`` and ``cat`` over dim 0, ``@`` (a
-captured constant matrix or vector times a vector, or a dot product of two
-vectors, written as literal multiply-adds) and ``.to(...)`` (the cast of a
-captured constant).  Any other op raises ``NotImplementedError`` naming
+captured constant matrix or vector times a vector, a matrix input times a
+vector, or a dot product of two vectors, written as literal multiply-adds)
+and ``.to(...)`` (the cast of a captured constant).  Any other op raises ``NotImplementedError`` naming
 it.  The statements are the ones the compiler would keep: ``a * 1``,
 ``a / 1``, ``a + 0``, ``a - 0`` and ``a * 0`` are folded, a statement
 that repeats an earlier one reuses its value, and statements no output
@@ -59,17 +59,19 @@ _MATMUL = {operator.matmul, torch.matmul}
 _TRACE_LOCK = threading.Lock()
 SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, exp, log, "
              "sqrt, pow by a scalar, maximum, minimum, comparisons, where, "
-             "stack and cat over dim 0, matmul with a constant or a dot "
-             "product, .to()")
+             "stack and cat over dim 0, matmul with a constant, of a matrix "
+             "input by a vector or a dot product, .to()")
 
 
 class Arg(NamedTuple):
     """One positional argument of the traced function: ``kind`` is 'dual'
-    (a vector that carries tangents), 'vec' (a vector without tangents) or
-    'scalar' (a scalar without tangents)."""
+    (a vector that carries tangents), 'vec' (a vector without tangents),
+    'scalar' (a scalar without tangents) or 'mat' (a matrix without
+    tangents, ``dim`` = (rows, cols), stored row-major: entry (i, j) is
+    ``name[i * cols + j]``; only ``name @ vector`` is lowered)."""
     name: str
     kind: str
-    dim: int | None = None     # None: unknown, only indexed use is lowered
+    dim: int | tuple | None = None   # None: unknown, only indexed use is lowered
 
 
 class Scalar(NamedTuple):
@@ -83,6 +85,12 @@ class _Input(NamedTuple):
     name: str
     dim: int
     dual: bool
+
+
+class _Mat(NamedTuple):
+    name: str
+    rows: int
+    cols: int
 
 
 def _op_name(node) -> str:
@@ -135,8 +143,12 @@ class Program:
                 f"the {what} must take exactly {tuple(a.name for a in self.args)}, "
                 f"got {[n.name for n in placeholders]}")
         for n, a in zip(placeholders, self.args):
-            env[n] = (Scalar(a.name, False) if a.kind == "scalar"
-                      else _Input(a.name, a.dim, a.kind == "dual"))
+            if a.kind == "mat":
+                env[n] = _Mat(a.name, *a.dim)
+            elif a.kind == "scalar":
+                env[n] = Scalar(a.name, False)
+            else:
+                env[n] = _Input(a.name, a.dim, a.kind == "dual")
         result = None
         for n in gm.graph.nodes:
             if n.op == "placeholder":
@@ -161,6 +173,9 @@ class Program:
     @staticmethod
     def _vec(v):
         """The value as a list of scalars, or the value itself if scalar."""
+        if isinstance(v, _Mat):
+            raise NotImplementedError(
+                f"matrix input {v.name!r} used otherwise than as {v.name} @ vector")
         if isinstance(v, _Input):
             if v.dim is None:
                 raise NotImplementedError(
@@ -273,6 +288,16 @@ class Program:
     def _matmul(self, name, a, b):
         if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
             return a @ b
+        if isinstance(a, _Mat):
+            bv = self._vec(b)
+            if not isinstance(bv, list) or len(bv) != a.cols:
+                raise NotImplementedError(f"matmul of the ({a.rows}, {a.cols}) "
+                                          f"input {a.name!r} with a value of "
+                                          "another length")
+            return [self._dot(f"{name}__{i}",
+                              [Scalar(f"{a.name}[{i * a.cols + j}]", False)
+                               for j in range(a.cols)], bv)
+                    for i in range(a.rows)]
         if isinstance(a, np.ndarray) and a.ndim == 2:
             bv = self._vec(b)
             if not isinstance(bv, list) or len(bv) != a.shape[1]:
@@ -404,7 +429,8 @@ class Program:
     # ----- run the statements in Python ------------------------------------
     def execute(self, **inputs):
         """Run the lowered statements on torch tensors: each named input is
-        a tensor (a vector input indexed along its first dimension).
+        a tensor (a vector input indexed along its first dimension, a
+        matrix input flattened row-major along it).
         Returns the list of output components.  Used by the CPU tests."""
         def val(a):
             return a if torch.is_tensor(a) else torch.tensor(a, dtype=torch.float64)

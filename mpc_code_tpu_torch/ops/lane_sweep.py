@@ -1,9 +1,10 @@
 """What the wrappers of the per-lane sweep kernels share.
 
-A sweep kernel (``csrc/rk4_stage_jac.cu``, ``csrc/rk4_quad_stage_hess.cu``)
-runs one thread per (scenario, stage) lane, lane = b * N + n, on planes
-laid out lanes innermost: a per-stage input (B, N, k) as (k, L), the
-per-scenario scalars (``t`` and ``h``, or ``t`` alone) as (B,), any other
+A sweep kernel (``csrc/rk4_stage_jac.cu``, ``csrc/rk4_quad_stage_hess.cu``,
+``csrc/map_stage_jac.cu``, ``csrc/stage_sweep.cu``) runs one thread per
+(scenario, stage) lane, lane = b * N + n, on planes laid out lanes
+innermost: a per-stage input (B, N, k) as (k, L), the per-scenario
+scalars (``t`` and ``h``, ``t`` alone, or ``t`` and ``sf``) as (B,), any other
 per-scenario input (B, k) as (k, B), and an empty input as a one-element
 dummy.  Its C launchers
 ``<kernel>_f32`` and ``<kernel>_f64`` take the input planes, then the

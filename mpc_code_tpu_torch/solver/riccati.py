@@ -1,4 +1,4 @@
-"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-3).
+"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-4).
 
 Port of ``mpc_code_tpu/solver/riccati.py`` for three configurations: plain
 continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
@@ -7,15 +7,18 @@ continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
 with the u_prev state augmentation that Delta-u bounds and Delta-u costs
 (``DUForm``, ``DUFormEcon``) need, with the Gauss-Newton Hessian, the
 monotone barrier, the rollout-free adaptive step controller
-(``ls_mode='adaptive'``) and best-iterate bookkeeping.  Every other
-configuration raises ``NotImplementedError`` naming its ROADMAP item.
+(``ls_mode='adaptive'``) and best-iterate bookkeeping.  Plain continuous
+shooting also takes the exact Lagrangian Hessian (the default of
+``SolverOptions``).  Every other configuration raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
 The user's model and cost callables still act on one point, so the stage
 functions of ``StructuredOCP`` take one (state, input, stage-parameter)
 point and their derivatives come from ``torch.func`` (``grad``,
-``hessian``, ``jacfwd``) vmapped over the B*N (scenario, stage) points.
+``hessian``, ``jacfwd``, ``jacrev``) vmapped over the B*N (scenario,
+stage) points.
 
 Per iteration the solver runs two hand-written CUDA kernels on the card:
 a derivative sweep, either the RK4 stage-Jacobian sweep
@@ -24,7 +27,9 @@ sweep (``ops/sweep_map_cuda.py``), both through
 ``StructuredOCP.stage_dyn_jac``, or, for a ContForm OCP, the joint
 dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
 ``StructuredOCP.stage_cf``, which also gives the stage cost's value,
-gradient and Hessian), and the Riccati KKT solve
+gradient and Hessian), or, under the exact Hessian, the fused generic
+stage-derivative sweep (``solver/sweep_kernel.py``: every output of
+``make_stage_derivs`` in one pass), and the Riccati KKT solve
 (``solver/riccati_kernel.py``).  The rest is IPM algebra on whole
 tensors.
 
@@ -42,7 +47,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, vmap
+from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
 from mpc_code_tpu_torch.config import (
     ContinuousModel, DiscreteModel, MPCConfig, SolverOptions,
@@ -81,7 +86,11 @@ class StructuredOCP:
     A ContForm OCP has ``stage_cf`` instead: ``(X, U, p) -> (dval, A, B,
     qv (B,N), gq (B,N,nz), Hq (B,N,nz,nz))``, the quadrature cost's value,
     gradient and Hessian (scaled) from the same rollout.  ``ineq`` is None
-    when ``ni = 0``.
+    when ``ni = 0``.  ``dyn`` is the scaled one-interval map on one point
+    ``(xa, u, pk) -> xa_next``, which the exact Lagrangian Hessian
+    traverses, and ``lowering`` what the fused stage sweep's code
+    generator needs; both are None where the exact Hessian is not ported
+    (the discrete map, ContForm, the u_prev augmentation).
     """
 
     N: int
@@ -105,6 +114,31 @@ class StructuredOCP:
     device: torch.device
     sweep: Optional[Callable] = None   # the sweep kernel's wrapper it runs
     stage_cf: Optional[Callable] = None
+    dyn: Optional[Callable] = None
+    lowering: Optional["StageLowering"] = None
+
+
+# the per-point parameters of the lowered stage cost and rows, in order
+POINT_ARGS = ("t", "xs", "us", "d", "um1", "lam", "py", "py0")
+
+
+class StageLowering(NamedTuple):
+    """The raw (unscaled) stage functions of a continuous-shooting OCP in
+    the form the fused stage sweep (``solver/sweep_kernel.py``) lowers to
+    CUDA: the user ODE ``ode(x, t, u, d, px)`` with its RK4 sub-steps, the
+    interval, the guard's bounds, ``Bd`` (None unless offree='lin') and
+    LinPar; the stage cost and rows as ``f(xa, u, *POINT_ARGS)``."""
+    ode: Callable
+    Mx: int
+    h: float
+    clip_lo: Optional[np.ndarray]
+    clip_hi: Optional[np.ndarray]
+    Bd: Optional[np.ndarray]
+    lin_par: bool
+    cost: Callable
+    ineq: Optional[Callable]
+    nx: int
+    ny: int
 
 
 class StructResult(NamedTuple):
@@ -147,7 +181,7 @@ def stage_params(p: dict, N: int) -> dict:
     per-lane data, ``px``/``py`` of that stage, ``py0`` (stage 0) and
     ``k0``, whether the point is stage 0 (the JAX stage functions' ``k ==
     0``)."""
-    Bsz = p["x0"].shape[0]
+    Bsz = p["xs"].shape[0]
 
     def rep(v):
         return v.unsqueeze(1).expand((Bsz, N) + tuple(v.shape[1:])).reshape(
@@ -157,7 +191,7 @@ def stage_params(p: dict, N: int) -> dict:
     pk["px"] = p["px"].reshape(Bsz * N, -1)
     pk["py"] = p["py"].reshape(Bsz * N, -1)
     pk["py0"] = rep(p["py"][:, 0])
-    pk["k0"] = (torch.arange(N, device=p["x0"].device) == 0).repeat(Bsz)
+    pk["k0"] = (torch.arange(N, device=p["xs"].device) == 0).repeat(Bsz)
     if "_sf" in p:
         pk["_sf"] = rep(p["_sf"])
     return pk
@@ -334,6 +368,10 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     # stages in one pass; the augmented u_prev rows have a constant
     # Jacobian structure assembled here (JAX riccati.py:600-679)
     m = cfg.model
+    Bd = (np.asarray(cfg.dist.Bd, float)
+          if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
+    lin_par = cfg.LinPar
+    exact = {}
     if isinstance(m, DiscreteModel):
         from mpc_code_tpu_torch.ops.integrators import map_stage_jac
 
@@ -355,9 +393,27 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             hb = torch.full((x.shape[0],), h, dtype=x.dtype, device=x.device)
             return sweep(x, u, p["px"], p["t"], hb, p["d"])
 
-    Bd = (np.asarray(cfg.dist.Bd, float)
-          if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
-    lin_par = cfg.LinPar
+        if not du_coupled:
+            # the one-interval map the exact Lagrangian Hessian traverses:
+            # the model's RK4 on the guarded state, + Bd d, + px (JAX
+            # riccati.py:376-390, dyn_s :559-560), the same t at every stage
+            def dyn_s(xa, u, pk):
+                xn = model.fx(_t(sxa, xa) * xa, _t(su, u) * u, h, pk["d"],
+                              pk["t"], pk["px"])
+                return xn / _t(sxa, xa)
+
+            def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
+                return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
+                                            lam=lam, py=py, py0=py0))
+
+            def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0):
+                return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
+                                            lam=lam, py=py, py0=py0))
+
+            exact = dict(dyn=dyn_s, lowering=StageLowering(
+                ode=_ode, Mx=int(m.Mx), h=h, clip_lo=m.clip_lo,
+                clip_hi=m.clip_hi, Bd=Bd, lin_par=lin_par, cost=cost_at,
+                ineq=ineq_at if ni else None, nx=nx, ny=ny))
 
     def stage_dyn_jac(Xs, Us, p):
         s_x, s_u = _t(sxa, Xs), _t(su, Us)
@@ -377,19 +433,34 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         Bm = Ju * (s_u[None, :] / s_x[:, None])
         return dval, A, Bm
 
-    return StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep)
+    return StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep, **exact)
 
 
-def make_stage_derivs(s: StructuredOCP, skip_cost: bool = False) -> Callable:
-    """Per-point derivative sweep ``(z (nz,), pk) -> (H, gc, E, ival)``: the
-    Gauss-Newton cost Hessian and gradient (``pk["_sf"]`` scales the
-    objective) and the inequality Jacobian with its value — the JAX
-    ``make_stage_derivs(s, 'gauss_newton', skip_dyn=True)``.  The dynamics
-    value and Jacobians come from ``s.stage_dyn_jac`` (the CUDA sweep).
-    With ``skip_cost`` (the ContForm joint sweep gives H and gc) H and gc
-    are left out, and with ``s.ni == 0`` E and ival.  Batch it with
-    ``torch.func.vmap`` over (scenario, stage) points."""
-    nxa = s.nxa
+def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
+                      skip_dyn: bool = False, skip_cost: bool = False) -> Callable:
+    """Per-point derivative sweep ``(z (nz,), pk, lam_k, nu_k) -> (H, gc, A,
+    B, E, ival, dval)``, the JAX ``make_stage_derivs`` without the stage
+    equalities: the cost's Hessian and gradient (``pk["_sf"]`` scales the
+    objective), the dynamics' Jacobians with their value and the
+    inequality Jacobian with its value.  ``hessian='exact'`` gives H =
+    ∇²(sf·c + lam_k·dyn + nu_k·ineq), ``'gauss_newton'`` H = ∇²(sf·c).
+    With ``skip_dyn`` (Gauss-Newton only: the caller gets the dynamics
+    from ``s.stage_dyn_jac``) it is ``(z, pk) -> (H, gc, E, ival)``, and
+    with ``skip_cost`` as well (the ContForm joint sweep gives H and gc)
+    ``(E, ival)``; there E and ival are left out when ``s.ni == 0``.
+    Batch it with ``torch.func.vmap`` over (scenario, stage) points."""
+    if (skip_dyn or skip_cost) and hessian != "gauss_newton":
+        raise ValueError("skip_dyn/skip_cost require hessian='gauss_newton' "
+                         "(the exact Lagrangian Hessian traverses the dynamics)")
+    if skip_cost and not skip_dyn:
+        raise ValueError("skip_cost implies skip_dyn (the ContForm joint "
+                         "sweep provides both)")
+    if not skip_dyn and s.dyn is None:
+        raise _todo("the full stage sweep (and the exact Hessian) for the "
+                    "discrete map, ContForm and the u_prev augmentation",
+                    "Queue 1 item 21")
+    nxa, ni = s.nxa, s.ni
+    nz = nxa + s.nu
 
     def c_of_z(zz, pk):
         return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
@@ -398,11 +469,43 @@ def make_stage_derivs(s: StructuredOCP, skip_cost: bool = False) -> Callable:
         v = s.ineq(zz[:nxa], zz[nxa:], pk)
         return v, v
 
-    def stage_derivs(z, pk):
-        out = () if skip_cost else (hessian(c_of_z)(z, pk), grad(c_of_z)(z, pk))
-        if s.ni:
-            out += jacfwd(ineq_aux, has_aux=True)(z, pk)
-        return out
+    if skip_dyn:
+        def split_derivs(z, pk):
+            out = () if skip_cost else (torch.func.hessian(c_of_z)(z, pk),
+                                        grad(c_of_z)(z, pk))
+            if ni:
+                out += jacfwd(ineq_aux, has_aux=True)(z, pk)
+            return out
+
+        return split_derivs
+
+    def dyn_aux(zz, pk):
+        v = s.dyn(zz[:nxa], zz[nxa:], pk)
+        return v, v
+
+    def L_of_z(zz, pk, lam_k, nu_k):
+        # sums of products, not dot products: torch.func's Hessian of a
+        # dot product leaves f32 (ROADMAP Queue 3, F4)
+        val = c_of_z(zz, pk) + (lam_k * s.dyn(zz[:nxa], zz[nxa:], pk)).sum()
+        if ni:
+            val = val + (nu_k * s.ineq(zz[:nxa], zz[nxa:], pk)).sum()
+        return val
+
+    # reverse over reverse: torch's forward mode runs Python decompositions
+    # for every op that mixes a tensor and a Python number, several times
+    # slower through the RK4 sub-steps on the CPU (PERF.md, kernel 5)
+    def stage_derivs(z, pk, lam_k, nu_k):
+        if hessian == "gauss_newton":
+            H = jacrev(jacrev(c_of_z))(z, pk)
+        else:
+            H = jacrev(jacrev(L_of_z))(z, pk, lam_k, nu_k)
+        gc = grad(c_of_z)(z, pk)
+        Jd, dval = jacrev(dyn_aux, has_aux=True)(z, pk)
+        if ni:
+            E, ival = jacrev(ineq_aux, has_aux=True)(z, pk)
+        else:
+            E, ival = z.new_zeros((0, nz)), z.new_zeros(0)
+        return H, gc, Jd[:, :nxa], Jd[:, nxa:], E, ival, dval
 
     return stage_derivs
 
@@ -446,8 +549,13 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         raise _todo(f"mu_strategy={opts.mu_strategy!r}", "Queue 1 item 21")
     if opts.ls_mode != "adaptive":
         raise _todo(f"ls_mode={opts.ls_mode!r}", "Queue 1 item 21")
-    if opts.hessian != "gauss_newton":
-        raise _todo("hessian='exact'", "Queue 1 item 21")
+    if opts.hessian not in ("exact", "gauss_newton"):
+        raise ValueError(f"unknown hessian {opts.hessian!r}: "
+                         "use 'exact' or 'gauss_newton'")
+    exact = opts.hessian == "exact"
+    if exact and s.dyn is None:
+        raise _todo("hessian='exact' for the discrete map, ContForm and the "
+                    "u_prev augmentation", "Queue 1 item 21")
     if opts.ls_parallel:
         raise _todo("ls_parallel", "Queue 1 item 21")
     if int(opts.sweep_every) > 1:
@@ -459,10 +567,23 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
     N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
     nz = nxa + nu
-    # ContForm: the joint sweep gives the stage cost's value, gradient and
-    # Hessian beside the dynamics (JAX fast_cf, riccati.py:1150)
-    fast_cf = s.stage_cf is not None
-    v_stage = vmap(make_stage_derivs(s, skip_cost=fast_cf)) if (ni or not fast_cf) else None
+    # Gauss-Newton: the split sweep, dynamics from their kernel and the
+    # cost and rows by torch.func; ContForm's joint sweep also gives the
+    # stage cost's value, gradient and Hessian (JAX fast_cf, riccati.py:
+    # 1150-1154).  Otherwise every output comes from the fused stage sweep,
+    # with the iterate's multipliers (JAX riccati.py:1394-1400); the card
+    # has no other path for it, so it always launches its kernel there.
+    fast_cf = s.stage_cf is not None and not exact
+    split = (s.stage_dyn_jac is not None and not exact) or fast_cf
+    fused = None
+    v_stage = None
+    if not split:
+        from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
+
+        fused = make_stage_sweep(s, opts.hessian)
+    elif ni or not fast_cf:
+        v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
+                                         skip_cost=fast_cf))
 
     def _cstage(zz, pk):
         return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
@@ -589,6 +710,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             """H, gc, A, Bm, E, ival, dval at the iterate, and qv, the
             ContForm quadrature there (None otherwise)."""
             X, U = st["X"], st["U"]
+            if fused is not None:
+                return fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"])) + (None,)
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
             derivs = v_stage(Zs, pk) if v_stage is not None else ()
             qv = None

@@ -1,0 +1,284 @@
+"""Fused generic stage-derivative sweep: hand-written CUDA kernel and its plain version.
+
+Replaces ``mpc_code_tpu/solver/sweep_kernel.py::make_stage_sweep`` (its
+kernel body is built by ``_get_kernel_impl``), the Pallas program that runs
+every output of ``make_stage_derivs`` for all N stages of a batch: the
+structured solver's derivative sweep whenever it has no split dynamics
+sweep, which is whenever the Hessian is exact.  For every (scenario,
+stage) lane, at z = (xa, u) in scaled units and the iterate's multipliers
+lam and nus:
+
+- ``H`` (nz, nz): ∇²(sf·c + lam·dyn + nus·ineq) under the exact Hessian,
+  ∇²(sf·c) under Gauss-Newton;
+- ``gc`` (nz): ∇(sf·c);
+- ``A`` (nxa, nxa), ``B`` (nxa, nu) and ``dval`` (nxa): the one-interval
+  map's Jacobians and value;
+- ``E`` (ni, nz) and ``ival`` (ni): the inequality rows' Jacobian and
+  value.
+
+The OCP's functions reach the kernel through the code generator of
+``ops/codegen.py``: ``emit_stage_source`` lowers the user ODE, the stage
+cost and the inequality rows (``StructuredOCP.lowering``) to scalar
+statements in a generated header, with the scales, weights, bounds and the
+interval as literals; ``csrc/stage_sweep.cu`` instantiates them with the
+second-order forward-mode ``Dual2<T, nz>`` of ``csrc/dual2.cuh`` and runs
+the RK4 sub-steps itself.  The TPU kernel's per-stage traces and (8, 128)
+tiles exist for Mosaic and have no counterpart here.
+
+What bounds the kernel on the H100, and how the design meets it: see the
+note at the top of ``csrc/stage_sweep.cu``.
+
+``StageSweep.__call__`` launches the kernel for CUDA tensors and raises on
+what the kernel does not take; it runs the plain version (the vmapped
+``make_stage_derivs``) only for CPU tensors.  ``LAUNCHES`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from mpc_code_tpu_torch.ops.codegen import Arg, Program, lit
+from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
+from mpc_code_tpu_torch.solver.riccati import (
+    POINT_ARGS, StageLowering, StructuredOCP, make_stage_derivs, stage_params,
+)
+
+LAUNCHES = 0
+PLAIN_BLOCK_LANES = 1 << 17        # lanes per block of the plain version
+
+
+def stage_programs(low: StageLowering, nxa, nu, ni, nd, npx, npy):
+    """(ode, cost, ineq): the user ODE, the stage cost and the inequality
+    rows (None when ni = 0) lowered with the state and the input carrying
+    first- and second-order tangents."""
+    nz = nxa + nu
+    ode = Program(low.ode, (Arg("x", "dual", low.nx), Arg("t", "scalar"),
+                            Arg("u", "dual", nu), Arg("d", "vec", nd),
+                            Arg("px", "vec", npx)),
+                  nz, out_dim=low.nx, order=2, what="ODE")
+    dims = dict(t=None, xs=low.nx, us=nu, d=nd, um1=nu, lam=(low.ny, nu),
+                py=npy, py0=npy)
+    pt = (Arg("xa", "dual", nxa), Arg("u", "dual", nu)) + tuple(
+        Arg(k, "scalar" if k == "t" else "mat" if k == "lam" else "vec", dims[k])
+        for k in POINT_ARGS)
+    cost = Program(low.cost, pt, nz, out_dim=None, order=2, what="stage cost")
+    ineq = (Program(low.ineq, pt, nz, out_dim=ni, order=2, what="inequality rows")
+            if ni else None)
+    return ode, cost, ineq
+
+
+def _bounds(b, n):
+    return [None] * n if b is None else [float(v) for v in np.asarray(b).reshape(-1)]
+
+
+def _array(vals) -> str:
+    return "{" + ", ".join(repr(float(v)) for v in (list(vals) or [1.0])) + "}"
+
+
+def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
+                      nd, npx, npy) -> str:
+    """Generated header ``mpc_stage_gen.cuh`` for ``csrc/stage_sweep.cu``:
+    the dimensions, the interval's RK4 steps, the scales, ``mpc_rhs`` (the
+    traced ODE), ``mpc_clip`` (the guard from literal bounds, max then min
+    per component, finite bounds only), ``mpc_terms`` (``+ Bd d``, then
+    ``+ px`` under LinPar, as ``models/model.py`` adds them),
+    ``mpc_cost`` and ``mpc_ineq``."""
+    ode, cost, ineq = stage_programs(low, nxa, nu, ni, nd, npx, npy)
+    nx = low.nx
+    lo, hi = _bounds(low.clip_lo, nx), _bounds(low.clip_hi, nx)
+    clip, terms = [], []
+    for i in range(nx):
+        e = f"x[{i}]"
+        if lo[i] is not None and math.isfinite(lo[i]):
+            e = f"mpc_max({e}, {lit(lo[i])})"
+        if hi[i] is not None and math.isfinite(hi[i]):
+            e = f"mpc_min({e}, {lit(hi[i])})"
+        clip.append(f"  xc[{i}] = {e};")
+    if low.Bd is not None:
+        Bd = np.asarray(low.Bd, float).reshape(nx, nd)
+        for i in range(nx):
+            dot = " + ".join(f"{lit(Bd[i, j])} * d[{j}]" for j in range(nd))
+            terms.append(f"  x[{i}] = x[{i}] + ({dot});")
+    if low.lin_par:
+        terms += [f"  x[{i}] = x[{i}] + px[{i}];" for i in range(nx)]
+    pt_sig = ("const V* xa, const V* u, S t, const S* xs, const S* us, "
+              "const S* d, const S* um1, const S* lam, const S* py, "
+              "const S* py0, V* out")
+    ineq_fn = "" if ineq is None else f"""
+template <class V, class S>
+__device__ __forceinline__ void mpc_ineq({pt_sig}) {{
+{ineq.body}
+}}
+"""
+    dt = low.h / low.Mx
+    return f"""// Generated by mpc_code_tpu_torch/solver/sweep_kernel.py.
+#pragma once
+#include <cmath>
+#define MPC_NX {nx}
+#define MPC_NXA {nxa}
+#define MPC_NU {nu}
+#define MPC_NI {ni}
+#define MPC_ND {nd}
+#define MPC_NPX {npx}
+#define MPC_NPY {npy}
+#define MPC_NLAM {low.ny * nu}
+#define MPC_MX {low.Mx}
+#define MPC_EXACT {int(hessian == "exact")}
+#define MPC_DT {dt!r}
+#define MPC_DT2 {dt / 2!r}
+#define MPC_DT6 {dt / 6!r}
+#define MPC_SXA {_array(sxa)}
+#define MPC_SU {_array(su)}
+#define MPC_SI {_array(si)}
+
+template <class V, class S>
+__device__ __forceinline__ void mpc_rhs(const V* x, S t, const V* u,
+                                        const S* d, const S* px, V* out) {{
+{ode.body}
+}}
+
+template <class V, class S>
+__device__ __forceinline__ void mpc_clip(const V* x, V* xc) {{
+{chr(10).join(clip)}
+}}
+
+template <class V, class S>
+__device__ __forceinline__ void mpc_terms(V* x, const S* d, const S* px) {{
+{chr(10).join(terms)}
+}}
+
+template <class V, class S>
+__device__ __forceinline__ void mpc_cost({pt_sig}) {{
+{cost.body}
+}}
+{ineq_fn}"""
+
+
+def stage_ops_per_lane(low: StageLowering, hessian, nxa, nu, ni, nd, npx, npy) -> int:
+    """Arithmetic operations the kernel's function needs per lane, on values
+    with nz first- and nz(nz+1)/2 second-order tangents (exp/log/sqrt count
+    as one each; a bound against a constant is a compare and a select per
+    component): the cost and the rows once; four ODE evaluations with the
+    guard and the RK4 combination (13 operations a state) per sub-step;
+    ``+ Bd d`` and ``+ px`` on the values; the scalings (sf, 1/si, 1/sxa);
+    and the assembly of H's upper triangle (one product, then a
+    multiply-add for each dynamics row and each inequality row under the
+    exact Hessian)."""
+    ode, cost, ineq = stage_programs(low, nxa, nu, ni, nd, npx, npy)
+    nz = nxa + nu
+    np2 = nz * (nz + 1) // 2
+    width = 1 + nz + np2
+    nx = low.nx
+    n_bounds = sum(1 for b in (_bounds(low.clip_lo, nx), _bounds(low.clip_hi, nx))
+                   for v in b if v is not None and math.isfinite(v))
+    rollout = low.Mx * (4 * (ode.ops + n_bounds * width) + 13 * nx * width)
+    terms = (2 * nd * nx if low.Bd is not None else 0) + (nx if low.lin_par else 0)
+    scale = (1 + ni + nxa) * width
+    assembly = np2 * (1 + (2 * (nxa + ni) if hessian == "exact" else 0))
+    return (cost.ops + (ineq.ops if ineq is not None else 0) + rollout + terms
+            + scale + assembly)
+
+
+def stage_bytes(Bsz, N, nxa, nu, ni, nd, npx, npy, nlam, itemsize) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once."""
+    L = Bsz * N
+    nz = nxa + nu
+    ins = (2 * nxa + nu + ni + npx + npy) * L + (2 + nxa + 2 * nu + nd + nlam) * Bsz
+    outs = (nz * nz + nz + nxa * nxa + nxa * nu + ni * nz + ni + nxa) * L
+    return itemsize * (ins + outs)
+
+
+class StageSweep(LaneSweep):
+    """``F(X, U, lam, nus, px, py, t, sf, xs, us, d, um1, lamy) -> (H, gc,
+    A, B, E, ival, dval)`` for one OCP and Hessian mode: X, U, lam, nus,
+    px, py per stage (B, N, k), t and sf per scenario (B,), xs, us, d, um1
+    and the output-correction matrix ``lamy`` (B, ny*nu, row-major) per
+    scenario.  ``inputs`` builds these from the solver's iterate."""
+
+    kernel, header = "stage_sweep", "mpc_stage_gen.cuh"
+    stage_inputs = ("X", "U", "lam", "nus", "px", "py")
+    scalar_inputs = ("t", "sf")
+    scenario_inputs = ("xs", "us", "d", "um1", "lamy")
+
+    def __init__(self, s: StructuredOCP, hessian: str = "exact"):
+        super().__init__()
+        if hessian not in ("exact", "gauss_newton"):
+            raise ValueError(f"unknown hessian {hessian!r}")
+        self.derivs = make_stage_derivs(s, hessian)   # raises where unported
+        self.s, self.hessian, self.low = s, hessian, s.lowering
+        self._v = vmap(self.derivs)
+
+    @staticmethod
+    def inputs(Xs, Us, p, lam, nus):
+        """The kernel's inputs at the solver's iterate: X[:, :N], U, the
+        batched parameter dict (with ``_sf``), lam and nus."""
+        return (Xs, Us, lam, nus, p["px"], p["py"], p["t"], p["_sf"], p["xs"],
+                p["us"], p["d"], p["um1"], p["lam"].reshape(Xs.shape[0], -1))
+
+    def plain(self, *args):
+        """The vmapped ``make_stage_derivs`` over blocks of at most
+        PLAIN_BLOCK_LANES (scenario, stage) lanes: lanes are independent,
+        and a block bounds the memory its reverse-mode graph holds."""
+        Bsz, N = args[0].shape[:2]
+        step = max(1, PLAIN_BLOCK_LANES // N)
+        parts = [self._plain_block(*[a[b0:b0 + step] for a in args])
+                 for b0 in range(0, Bsz, step)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def _plain_block(self, X, U, lam, nus, px, py, t, sf, xs, us, d, um1, lamy):
+        Bsz, N, nxa = X.shape
+        nu = U.shape[-1]
+        p = dict(xs=xs, us=us, d=d, um1=um1, t=t,
+                 lam=lamy.reshape(Bsz, -1, nu), px=px, py=py, _sf=sf)
+        pk = stage_params(p, N)
+        L = Bsz * N
+        Z = torch.cat([X, U], -1).reshape(L, nxa + nu)
+        out = self._v(Z, pk, lam.reshape(L, nxa), nus.reshape(L, nus.shape[-1]))
+        return tuple(o.reshape((Bsz, N) + tuple(o.shape[1:])) for o in out)
+
+    def source(self, nxa, nu, ni, nd, npx, npy) -> str:
+        s = self.s
+        return emit_stage_source(self.low, s.sxa, s.su, s.si, self.hessian,
+                                 nxa, nu, ni, nd, npx, npy)
+
+    def ops_per_lane(self, nxa, nu, ni, nd, npx, npy) -> int:
+        return stage_ops_per_lane(self.low, self.hessian, nxa, nu, ni, nd, npx, npy)
+
+    def dims(self, w):
+        s = self.s
+        nxa, nu, ni = w["X"], w["U"], w["nus"]
+        if ((nxa, nu, ni) != (s.nxa, s.nu, s.ni) or w["lam"] != nxa
+                or (w["xs"], w["us"], w["um1"]) != (self.low.nx, nu, nu)
+                or w["lamy"] != self.low.ny * nu):
+            raise ValueError(f"inputs of widths {w} do not fit the OCP's "
+                             f"(nxa, nu, ni) = {(s.nxa, s.nu, s.ni)}")
+        return (nxa, nu, ni, w["d"], w["px"], w["py"])
+
+    def out_rows(self, nxa, nu):
+        nz, ni = nxa + nu, self.s.ni          # H, gc, A, B, E, ival, dval
+        return (nz * nz, nz, nxa * nxa, nxa * nu, ni * nz, ni, nxa)
+
+    def _count(self):
+        global LAUNCHES
+        LAUNCHES += 1
+
+    def launch(self, *args):
+        planes = self.pack(*args)
+        Bsz, N, (nxa, nu, ni) = planes.Bsz, planes.N, planes.dims[:3]
+        nz = nxa + nu
+        shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,))
+        return tuple(o.t().reshape((Bsz, N) + sh)
+                     for o, sh in zip(self.launch_planes(planes), shapes))
+
+
+def make_stage_sweep(s: StructuredOCP, hessian: str = "exact") -> StageSweep:
+    """The full-output stage sweep of ``make_stage_derivs(s, hessian)`` for
+    all N stages of a batch: on CUDA tensors ``csrc/stage_sweep.cu``, on
+    CPU tensors the vmapped plain version."""
+    return StageSweep(s, hessian)

@@ -116,6 +116,7 @@ def test_entry_points_default_to_the_card():
 
 def test_unported_options_raise_with_roadmap_item():
     from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples import nmpc_dis
     from mpc_code_tpu_torch.examples.nmpc import make_config
     from mpc_code_tpu_torch.models import (
         build_model, build_stage_cost, build_terminal_cost,
@@ -130,7 +131,11 @@ def test_unported_options_raise_with_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_structured_ocp(cfg.replace(Collocation=True), *args, device="cpu")
     socp = build_structured_ocp(cfg, *args, device="cpu")
-    for kw in (dict(hessian="exact"), dict(mu_strategy="mehrotra"),
-               dict(hessian="gauss_newton", ls_mode="backtrack")):
+    # the exact Hessian of the discrete map with the u_prev augmentation
+    dcfg = nmpc_dis.make_config()
+    dis = build_structured_ocp(dcfg, build_model(dcfg), build_stage_cost(dcfg.stage_cost),
+                               build_terminal_cost(dcfg), device="cpu")
+    for ocp, kw in ((dis, dict(hessian="exact")), (socp, dict(mu_strategy="mehrotra")),
+                    (socp, dict(hessian="gauss_newton", ls_mode="backtrack"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_structured_solver(socp, SolverOptions(**kw))
+            make_structured_solver(ocp, SolverOptions(**kw))
