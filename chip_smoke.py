@@ -13,7 +13,8 @@ It never imports JAX or the JAX package.  Phases:
    ``nvcc`` each, all started together;
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
-   ``|a-b|/(1+|b|)`` and the kernel and plain times (CUDA events): the RK4
+   ``|a-b|/(1+|b|)``, the kernel time, the time of the call as the solver
+   makes it, and the plain version's time (CUDA events): the RK4
    stage-Jacobian sweep and the Riccati KKT solve at the CSTR path's
    shapes, the ContForm joint sweep and the Riccati KKT solve at the
    ENMPC path's (N=25, nxa=2, nu=1), the discrete map's stage-Jacobian
@@ -126,6 +127,18 @@ H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
 
 def log(msg):
     print(msg, flush=True)
+
+
+def ptxas_lines(build_log):
+    """(dtype, line) for each register and spill line of nvcc's ``-Xptxas
+    -v`` report, the dtype read from the kernel's mangled name."""
+    out, dtype = [], "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            dtype = "float32" if "IfE" in line else "float64" if "IdE" in line else "?"
+        elif "registers" in line or "spill" in line:
+            out.append((dtype, line.strip().replace("ptxas info    : ", "")))
+    return out
 
 
 def nerr(a, b):
@@ -266,9 +279,12 @@ def riccati_check(dev, dtype, N, nxa, nu, out):
     err = max(nerr(g[okm], r[okm]) for g, r in zip(got[1:], ref[1:]))
     abs_err = max(float((g[okm] - r[okm]).abs().max())
                   for g, r in zip(got[1:], ref[1:]))
-    planes = rk.pack(*ins, nxa=nxa, nu=nu)
-    ms = cuda_ms(lambda: rk.launch_planes(planes), 20)
-    wrap_ms = cuda_ms(lambda: rk.riccati_kkt(*ins, nxa=nxa, nu=nu), 10)
+    # the kernel alone into preallocated outputs, and the call as the
+    # solver makes it (riccati.py: riccati_kkt on its (B, N, ...) tensors)
+    outs = rk.empty_outputs(B, N, nxa, nu, dtype, dev)
+    ms = cuda_ms(lambda: rk.launch(ins, outs, nxa=nxa, nu=nu), 20)
+    call_ms = cuda_ms(lambda: rk.riccati_kkt(*ins, nxa=nxa, nu=nu), 20)
+    geo = rk.launch_geometry(N, nxa, nu, ins[0].element_size())
     plain_ms = cuda_ms(lambda: rk.riccati_ref(*ins, nxa=nxa, nu=nu), 2)
     byt = rk.riccati_bytes(B, N, nxa, nu, ins[0].element_size())
     ops = rk.riccati_ops(B, N, nxa, nu)
@@ -277,10 +293,13 @@ def riccati_check(dev, dtype, N, nxa, nu, out):
     log(f"# kernel riccati_kkt ({N}, {nxa}, {nu}) {tname}: max_norm_err={err:.3e} "
         f"max_abs_err={abs_err:.3e} (tol {tol:g}) ok_flags_equal={flags_equal} "
         f"bad_lane_ok={bool(ok_g[bad_lane])} n_not_ok={int((~ok_r).sum())} "
-        f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f})")
+        f"kernel_ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}) "
+        f"{geo.group} threads a lane, {geo.lanes} lanes a block, ring depth "
+        f"{geo.depth}, {geo.smem} B shared a block")
     out[tname] = dict(max_norm_err=err, max_abs_err=abs_err, ms=ms,
-                      wrapper_ms=wrap_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+                      wrapper_ms=call_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o,
+                      depth=geo.depth, smem=geo.smem)
     if not (err <= tol and flags_equal and not bool(ok_g[bad_lane])):
         return [f"riccati_kkt ({N}, {nxa}, {nu}) {tname}: err {err:.3e} "
                 f"(tol {tol:g}), ok flags equal {flags_equal}"]
@@ -1041,20 +1060,26 @@ def main() -> int:
         sweep = socp.sweep
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(7) as ex:
-            jobs = [ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
-                    ex.submit(rk.build_kernel, socp.nxa, socp.nu),
-                    ex.submit(eprob.socp.sweep.build, ec.nx, ec.nu, ec.nd, ec.npx, ec.npy),
-                    ex.submit(rk.build_kernel, eprob.socp.nxa, eprob.socp.nu),
-                    ex.submit(dprob.socp.sweep.build, dc.nx, dc.nu, dc.nd, dc.npx),
-                    ex.submit(rk.build_kernel, dprob.socp.nxa, dprob.socp.nu),
-                    ex.submit(sk.make_stage_sweep(xsocp, "exact").build, xsocp.nxa,
-                              xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)]
-            built = [j.result() for j in jobs]
+            jobs = {
+                "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
+                "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
+                "rk4_quad_stage_hess": ex.submit(eprob.socp.sweep.build, ec.nx, ec.nu,
+                                                 ec.nd, ec.npx, ec.npy),
+                "riccati_kkt_enmpc": ex.submit(rk.build_kernel, eprob.socp.nxa,
+                                               eprob.socp.nu),
+                "map_stage_jac": ex.submit(dprob.socp.sweep.build, dc.nx, dc.nu, dc.nd,
+                                           dc.npx),
+                "riccati_kkt_nmpc_dis": ex.submit(rk.build_kernel, dprob.socp.nxa,
+                                                  dprob.socp.nu),
+                "stage_sweep": ex.submit(sk.make_stage_sweep(xsocp, "exact").build,
+                                         xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx,
+                                         cfg.npy)}
+            built = {name: j.result() for name, j in jobs.items()}
         log(f"# build: seven kernel libraries in {time.perf_counter() - t0:.1f} s")
-        for b in built:
-            for line in b.log.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"#   {os.path.basename(b.path)}: {line.strip()}")
+        for name, b in built.items():
+            for dtype, line in ptxas_lines(b.log):
+                log(f"#   ptxas {name} {dtype}: {line}")
+                results[name].setdefault("ptxas", []).append(f"{dtype}: {line}")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
@@ -1101,10 +1126,12 @@ def main() -> int:
             bound_ms=None if tb is None else max(tb, to),
             bound_by=None if tb is None else ("bytes" if tb >= to else "operations"),
             library_ms=None, dtype="float32",
-            wrapper_ms=r32.get("wrapper_ms"),
+            wrapper_ms=r32.get("wrapper_ms"), call_ms=r32.get("wrapper_ms"),
+            call_ms_f64=r64.get("wrapper_ms"),
             max_norm_err_f32=r32.get("max_norm_err"),
             max_norm_err_f64=r64.get("max_norm_err"),
-            ms_f64=r64.get("ms"), plain_ms_f64=r64.get("plain_ms"))
+            ms_f64=r64.get("ms"), plain_ms_f64=r64.get("plain_ms"),
+            ptxas=res.get("ptxas"))
 
     kernels = []
     meta = {"rk4_stage_jac": ("mpc_code_tpu_torch/csrc/rk4_stage_jac.cu",

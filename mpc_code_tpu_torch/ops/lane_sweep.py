@@ -15,7 +15,8 @@ once per set of dimensions.
 A subclass names its kernel and inputs and gives ``source`` (the
 generated header), ``dims`` (the build key from the inputs' widths),
 ``out_rows``, ``plain``, ``launch`` (the outputs in the caller's shapes)
-and ``_count`` (its module's ``LAUNCHES`` counter).
+and ``_count`` (its module's ``LAUNCHES`` counter); a kernel that writes
+its outputs lane by lane, (L, rows), overrides ``out_shape``.
 """
 
 from __future__ import annotations
@@ -106,10 +107,14 @@ class LaneSweep:
                + [plane(a) for a in scen])
         return Planes(ins, Bsz, N, dims)
 
+    @staticmethod
+    def out_shape(rows, L):
+        """An output's shape: a plane (rows, L), or (L,) for rows None."""
+        return (L,) if rows is None else (rows, L)
+
     def launch_planes(self, planes: Planes):
-        """Launch the kernel on packed planes; returns the output planes,
-        (rows, L) each, or (L,) for a row count of None.  Counts one
-        launch."""
+        """Launch the kernel on packed planes; returns the outputs, each of
+        ``out_shape(rows, L)``.  Counts one launch."""
         from mpc_code_tpu_torch.ops.cuda_build import check_launch, stream_ptr
 
         ins = planes.ins
@@ -119,7 +124,7 @@ class LaneSweep:
             raise ValueError("kernel planes must be contiguous, on one device, "
                              "of one dtype")
         L = planes.Bsz * planes.N
-        outs = [torch.empty((L,) if r is None else (r, L), dtype=dtype, device=dev)
+        outs = [torch.empty(self.out_shape(r, L), dtype=dtype, device=dev)
                 for r in self.out_rows(*planes.dims[:2])]
         lib = self.build(*planes.dims).lib
         fn = getattr(lib, self.kernel + ("_f32" if dtype == torch.float32 else "_f64"))

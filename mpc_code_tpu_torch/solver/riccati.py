@@ -201,6 +201,15 @@ def _t(a, like):
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
+def _dense(op, a, b):
+    """``op(a, b)`` written into a contiguous tensor in one pass: a sweep
+    kernel's outputs are views of lane-innermost planes, and the Riccati
+    kernel reads contiguous (B, N, ...) tensors."""
+    out = torch.empty(torch.broadcast_shapes(a.shape, b.shape), dtype=a.dtype,
+                      device=a.device)
+    return op(a, b, out=out)
+
+
 def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
                          device=None) -> StructuredOCP:
     """Map the reference OCP (opt_dyn form) onto the stagewise structure.
@@ -356,10 +365,10 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             xf, Jx, Ju, qv, gq, Hq = sweep_cf(
                 Xs * s_x, Us * s_u, p["px"], p["py"], p["t"], hb, p["d"],
                 p["xs"], p["us"])
-            A = Jx * (s_x[None, :] / s_x[:, None])
-            Bm = Ju * (s_u[None, :] / s_x[:, None])
-            return (xf / s_x, A, Bm, qv, gq * s_z,
-                    Hq * (s_z[:, None] * s_z[None, :]))
+            A = _dense(torch.mul, Jx, s_x[None, :] / s_x[:, None])
+            Bm = _dense(torch.mul, Ju, s_u[None, :] / s_x[:, None])
+            return (_dense(torch.div, xf, s_x), A, Bm, qv, _dense(torch.mul, gq, s_z),
+                    _dense(torch.mul, Hq, s_z[:, None] * s_z[None, :]))
 
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
                              stage_cf=stage_cf)
@@ -428,9 +437,9 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             Jx = torch.nn.functional.pad(Jx, (0, nup, 0, nup))
             eye_u = torch.eye(nu, dtype=Us.dtype, device=Us.device)
             Ju = torch.cat([Ju, eye_u.expand(Ju.shape[:2] + (nu, nu))], -2)
-        dval = xf / s_x
-        A = Jx * (s_x[None, :] / s_x[:, None])
-        Bm = Ju * (s_u[None, :] / s_x[:, None])
+        dval = _dense(torch.div, xf, s_x)
+        A = _dense(torch.mul, Jx, s_x[None, :] / s_x[:, None])
+        Bm = _dense(torch.mul, Ju, s_u[None, :] / s_x[:, None])
         return dval, A, Bm
 
     return StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep, **exact)
@@ -798,9 +807,9 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             sigU = sigZ[..., nxa:nxa + nu]
             sigS = torch.clamp(sigZ[..., nxa + nu:], min=1e-12)
 
-            Hs = H + torch.einsum("bkia,bki,bkic->bkac", E, sigS, E)
+            Hs = _dense(torch.add, H, torch.einsum("bkia,bki,bkic->bkac", E, sigS, E))
             Hs = Hs + eye_nz * torch.cat([sigX_stage, sigU], dim=-1)[:, :, None, :]
-            PN_h = v_hess_N(X[:, N], pN) + torch.diag_embed(sigX_term)
+            PN_h = _dense(torch.add, v_hess_N(X[:, N], pN), torch.diag_embed(sigX_term))
             pN_cost = gradN
             Hs = Hs + st["delta"][:, None, None, None] * eye_nz
             PN_h = PN_h + st["delta"][:, None, None] * eye_x

@@ -6,9 +6,12 @@ kernel that ``make_riccati_kkt`` builds and the structured IPM runs as
 over N stages (Quu, Qxu, Qxx, an unrolled Cholesky of Quu with an ``ok``
 flag, the gains K, k, the symmetrised P, p) and the forward rollout.
 
-The kernel (``csrc/riccati_kkt.cu``) runs one thread per scenario with P
-and p in registers; its note says what bounds it on the H100 (bytes, and
-at B=16384 latency: 128 blocks on 132 SMs) and how the design meets it.
+The kernel (``csrc/riccati_kkt.cu``) reads and writes the solver's own
+contiguous (B, N, ...) tensors: a group of threads per scenario, one per
+row of P, each stage's inputs brought into a shared-memory ring by
+asynchronous copies ahead of use.  Its note says what bounds it on the
+H100 (bytes, and the latency of loading them) and how the design meets
+it; ``launch_geometry`` sizes the ring.
 
 ``riccati_kkt`` launches the kernel for CUDA tensors and raises on what the
 kernel does not take; it runs ``riccati_ref`` (the plain version of
@@ -23,6 +26,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +102,57 @@ def riccati_ops(Bsz, N, nxa, nu) -> int:
     return Bsz * N * per_stage
 
 
+RING_IN_FLIGHT = 4 * 1024     # bytes a block (one warp) aims to keep in flight
+MAX_DEPTH = 8
+SMEM_LIMIT = 232448           # dynamic shared memory a block may use (227 KB)
+
+
+class Geometry(NamedTuple):
+    lanes: int        # lanes per block (one warp of 32 threads)
+    group: int        # threads per lane
+    depth: int        # slots of the shared-memory ring
+    smem: int         # dynamic shared memory per block, bytes
+
+
+def _odd(n):
+    return n | 1
+
+
+def launch_geometry(N, nxa, nu, itemsize) -> Geometry:
+    """The kernel's launch geometry at (N, nxa, nu) and this element size
+    (the layout of ``csrc/riccati_kkt.cu``): a group of G = 2^ceil(log2
+    nxa) threads per lane, so 32 / G lanes per one-warp block; a ring of
+    ``depth`` slots, each one padded row per lane holding a stage's H, q, A,
+    B, rd, or, in the rollout, A, B, rd, K, k; a scratch row per lane, and
+    a row per lane buffering the outputs of S stages, S = ceil(128 bytes /
+    nxa^2 elements), 1 to 8.  Deep enough that ``depth - 1`` slots in
+    flight hold RING_IN_FLIGHT bytes, at least 2 and at most min(N,
+    MAX_DEPTH), within SMEM_LIMIT."""
+    nz = nxa + nu
+    group = 1 << max(nxa - 1, 0).bit_length()
+    if group > 32:
+        raise ValueError(f"riccati_kkt takes nxa <= 32, got {nxa}")
+    lanes = 32 // group
+    s_bw = nz * nz + nz + nxa * nxa + nxa * nu + nxa
+    s_fw = nxa * nxa + nxa * nu + nxa + nu * nxa + nu
+    slot = _odd(max(s_bw, s_fw))
+    scratch = _odd(2 * nxa * nxa + 2 * nxa * nu + nu * nxa + 2 * nxa)
+    out_stages = min(8, max(1, -(-128 // (nxa * nxa * itemsize))))
+    staged = _odd(out_stages * (nxa * nxa + nxa + nu * nxa + nu))
+
+    def smem(d):
+        return itemsize * lanes * (d * slot + scratch + staged)
+
+    slot_bytes = itemsize * lanes * slot
+    depth = max(2, min(MAX_DEPTH, N, -(-RING_IN_FLIGHT // slot_bytes) + 1))
+    while depth > 2 and smem(depth) > SMEM_LIMIT:
+        depth -= 1
+    if smem(depth) > SMEM_LIMIT:
+        raise ValueError(f"riccati_kkt at (nxa, nu) = {(nxa, nu)} needs "
+                         f"{smem(depth)} bytes of shared memory")
+    return Geometry(lanes, group, depth, smem(depth))
+
+
 def build_kernel(nxa, nu):
     """Build (or fetch) the kernel library for these dimensions."""
     key = (nxa, nu)
@@ -107,9 +162,17 @@ def build_kernel(nxa, nu):
         built = build("riccati_kkt", "riccati_kkt.cu",
                       defines={"NXA": nxa, "NU": nu})
         for fn in (built.lib.riccati_kkt_f32, built.lib.riccati_kkt_f64):
-            fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int,
-                                                    ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        smem = built.lib.riccati_kkt_smem
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_longlong
+        for isz in (4, 8):
+            geo = launch_geometry(MAX_DEPTH, nxa, nu, isz)
+            if smem(geo.depth, isz) != geo.smem:
+                raise RuntimeError("launch_geometry disagrees with the shared "
+                                   "memory layout of riccati_kkt.cu")
         _LIBS[key] = built
     return _LIBS[key]
 
@@ -123,69 +186,64 @@ def riccati_kkt(Hs, q, A, B, rd, PN, pN, delta, *, nxa, nu):
     return riccati_kkt_cuda(Hs, q, A, B, rd, PN, pN, delta, nxa=nxa, nu=nu)
 
 
-def pack(Hs, q, A, B, rd, PN, pN, delta, *, nxa, nu):
-    """Check the inputs and lay them out as the kernel's planes
-    ((prod(dims), B), scenario innermost).  Raises on a bad device, dtype
-    or shape."""
-    dev = Hs.device
-    if dev.type != "cuda":
-        raise ValueError(f"riccati_kkt kernel needs CUDA tensors, got {dev}")
-    if Hs.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"riccati_kkt kernel takes float32/float64, got {Hs.dtype}")
+def check_inputs(Hs, q, A, B, rd, PN, pN, delta, *, nxa, nu):
+    """Raise unless the inputs are what the kernel reads: the shapes of
+    ``riccati_ref``, one float dtype, contiguous, on a CUDA device."""
     Bsz, N = Hs.shape[:2]
     nz = nxa + nu
     shapes = {"Hs": (Hs, (Bsz, N, nz, nz)), "q": (q, (Bsz, N, nz)),
               "A": (A, (Bsz, N, nxa, nxa)), "B": (B, (Bsz, N, nxa, nu)),
               "rd": (rd, (Bsz, N, nxa)), "PN": (PN, (Bsz, nxa, nxa)),
               "pN": (pN, (Bsz, nxa)), "delta": (delta, (Bsz,))}
-    planes = []
+    if Hs.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"riccati_kkt kernel takes float32/float64, got {Hs.dtype}")
     for name, (a, shp) in shapes.items():
         if tuple(a.shape) != shp:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shp}")
-        if a.device != dev or a.dtype != Hs.dtype:
-            raise ValueError(f"{name} must be {Hs.dtype} on {dev}")
-        planes.append(a.reshape(Bsz, -1).t().contiguous())
-    return dict(ins=planes, dims=(Bsz, N, nxa, nu))
+        if a.dtype != Hs.dtype or a.device != Hs.device:
+            raise ValueError(f"{name} must be {Hs.dtype} on {Hs.device}, got "
+                             f"{a.dtype} on {a.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (B, N, ...), got "
+                             f"strides {a.stride()}")
+    if Hs.device.type != "cuda":
+        raise ValueError(f"riccati_kkt kernel needs CUDA tensors, got {Hs.device}")
 
 
-def launch_planes(planes):
-    """Launch the kernel on packed planes; returns the output planes
-    (ok, Ks, kf, P_seq, p_seq, dX, dU).  Counts one launch."""
+def empty_outputs(Bsz, N, nxa, nu, dtype, device):
+    """The kernel's outputs, contiguous: ok (B,) as 0/1 in ``dtype``, Ks,
+    kf, P_seq, p_seq, dX, dU in ``riccati_ref``'s shapes."""
+    kw = dict(dtype=dtype, device=device)
+    return [torch.empty(Bsz, **kw), torch.empty((Bsz, N, nu, nxa), **kw),
+            torch.empty((Bsz, N, nu), **kw), torch.empty((Bsz, N, nxa, nxa), **kw),
+            torch.empty((Bsz, N, nxa), **kw), torch.empty((Bsz, N + 1, nxa), **kw),
+            torch.empty((Bsz, N, nu), **kw)]
+
+
+def launch(ins, outs, *, nxa, nu):
+    """Launch the kernel on checked inputs (Hs, q, A, B, rd, PN, pN, delta)
+    into ``empty_outputs``.  Counts one launch."""
     global LAUNCHES
     from mpc_code_tpu_torch.ops.cuda_build import check_launch, stream_ptr
 
-    Bsz, N, nxa, nu = planes["dims"]
-    ins = planes["ins"]
-    dev, dtype = ins[0].device, ins[0].dtype
-    if not all(a.is_contiguous() and a.device == dev and a.dtype == dtype
-               for a in ins):
-        raise ValueError("kernel planes must be contiguous, on one device, "
-                         "of one dtype")
-    kw = dict(dtype=dtype, device=dev)
-    outs = [torch.empty(Bsz, **kw),
-            torch.empty((N * nu * nxa, Bsz), **kw),
-            torch.empty((N * nu, Bsz), **kw),
-            torch.empty((N * nxa * nxa, Bsz), **kw),
-            torch.empty((N * nxa, Bsz), **kw),
-            torch.empty(((N + 1) * nxa, Bsz), **kw),
-            torch.empty((N * nu, Bsz), **kw)]
+    Hs = ins[0]
+    Bsz, N = Hs.shape[:2]
+    dev = Hs.device
+    geo = launch_geometry(N, nxa, nu, Hs.element_size())
     lib = build_kernel(nxa, nu).lib
-    fn = lib.riccati_kkt_f32 if dtype == torch.float32 else lib.riccati_kkt_f64
+    fn = lib.riccati_kkt_f32 if Hs.dtype == torch.float32 else lib.riccati_kkt_f64
     with torch.cuda.device(dev):
-        rc = fn(*[a.data_ptr() for a in ins + outs], N, Bsz, stream_ptr(dev))
+        rc = fn(*[a.data_ptr() for a in (*ins, *outs)], N, Bsz, geo.depth,
+                stream_ptr(dev))
     check_launch(rc, "riccati_kkt")
     LAUNCHES += 1
-    return outs
 
 
 def riccati_kkt_cuda(Hs, q, A, B, rd, PN, pN, delta, *, nxa, nu):
-    planes = pack(Hs, q, A, B, rd, PN, pN, delta, nxa=nxa, nu=nu)
-    Bsz, N = Hs.shape[:2]
-    ok, Ks, kf, Pse, pse, dX, dU = launch_planes(planes)
-
-    def unpack(a, shape):
-        return a.t().reshape((Bsz,) + shape)
-
-    return (ok > 0.5, unpack(Ks, (N, nu, nxa)), unpack(kf, (N, nu)),
-            unpack(Pse, (N, nxa, nxa)), unpack(pse, (N, nxa)),
-            unpack(dX, (N + 1, nxa)), unpack(dU, (N, nu)))
+    """The kernel on the solver's (B, N, ...) tensors; returns
+    ``riccati_ref``'s outputs, contiguous."""
+    ins = (Hs, q, A, B, rd, PN, pN, delta)
+    check_inputs(*ins, nxa=nxa, nu=nu)
+    outs = empty_outputs(*Hs.shape[:2], nxa, nu, Hs.dtype, Hs.device)
+    launch(ins, outs, nxa=nxa, nu=nu)
+    return (outs[0] > 0.5,) + tuple(outs[1:])

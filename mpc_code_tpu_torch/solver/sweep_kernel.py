@@ -264,16 +264,22 @@ class StageSweep(LaneSweep):
         nz, ni = nxa + nu, self.s.ni          # H, gc, A, B, E, ival, dval
         return (nz * nz, nz, nxa * nxa, nxa * nu, ni * nz, ni, nxa)
 
+    @staticmethod
+    def out_shape(rows, L):
+        """Outputs lane by lane, (L, rows): the solver's (B, N, ...) layout."""
+        return (L, rows)
+
     def _count(self):
         global LAUNCHES
         LAUNCHES += 1
 
     def launch(self, *args):
+        """The kernel's outputs as contiguous (B, N, ...) tensors."""
         planes = self.pack(*args)
         Bsz, N, (nxa, nu, ni) = planes.Bsz, planes.N, planes.dims[:3]
         nz = nxa + nu
         shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,))
-        return tuple(o.t().reshape((Bsz, N) + sh)
+        return tuple(o.view((Bsz, N) + sh)
                      for o, sh in zip(self.launch_planes(planes), shapes))
 
 
