@@ -14,13 +14,16 @@ It never imports JAX or the JAX package.  Phases:
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
    ``|a-b|/(1+|b|)``, the kernel time, the time of the call as the solver
-   makes it, and the plain version's time (CUDA events): the RK4
-   stage-Jacobian sweep and the Riccati KKT solve at the CSTR path's
-   shapes, the ContForm joint sweep and the Riccati KKT solve at the
-   ENMPC path's (N=25, nxa=2, nu=1), the discrete map's stage-Jacobian
-   sweep and the Riccati KKT solve at the quadruple tank's (N=50, nxa=8,
-   nu=2), the fused stage sweep at the exact-Hessian CSTR path's (N=50,
-   nz=5, ni=2; the Riccati KKT solve has the CSTR path's shapes there);
+   makes it, the plain version's time (CUDA events) and the build's
+   registers and spill bytes (ptxas): the RK4 stage-Jacobian sweep and
+   the Riccati KKT solve at the CSTR path's shapes, the ContForm joint
+   sweep and the Riccati KKT solve at the ENMPC path's (N=25, nxa=2,
+   nu=1), the discrete map's stage-Jacobian sweep and the Riccati KKT
+   solve at the quadruple tank's (N=50, nxa=8, nu=2), the fused stage
+   sweep at the exact-Hessian CSTR path's (N=50, nz=5, ni=2; the Riccati
+   KKT solve has the CSTR path's shapes there), in its exact build and in
+   its Gauss-Newton build; an f32 sweep (kernels 1, 3, 5) must also lie
+   no farther from the f64 plain version than twice its f32 plain version;
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
    draws, pass-1 cap 12, one combined steady/coolhold rescue at 2x512
@@ -99,10 +102,10 @@ U_TOL = 1e-2
 U_TOL_MOVED = 3e-2
 # The exact-Hessian CSTR path (cstr_exact) keeps these rules and measures
 # its own largest move: its f32 runs stop on another iteration than f64 on
-# 10-12 of the 64 lanes and go further along the valley, up to 5.409e-2 of
+# 10-12 of the 64 lanes and go further along the valley, up to 5.423e-2 of
 # the box on the card and 5.408e-2 in the plain f32 path on the CPU (lane
-# 8: 9 iterations against f64's 7; PERF.md, section 2), while the card's f64
-# run agrees with the CPU to 9.5e-14.
+# 8: 9-10 iterations against f64's 7; PERF.md, section 2), while the card's
+# f64 run agrees with the CPU to 9.5e-14.
 EXACT_U_TOL_MOVED = 6e-2
 OK_FRACTION_MIN = 0.998
 # The controller paths (ENMPC, nmpc_dis): converged U against the CPU f64
@@ -139,6 +142,20 @@ def ptxas_lines(build_log):
         elif "registers" in line or "spill" in line:
             out.append((dtype, line.strip().replace("ptxas info    : ", "")))
     return out
+
+
+def ptxas_summary(build_log):
+    """{dtype: "R registers, S bytes spill stores, L bytes spill loads"}
+    from nvcc's ``-Xptxas -v`` report: registers and spill bytes of each
+    build (of every function ptxas reports for that dtype)."""
+    regs, spills = {}, {}
+    for dtype, line in ptxas_lines(build_log):
+        if "Used " in line:
+            regs.setdefault(dtype, []).append(line.split("Used ", 1)[1].split(",")[0])
+        elif "spill stores" in line:
+            spills.setdefault(dtype, []).append(line.split(",", 1)[1].strip())
+    return {dt: ", ".join(regs.get(dt, []) + spills.get(dt, []))
+            for dt in sorted(set(regs) | set(spills))}
 
 
 def nerr(a, b):
@@ -223,6 +240,7 @@ def kernel_phase(dev, socp, results):
 
     failures = []
     sweep = socp.sweep
+    ptx = results["rk4_stage_jac"].get("ptxas_summary", {})
     for dtype in (torch.float64, torch.float32):
         tname = str(dtype).replace("torch.", "")
         # --- kernel 1: RK4 stage-Jacobian sweep
@@ -233,8 +251,16 @@ def kernel_phase(dev, socp, results):
         err = max(nerr(g, r) for g, r in zip(got, ref))
         err_clip = max(nerr(g[clip_lanes], r[clip_lanes]) for g, r in zip(got, ref))
         abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        planes = sweep.pack(*arrs)
-        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        # each f32 result against the plain version in f64 on the same inputs
+        err64 = [0.0, 0.0]
+        if dtype == torch.float32:
+            ref64 = sweep.plain(*[a.double() for a in arrs])
+            err64 = [max(nerr(x, r) for x, r in zip(res, ref64)) for res in (got, ref)]
+            del ref64
+        # the kernel alone on the (B, N, .) operands, outputs allocated once,
+        # and the call as the solver makes it
+        bound = sweep.bind(*arrs)
+        ms = cuda_ms(lambda: sweep.fire(bound), 20)
         wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
         plain_ms = cuda_ms(lambda: sweep.plain(*arrs), 2)
         nx, nu, npx, nd = 3, 2, 3, 2
@@ -246,14 +272,20 @@ def kernel_phase(dev, socp, results):
         tol = TOL_F64 if dtype == torch.float64 else TOL_F32["rk4_stage_jac"]
         log(f"# kernel rk4_stage_jac {tname}: max_norm_err={err:.3e} "
             f"clip_lanes={err_clip:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
+            f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
             f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
-            f"{ops_lane} operations per lane)")
-        if not (err <= tol and err_clip <= tol):
-            failures.append(f"rk4_stage_jac {tname} error {err:.3e} > {tol:g}")
+            f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
+        # in f32 the kernel also lies no farther from the f64 plain version
+        # than twice the f32 plain version does
+        closer = err64[0] <= 2 * err64[1] + TOL_F64
+        if not (err <= tol and err_clip <= tol and closer):
+            failures.append(f"rk4_stage_jac {tname} error {err:.3e} > {tol:g}, against "
+                            f"f64 {err64[0]:.3e} vs plain {err64[1]:.3e}")
         results["rk4_stage_jac"][tname] = dict(
-            max_norm_err=err, clip_norm_err=err_clip, max_abs_err=abs_err, ms=ms,
-            wrapper_ms=wrap_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+            max_norm_err=err, clip_norm_err=err_clip, max_abs_err=abs_err,
+            err_vs_f64=err64, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+            bytes_ms=t_b, ops_ms=t_o)
 
         # --- kernel 2: Riccati KKT
         failures += riccati_check(dev, dtype, N, socp.nxa, socp.nu,
@@ -418,6 +450,7 @@ def nmpc_dis_kernel_phase(dev, dprob, results):
     cfg = dprob.cfg
     sweep = dprob.socp.sweep
     nx, nu, nd, npx = cfg.nx, cfg.nu, cfg.nd, cfg.npx
+    ptx = results["map_stage_jac"].get("ptxas_summary", {})
     for dtype in (torch.float64, torch.float32):
         tname = str(dtype).replace("torch.", "")
         arrs = map_inputs(dtype, dev, cfg.N)
@@ -431,8 +464,10 @@ def nmpc_dis_kernel_phase(dev, dprob, results):
         abs_err = max(float((g - r)[g.isfinite() & r.isfinite()].abs().max())
                       for g, r in zip(got, ref))
         err_tie = max(nerr(g[:2], r[:2]) for g, r in zip(got, ref))
-        planes = sweep.pack(*arrs)
-        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        # the kernel alone on the (B, N, .) operands, outputs allocated once,
+        # and the call as the solver makes it
+        bound = sweep.bind(*arrs)
+        ms = cuda_ms(lambda: sweep.fire(bound), 20)
         wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
         plain_ms = cuda_ms(lambda: sweep.plain(*arrs), 2)
         byt = sweep_map_cuda.map_bytes(B, cfg.N, nx, nu, nd, npx, arrs[0].element_size())
@@ -446,7 +481,7 @@ def nmpc_dis_kernel_phase(dev, dprob, results):
             f"nonfinite_lanes={nf_lanes} nonfinite_pattern_equal={same} "
             f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
-            f"{ops_lane} operations per lane)")
+            f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
         # and the kernel no farther from the f64 plain version than twice
         # the plain version in the same dtype
         closer = err64[0] <= 2 * err64[1] + TOL_F64
@@ -493,66 +528,80 @@ def stage_sweep_inputs(dtype, device, socp, seed=5):
 
 
 def stage_sweep_kernel_phase(dev, xprob, results):
-    """Kernel 5 (the fused stage sweep, exact Hessian) against its plain
-    version at the exact-Hessian CSTR path's shapes."""
+    """Kernel 5 (the fused stage sweep) against its plain version at the
+    exact-Hessian CSTR path's shapes: the exact build the path launches,
+    then the Gauss-Newton build (``"gauss_newton"``), which the solver
+    launches for a Gauss-Newton OCP without a split dynamics sweep."""
     import torch
 
     from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     failures = []
     cfg, _, socp, _ = xprob
-    sweep = sk.make_stage_sweep(socp, "exact")
     dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
-    for dtype in (torch.float64, torch.float32):
-        tname = str(dtype).replace("torch.", "")
-        arrs, tie = stage_sweep_inputs(dtype, dev, socp)
-        got = sweep(*arrs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()            # host-bound: seconds per call
-        ref = sweep.plain(*arrs)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        errs = [nerr(g, r) for g, r in zip(got, ref)]
-        err = max(errs)
-        err_tie = max(nerr(g[tie], r[tie]) for g, r in zip(got, ref))
-        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        finite = all(bool(g.isfinite().all()) for g in got)
-        sym = float((got[0] - got[0].transpose(-1, -2)).abs().max())
-        # each f32 result against the plain version in f64 on the same inputs
-        err64 = [0.0, 0.0]
-        if dtype == torch.float32:
-            ref64 = sweep.plain(*[a.double() for a in arrs])
-            err64 = [max(nerr(x, r) for x, r in zip(res, ref64)) for res in (got, ref)]
-            del ref64
-        planes = sweep.pack(*arrs)
-        ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
-        wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
-        byt = sk.stage_bytes(B, cfg.N, *dims, cfg.ny * cfg.nu, arrs[0].element_size())
-        ops_lane = sweep.ops_per_lane(*dims)
-        t_b = byt / H100_BYTES_PER_S * 1e3
-        t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
-        tol = TOL_F64 if dtype == torch.float64 else TOL_F32["stage_sweep"]
-        log(f"# kernel stage_sweep {tname}: max_norm_err={err:.3e} per output "
-            f"(H, gc, A, B, E, ival, dval) {['%.2e' % e for e in errs]} "
-            f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
-            f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
-            f"H_asym={sym:.1e} finite={finite} "
-            f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
-            f"{ops_lane} operations per lane)")
-        # in f32 the kernel also lies no farther from the f64 plain version
-        # than twice the f32 plain version does
-        closer = err64[0] <= 2 * err64[1] + TOL_F64
-        if not (err <= tol and err_tie <= tol and sym == 0.0 and finite and closer):
-            failures.append(f"stage_sweep {tname} error {err:.3e} > {tol:g}, "
-                            f"asymmetry {sym:.1e}, finite {finite}, against f64 "
-                            f"{err64[0]:.3e} vs plain {err64[1]:.3e}")
-        results["stage_sweep"][tname] = dict(
-            max_norm_err=err, tie_norm_err=err_tie, max_abs_err=abs_err,
-            err_vs_f64=err64, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-            bytes_ms=t_b, ops_ms=t_o)
-        del got, ref
+    for hessian, key in (("exact", "stage_sweep"), ("gauss_newton", "stage_sweep_gn")):
+        sweep = sk.make_stage_sweep(socp, hessian)
+        ptx = results[key].get("ptxas_summary", {})
+        for dtype in (torch.float64, torch.float32):
+            failures += stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx,
+                                          results[key])
     return failures
+
+
+def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out):
+    """One build of kernel 5 against its plain version in one dtype; the
+    numbers go into ``out[dtype name]``.  Returns the failures."""
+    import torch
+
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    tname = str(dtype).replace("torch.", "")
+    arrs, tie = stage_sweep_inputs(dtype, dev, socp)
+    got = sweep(*arrs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()            # host-bound: seconds per call
+    ref = sweep.plain(*arrs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [nerr(g, r) for g, r in zip(got, ref)]
+    err = max(errs)
+    err_tie = max(nerr(g[tie], r[tie]) for g, r in zip(got, ref))
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    finite = all(bool(g.isfinite().all()) for g in got)
+    sym = float((got[0] - got[0].transpose(-1, -2)).abs().max())
+    # each f32 result against the plain version in f64 on the same inputs
+    err64 = [0.0, 0.0]
+    if dtype == torch.float32:
+        ref64 = sweep.plain(*[a.double() for a in arrs])
+        err64 = [max(nerr(x, r) for x, r in zip(res, ref64)) for res in (got, ref)]
+        del ref64
+    planes = sweep.pack(*arrs)
+    ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+    wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
+    byt = sk.stage_bytes(B, cfg.N, *dims, cfg.ny * cfg.nu, arrs[0].element_size())
+    ops_lane = sweep.ops_per_lane(*dims)
+    t_b = byt / H100_BYTES_PER_S * 1e3
+    t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
+    tol = TOL_F64 if dtype == torch.float64 else TOL_F32["stage_sweep"]
+    log(f"# kernel {key} ({sweep.hessian}) {tname}: max_norm_err={err:.3e} per output "
+        f"(H, gc, A, B, E, ival, dval) {['%.2e' % e for e in errs]} "
+        f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
+        f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
+        f"H_asym={sym:.1e} finite={finite} "
+        f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
+        f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
+    # in f32 the kernel also lies no farther from the f64 plain version
+    # than twice the f32 plain version does
+    closer = err64[0] <= 2 * err64[1] + TOL_F64
+    out[tname] = dict(
+        max_norm_err=err, tie_norm_err=err_tie, max_abs_err=abs_err,
+        err_vs_f64=err64, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+        bytes_ms=t_b, ops_ms=t_o)
+    if not (err <= tol and err_tie <= tol and sym == 0.0 and finite and closer):
+        return [f"{key} {tname} error {err:.3e} > {tol:g}, asymmetry {sym:.1e}, "
+                f"finite {finite}, against f64 {err64[0]:.3e} vs plain {err64[1]:.3e}"]
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -1047,7 +1096,8 @@ def main() -> int:
     dev = torch.device("cuda")
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
-            "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "riccati_kkt_cstr_exact")
+            "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
+            "riccati_kkt_cstr_exact")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys, 0)
     try:
@@ -1059,7 +1109,7 @@ def main() -> int:
         ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(7) as ex:
+        with cf.ThreadPoolExecutor(8) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -1071,15 +1121,17 @@ def main() -> int:
                                            dc.npx),
                 "riccati_kkt_nmpc_dis": ex.submit(rk.build_kernel, dprob.socp.nxa,
                                                   dprob.socp.nu),
-                "stage_sweep": ex.submit(sk.make_stage_sweep(xsocp, "exact").build,
-                                         xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx,
-                                         cfg.npy)}
+                **{key: ex.submit(sk.make_stage_sweep(xsocp, hessian).build,
+                                  xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)
+                   for key, hessian in (("stage_sweep", "exact"),
+                                        ("stage_sweep_gn", "gauss_newton"))}}
             built = {name: j.result() for name, j in jobs.items()}
-        log(f"# build: seven kernel libraries in {time.perf_counter() - t0:.1f} s")
+        log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
         for name, b in built.items():
             for dtype, line in ptxas_lines(b.log):
                 log(f"#   ptxas {name} {dtype}: {line}")
                 results[name].setdefault("ptxas", []).append(f"{dtype}: {line}")
+            results[name]["ptxas_summary"] = ptxas_summary(b.log)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
@@ -1131,7 +1183,7 @@ def main() -> int:
             max_norm_err_f32=r32.get("max_norm_err"),
             max_norm_err_f64=r64.get("max_norm_err"),
             ms_f64=r64.get("ms"), plain_ms_f64=r64.get("plain_ms"),
-            ptxas=res.get("ptxas"))
+            ptxas=res.get("ptxas_summary"))
 
     kernels = []
     meta = {"rk4_stage_jac": ("mpc_code_tpu_torch/csrc/rk4_stage_jac.cu",
@@ -1159,6 +1211,10 @@ def main() -> int:
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
                                             launches["riccati_kkt_nmpc_dis"])
+        if name == "stage_sweep":
+            # the Gauss-Newton build, checked against its plain version; no
+            # path of the smoke launches it
+            k["gauss_newton_build"] = entry(name, results["stage_sweep_gn"], 0)
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

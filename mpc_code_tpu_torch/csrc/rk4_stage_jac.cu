@@ -6,8 +6,7 @@
 // x' = f(x, t, u, d, px) over one sampling interval with MPC_MX RK4
 // sub-steps, applies the saturation guard to the ODE input state at every
 // right-hand-side evaluation, and carries the nx + nu forward tangents
-// through the sub-steps.  Outputs: xf (nx planes) and the Jacobian
-// [Jx | Ju] as nx * nz planes, row i * nz + j = d xf_i / d z_j.
+// through the sub-steps.  Outputs: xf, Jx = d xf / d x and Ju = d xf / d u.
 //
 // The model is not fixed here: mpc_code_tpu_torch/ops/sweep_cuda.py traces
 // the user's torch ODE with torch.fx and writes mpc_rhs_gen.cuh (mpc_rhs,
@@ -18,12 +17,17 @@
 // and writes nx*(1+nz), while it runs 4*Mx right-hand sides on a value
 // plus nz tangents (~10 kFLOP for the CSTR at Mx=10).  The design: one
 // thread per lane; the state and its nx*nz tangents live in registers
-// across all sub-steps (no device-memory traffic between sub-steps); the
-// planes put lanes innermost so a warp's loads and stores are coalesced.
+// across all sub-steps (no device-memory traffic between sub-steps), the
+// sub-step loop kept rolled (its body is four right-hand sides); a
+// quotient costs one reciprocal (dual.cuh).  It reads the solver's
+// (B, N, .) tensors in place and writes xf (B, N, nx), Jx (B, N, nx, nx)
+// and Ju (B, N, nx, nu), each lane's rows staged through shared memory so
+// that a block stores one contiguous run (lane_rows.cuh).
 
 #include <cuda_runtime.h>
 
 #include "dual.cuh"
+#include "lane_rows.cuh"
 #include "mpc_rhs_gen.cuh"
 
 namespace {
@@ -33,6 +37,7 @@ constexpr int NU = MPC_NU;
 constexpr int NZ = MPC_NX + MPC_NU;
 constexpr int NPX_A = MPC_NPX > 0 ? MPC_NPX : 1;
 constexpr int ND_A = MPC_ND > 0 ? MPC_ND : 1;
+constexpr int THREADS = 128;
 
 template <class V, class T>
 __device__ __forceinline__ void eval_rhs(const V* x, T t, const V* u,
@@ -42,46 +47,50 @@ __device__ __forceinline__ void eval_rhs(const V* x, T t, const V* u,
   mpc_rhs<V, T>(xc, t, u, d, px, out);
 }
 
-// xs (NX, L), us (NU, L), pxs (NPX, L): lane l = b * N + n.
-// ts, hs (B,), ds (ND, B): per scenario.
+// xs (B, N, NX), us (B, N, NU), pxs (B, N, NPX), ts, hs (B,), ds (B, ND),
+// read at the strides st: xs, us, pxs two each (along B, N), then ts, hs,
+// ds one each.  xf (B, N, NX), jx (B, N, NX, NX), ju (B, N, NX, NU)
+// contiguous.
 template <class T>
-__global__ void rk4_stage_jac_kernel(const T* __restrict__ xs,
-                                     const T* __restrict__ us,
-                                     const T* __restrict__ pxs,
-                                     const T* __restrict__ ts,
-                                     const T* __restrict__ hs,
-                                     const T* __restrict__ ds,
-                                     T* __restrict__ xf,
-                                     T* __restrict__ jac,
-                                     long long L, int N, int Bsz) {
+__global__ void __launch_bounds__(THREADS)
+rk4_stage_jac_kernel(const T* __restrict__ xs, const T* __restrict__ us,
+                     const T* __restrict__ pxs, const T* __restrict__ ts,
+                     const T* __restrict__ hs, const T* __restrict__ ds,
+                     T* __restrict__ xf, T* __restrict__ jx, T* __restrict__ ju,
+                     InStrides st, long long L, int N) {
   using V = Dual<T, NZ>;
-  const long long l = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int b = (int)(l / N);
+  const long long l0 = (long long)blockIdx.x * THREADS;
+  const int nl = (int)(L - l0 < THREADS ? L - l0 : THREADS);
+  // a thread past the last lane computes the last lane again, unstored;
+  // L < 2^31 (the wrapper checks it)
+  const int l = (int)l0 + (threadIdx.x < nl ? (int)threadIdx.x : nl - 1);
+  const long long b = l / N, n = l - b * N;
+  const long long* s = st.s;
 
   V x[NX], u[NU];
   T px[NPX_A], d[ND_A];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
-    x[i] = V(xs[i * L + l]);
+    x[i] = V(xs[b * s[0] + n * s[1] + i]);
     x[i].d[i] = T(1);
   }
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
-    u[i] = V(us[i * L + l]);
+    u[i] = V(us[b * s[2] + n * s[3] + i]);
     u[i].d[NX + i] = T(1);
   }
 #pragma unroll
-  for (int i = 0; i < MPC_NPX; ++i) px[i] = pxs[i * L + l];
+  for (int i = 0; i < MPC_NPX; ++i) px[i] = pxs[b * s[4] + n * s[5] + i];
 #pragma unroll
-  for (int i = 0; i < MPC_ND; ++i) d[i] = ds[(long long)i * Bsz + b];
+  for (int i = 0; i < MPC_ND; ++i) d[i] = ds[b * s[8] + i];
 
-  T tv = ts[b];
-  const T dt = hs[b] / T(MPC_MX);
+  T tv = ts[b * s[6]];
+  const T dt = hs[b * s[7]] / T(MPC_MX);
   const T dt2 = dt / T(2);
   const T dt6 = dt / T(6);
 
-  for (int s = 0; s < MPC_MX; ++s) {
+#pragma unroll 1
+  for (int k = 0; k < MPC_MX; ++k) {
     V k1[NX], k2[NX], k3[NX], k4[NX], xt[NX];
     eval_rhs<V, T>(x, tv, u, d, px, k1);
 #pragma unroll
@@ -99,24 +108,18 @@ __global__ void rk4_stage_jac_kernel(const T* __restrict__ xs,
     tv = tv + dt;
   }
 
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    xf[i * L + l] = x[i].v;
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) jac[(long long)(i * NZ + j) * L + l] = x[i].d[j];
-  }
+  store_outputs<T, NX, NU, THREADS>(x, xf, jx, ju, l0, nl);
 }
 
 template <class T>
 int launch(const void* xs, const void* us, const void* pxs, const void* ts,
-           const void* hs, const void* ds, void* xf, void* jac, long long L,
-           int N, int Bsz, void* stream) {
+           const void* hs, const void* ds, void* xf, void* jx, void* ju,
+           const long long* strides, long long L, int N, void* stream) {
   if (L <= 0) return 0;
-  const int threads = 128;
-  const long long blocks = (L + threads - 1) / threads;
-  rk4_stage_jac_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const long long blocks = (L + THREADS - 1) / THREADS;
+  rk4_stage_jac_kernel<T><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)xs, (const T*)us, (const T*)pxs, (const T*)ts, (const T*)hs,
-      (const T*)ds, (T*)xf, (T*)jac, L, N, Bsz);
+      (const T*)ds, (T*)xf, (T*)jx, (T*)ju, in_strides(strides, 9), L, N);
   return (int)cudaGetLastError();
 }
 
@@ -124,14 +127,14 @@ int launch(const void* xs, const void* us, const void* pxs, const void* ts,
 
 extern "C" int rk4_stage_jac_f32(const void* xs, const void* us, const void* pxs,
                                  const void* ts, const void* hs, const void* ds,
-                                 void* xf, void* jac, long long L, int N, int Bsz,
-                                 void* stream) {
-  return launch<float>(xs, us, pxs, ts, hs, ds, xf, jac, L, N, Bsz, stream);
+                                 void* xf, void* jx, void* ju, const long long* strides,
+                                 long long L, int N, void* stream) {
+  return launch<float>(xs, us, pxs, ts, hs, ds, xf, jx, ju, strides, L, N, stream);
 }
 
 extern "C" int rk4_stage_jac_f64(const void* xs, const void* us, const void* pxs,
                                  const void* ts, const void* hs, const void* ds,
-                                 void* xf, void* jac, long long L, int N, int Bsz,
-                                 void* stream) {
-  return launch<double>(xs, us, pxs, ts, hs, ds, xf, jac, L, N, Bsz, stream);
+                                 void* xf, void* jx, void* ju, const long long* strides,
+                                 long long L, int N, void* stream) {
+  return launch<double>(xs, us, pxs, ts, hs, ds, xf, jx, ju, strides, L, N, stream);
 }

@@ -14,9 +14,11 @@ captured constant matrix or vector times a vector, a matrix input times a
 vector, or a dot product of two vectors, written as literal multiply-adds)
 and ``.to(...)`` (the cast of a captured constant).  Any other op raises ``NotImplementedError`` naming
 it.  The statements are the ones the compiler would keep: ``a * 1``,
-``a / 1``, ``a + 0``, ``a - 0`` and ``a * 0`` are folded, a statement
-that repeats an earlier one reuses its value, and statements no output
-needs are dropped.
+``a / 1``, ``a - 0`` and ``a + 0`` (exact but for the sign of a zero) are
+folded, ``a * 0`` only when ``a`` is a literal too (``inf * 0`` and
+``nan * 0`` are ``nan``, as in torch and JAX), a statement that repeats
+an earlier one reuses its value, and statements no output needs are
+dropped.
 
 The statements are also valid Python: ``Program.execute`` runs them on
 torch tensors, so the CPU tests hold the lowering against the function it
@@ -214,11 +216,10 @@ class Program:
         if _is_num(a) and _is_num(b):
             return float({"+": operator.add, "-": operator.sub,
                           "*": operator.mul, "/": operator.truediv}[sym](a, b))
-        # exact identities, folded as the compiler folds them
+        # identities exact for every input, folded as the compiler folds
+        # them; a * 0 is not one (inf * 0 and nan * 0 are nan)
         if sym == "*" and (a == 1.0 or b == 1.0):
             return b if a == 1.0 else a
-        if sym == "*" and (a == 0.0 or b == 0.0):
-            return 0.0
         if (sym == "/" and b == 1.0) or (sym in "+-" and b == 0.0):
             return a
         if sym == "+" and a == 0.0:

@@ -16,7 +16,9 @@ raises ``NotImplementedError`` naming it.
 
 What bounds the kernel on the H100, and how the design meets it: see the
 note at the top of ``csrc/rk4_stage_jac.cu`` (arithmetic-bound; one thread
-per lane with state and tangents in registers, lanes-innermost planes).
+per lane with state and tangents in registers, one reciprocal per
+quotient; it reads the solver's (B, N, ...) tensors in place and writes
+contiguous ``xf``, ``Jx`` and ``Ju``).
 
 ``Rk4StageJac.__call__`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; it runs the plain version only for CPU
@@ -161,7 +163,7 @@ def rk4_stage_jac_plain(f, Mx, clip_lo, clip_hi, xs, us, pxs, t, h, d):
 class Rk4StageJac(LaneSweep):
     """``F(xs, us, pxs, t, h, d) -> (xf, Jx, Ju)`` for one ODE and guard."""
 
-    kernel, header = "rk4_stage_jac", "mpc_rhs_gen.cuh"
+    kernel, header, in_place = "rk4_stage_jac", "mpc_rhs_gen.cuh", True
     stage_inputs, scenario_inputs = ("xs", "us", "pxs"), ("d",)
 
     def __init__(self, f: Callable, Mx: int, clip_lo=None, clip_hi=None):
@@ -184,16 +186,9 @@ class Rk4StageJac(LaneSweep):
         return (w["xs"], w["us"], w["d"], w["pxs"])
 
     @staticmethod
-    def out_rows(nx, nu):
-        return (nx, nx * (nx + nu))          # xf, the Jacobian [Jx Ju]
+    def out_dims(nx, nu, nd, npx):
+        return ((nx,), (nx, nx), (nx, nu))   # xf, Jx, Ju
 
     def _count(self):
         global LAUNCHES
         LAUNCHES += 1
-
-    def launch(self, xs, us, pxs, t, h, d):
-        planes = self.pack(xs, us, pxs, t, h, d)
-        Bsz, N, (nx, nu) = planes.Bsz, planes.N, planes.dims[:2]
-        xf, jac = self.launch_planes(planes)
-        J = jac.t().reshape(Bsz, N, nx, nx + nu)
-        return xf.t().reshape(Bsz, N, nx), J[..., :nx], J[..., nx:]

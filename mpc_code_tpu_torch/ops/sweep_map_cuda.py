@@ -17,8 +17,9 @@ copies come out exact, and columns with no dependence come out as zeros.
 
 What bounds the kernel on the H100, and how the design meets it: see the
 note at the top of ``csrc/map_stage_jac.cu`` (arithmetic-bound; one thread
-per lane with the map's intermediates in registers, lanes-innermost
-planes).
+per lane with the map's intermediates in registers, one reciprocal per
+quotient and square root; it reads the solver's (B, N, ...) tensors in
+place and writes contiguous ``xf``, ``Jx`` and ``Ju``).
 
 ``MapStageJac.__call__`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; it runs the plain version only for CPU
@@ -121,7 +122,7 @@ def map_stage_jac_plain(f, xs, us, pxs, t, d):
 class MapStageJac(LaneSweep):
     """``F(xs, us, pxs, t, d) -> (xf, Jx, Ju)`` for one discrete map."""
 
-    kernel, header = "map_stage_jac", "mpc_map_gen.cuh"
+    kernel, header, in_place = "map_stage_jac", "mpc_map_gen.cuh", True
     stage_inputs, scalar_inputs, scenario_inputs = ("xs", "us", "pxs"), ("t",), ("d",)
 
     def __init__(self, f: Callable):
@@ -139,16 +140,9 @@ class MapStageJac(LaneSweep):
         return (w["xs"], w["us"], w["d"], w["pxs"])
 
     @staticmethod
-    def out_rows(nx, nu):
-        return (nx, nx * (nx + nu))          # xf, the Jacobian [Jx Ju]
+    def out_dims(nx, nu, nd, npx):
+        return ((nx,), (nx, nx), (nx, nu))   # xf, Jx, Ju
 
     def _count(self):
         global LAUNCHES
         LAUNCHES += 1
-
-    def launch(self, xs, us, pxs, t, d):
-        planes = self.pack(xs, us, pxs, t, d)
-        Bsz, N, (nx, nu) = planes.Bsz, planes.N, planes.dims[:2]
-        xf, jac = self.launch_planes(planes)
-        J = jac.t().reshape(Bsz, N, nx, nx + nu)
-        return xf.t().reshape(Bsz, N, nx), J[..., :nx], J[..., nx:]

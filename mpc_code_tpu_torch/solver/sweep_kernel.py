@@ -52,22 +52,24 @@ LAUNCHES = 0
 PLAIN_BLOCK_LANES = 1 << 17        # lanes per block of the plain version
 
 
-def stage_programs(low: StageLowering, nxa, nu, ni, nd, npx, npy):
+def stage_programs(low: StageLowering, nxa, nu, ni, nd, npx, npy, order=2):
     """(ode, cost, ineq): the user ODE, the stage cost and the inequality
     rows (None when ni = 0) lowered with the state and the input carrying
-    first- and second-order tangents."""
+    first- and second-order tangents; ``order=1`` counts the ODE's and the
+    rows' operations on first-order tangents only (the cost's stay second
+    order)."""
     nz = nxa + nu
     ode = Program(low.ode, (Arg("x", "dual", low.nx), Arg("t", "scalar"),
                             Arg("u", "dual", nu), Arg("d", "vec", nd),
                             Arg("px", "vec", npx)),
-                  nz, out_dim=low.nx, order=2, what="ODE")
+                  nz, out_dim=low.nx, order=order, what="ODE")
     dims = dict(t=None, xs=low.nx, us=nu, d=nd, um1=nu, lam=(low.ny, nu),
                 py=npy, py0=npy)
     pt = (Arg("xa", "dual", nxa), Arg("u", "dual", nu)) + tuple(
         Arg(k, "scalar" if k == "t" else "mat" if k == "lam" else "vec", dims[k])
         for k in POINT_ARGS)
     cost = Program(low.cost, pt, nz, out_dim=None, order=2, what="stage cost")
-    ineq = (Program(low.ineq, pt, nz, out_dim=ni, order=2, what="inequality rows")
+    ineq = (Program(low.ineq, pt, nz, out_dim=ni, order=order, what="inequality rows")
             if ni else None)
     return ode, cost, ineq
 
@@ -168,18 +170,22 @@ def stage_ops_per_lane(low: StageLowering, hessian, nxa, nu, ni, nd, npx, npy) -
     ``+ Bd d`` and ``+ px`` on the values; the scalings (sf, 1/si, 1/sxa);
     and the assembly of H's upper triangle (one product, then a
     multiply-add for each dynamics row and each inequality row under the
-    exact Hessian)."""
-    ode, cost, ineq = stage_programs(low, nxa, nu, ni, nd, npx, npy)
+    exact Hessian).  Under Gauss-Newton H is the cost's Hessian alone, so
+    the rollout and the rows need first-order tangents only."""
+    exact = hessian == "exact"
+    ode, cost, ineq = stage_programs(low, nxa, nu, ni, nd, npx, npy,
+                                     order=2 if exact else 1)
     nz = nxa + nu
     np2 = nz * (nz + 1) // 2
     width = 1 + nz + np2
+    wdyn = width if exact else 1 + nz   # the rollout's and the rows' numbers
     nx = low.nx
     n_bounds = sum(1 for b in (_bounds(low.clip_lo, nx), _bounds(low.clip_hi, nx))
                    for v in b if v is not None and math.isfinite(v))
-    rollout = low.Mx * (4 * (ode.ops + n_bounds * width) + 13 * nx * width)
+    rollout = low.Mx * (4 * (ode.ops + n_bounds * wdyn) + 13 * nx * wdyn)
     terms = (2 * nd * nx if low.Bd is not None else 0) + (nx if low.lin_par else 0)
-    scale = (1 + ni + nxa) * width
-    assembly = np2 * (1 + (2 * (nxa + ni) if hessian == "exact" else 0))
+    scale = width + (ni + nxa) * wdyn
+    assembly = np2 * (1 + (2 * (nxa + ni) if exact else 0))
     return (cost.ops + (ineq.ops if ineq is not None else 0) + rollout + terms
             + scale + assembly)
 

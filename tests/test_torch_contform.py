@@ -159,9 +159,10 @@ def test_codegen_lowers_enmpc_contform():
     whole vector and read ``(x + Cd @ d + py)[1]``; the lowered statements
     run in Python and give the functions' values on lanes-minor inputs.
     Products and quotients by the model's unit constants (K1 = V = 1) are
-    folded and the unused ``y[0]`` is dropped, so the count per lane is
-    10 sub-steps x (4 x (148 ODE + 65 quadrature operations) + 330 for the
-    RK4 combination), on numbers with 3 tangents and 6 second-order ones."""
+    folded, the product by ``Cd``'s zero entry is kept (``inf * 0`` is nan,
+    F8) and the unused ``y[0]`` is dropped, so the count per lane is 10
+    sub-steps x (4 x (148 ODE + 67 quadrature operations) + 330 for the RK4
+    combination), on numbers with 3 tangents and 6 second-order ones."""
     from mpc_code_tpu_torch.ops.sweep_cf_cuda import (
         cf_bytes, cf_ops_per_lane, cf_programs, emit_cf_source,
     )
@@ -169,7 +170,7 @@ def test_codegen_lowers_enmpc_contform():
     sweep = _port_ocp(_enmpc_cfgs()[1]).sweep
     src = emit_cf_source(sweep.f, sweep.q, 2, 1, 2, 2, 2, 10)
     for frag in ("#define MPC_NPY 2", "#define MPC_MX 10", "mpc_quad(",
-                 "(v_sub_2 + px[1]);", "auto v_add__1 = (x[1] + d[1]);",
+                 "(v_sub_2 + px[1]);", "auto v_add__1 = (x[1] + v_matmul__1__s1);",
                  "(v_add__1 + py[1]);", "out[1] ="):
         assert frag in src, frag
     ode, quad = cf_programs(sweep.f, sweep.q, 2, 1, 2, 2, 2)
@@ -182,12 +183,13 @@ def test_codegen_lowers_enmpc_contform():
     torch.testing.assert_close(torch.stack(ode.execute(**ins)), sweep.f(*args),
                                rtol=0, atol=0)
     torch.testing.assert_close(quad.execute(**ins)[0], sweep.q(*args), rtol=0, atol=0)
-    # Cd = I: the mat-vec keeps one product-free term per row
-    assert "d[1]" in quad.body and "S(0.0) *" not in quad.body
+    # Cd = I: row 1 of the mat-vec folds its product by 1 and keeps the
+    # one by 0, which turns an infinite d[0] into nan as torch does (F8)
+    assert "(S(0.0) * d[0])" in quad.body and "(v_matmul__1__m0 + d[1])" in quad.body
     assert "S(1.0) *" not in ode.body and "/ S(1.0)" not in ode.body
     assert "py[0]" not in quad.body
-    assert (ode.ops, quad.ops) == (148, 65)
-    assert cf_ops_per_lane(sweep.f, sweep.q, 2, 1, 2, 2, 2, 10) == 11820
+    assert (ode.ops, quad.ops) == (148, 67)
+    assert cf_ops_per_lane(sweep.f, sweep.q, 2, 1, 2, 2, 2, 10) == 11900
     assert cf_bytes(4, 25, 2, 1, 2, 2, 2, 4) == 4 * (7 * 100 + 7 * 4 + 21 * 100)
 
 

@@ -11,8 +11,8 @@
 - The structured solver hands ``riccati_kkt`` contiguous (B, N, ...)
   tensors on each path (CSTR Gauss-Newton and exact, ENMPC, nmpc_dis) when
   the sweeps return what their kernels' wrappers return on the card: views
-  of lane-innermost planes for kernels 1, 3 and 4, contiguous tensors for
-  kernel 5.  One iteration of each, tiny sizes.
+  of lane-innermost planes for kernel 4, contiguous (B, N, ...) tensors
+  for kernels 1, 3 and 5.  One iteration of each, tiny sizes.
 """
 
 import functools
@@ -135,7 +135,9 @@ def _card_layout_sweeps(monkeypatch):
 
     def call(self, *args):
         outs = self.plain(*args)
-        return outs if isinstance(self, StageSweep) else tuple(map(plane_view, outs))
+        if self.in_place or isinstance(self, StageSweep):
+            return tuple(o.contiguous() for o in outs)
+        return tuple(map(plane_view, outs))
 
     monkeypatch.setattr(LaneSweep, "__call__", call)
 

@@ -199,11 +199,14 @@ def test_lowered_stage_functions_match_torch(which):
 
 def test_ops_per_lane_pinned_at_bench_dims():
     """What the generator emits for the bench OCP (N=50, Mx=10), exact and
-    Gauss-Newton: the count behind kernel 5's bound."""
+    Gauss-Newton: the count behind kernel 5's bound.  The quadratic forms
+    of the stage cost keep their products by the weights' zero entries
+    (``inf * 0`` is nan, F8).  Under Gauss-Newton H is the cost's Hessian
+    alone: the RK4 rollout and the rows carry first-order tangents only."""
     from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
 
     jcfg, _, ps = _ocps(Mx=10, Nh=50)
     dims = (ps.nxa, ps.nu, ps.ni, jcfg.nd, jcfg.npx, jcfg.npy)
     assert dims == (3, 2, 2, 2, 3, 2)
-    assert make_stage_sweep(ps, "exact").ops_per_lane(*dims) == 45213
-    assert make_stage_sweep(ps, "gauss_newton").ops_per_lane(*dims) == 45063
+    assert make_stage_sweep(ps, "exact").ops_per_lane(*dims) == 45486
+    assert make_stage_sweep(ps, "gauss_newton").ops_per_lane(*dims) == 10491
