@@ -9,7 +9,7 @@ NVIDIA H100 and the CUDA toolkit:
 It never imports JAX or the JAX package.  Phases:
 
 1. the card's name and power limit (nvidia-smi), then builds the CUDA
-   kernels of the four paths from ``mpc_code_tpu_torch/csrc``, one
+   kernels of the five paths from ``mpc_code_tpu_torch/csrc``, one
    ``nvcc`` each, all started together;
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
@@ -51,7 +51,18 @@ It never imports JAX or the JAX package.  Phases:
    lane classified infeasible by ``fixtures/tail_verdict.json`` or failing
    its re-solve on the CPU in f64 too; the 64-lane cross-check of phase 3
    against the CPU f64 exact path;
-7. one ``{"kernels": [...]}`` line, and as the last line
+7. closed-loop phase (``cstr_loop``): ``examples/closed_loop_workload.py``
+   — the warm batched CSTR NMPC closed loop (EKF, dense-IPM target in
+   f64, structured OCP under Gauss-Newton warm-started from the shifted primal
+   and dual solution, non-nominal plant, output noise), B=16384 lanes,
+   LOOP_NSIM=6 steps, f32 — with per step the wall time, the target and
+   OCP iterations, the infeasible shares, the launches of kernels 1 and 2
+   (both on every step) and the share of non-finite lanes; a summary of
+   the cold step 0 against the warm steps and the warm step's phase split;
+   the first 64 lanes run on the card in f64 against the CPU f64 run,
+   with one f32 step from each of their steps' states held against the
+   f64 step (the free-running f32 lanes' drift is reported);
+8. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -124,6 +135,27 @@ NMPC_DIS_U_TOL = 1e-5
 CONTROLLER_U_TOL_MOVED = 1e-2
 CONTROLLER_OK_FRACTION_MIN = 0.999
 RESOLVE_MAX = 64                   # failing lanes re-solved on the CPU in f64
+# The closed loop (cstr_loop): B lanes of the warm batched CSTR loop for
+# LOOP_NSIM steps.  The card's f64 run of the check lanes against the CPU
+# f64 run: equal statuses and OCP iterations at every step and U, Xp to
+# LOOP_F64_TOL (normalised |a-b|/(1+|b|)).  f32 against f64, step by step:
+# from each step's f64 state (cast to f32) one f32 step on the card, its U
+# against the f64 step's over the input box: U_TOL, or U_TOL_MOVED where
+# the OCP converged on another iteration; at most LOOP_STATUS_DIFF_MAX
+# lanes may differ in OCP infeasibility at any step.  A lane-step whose f32
+# OCP stopped at the cap short of the tolerance (status 1: feasible, KKT
+# error above 1e-3) where f64 stopped elsewhere is reported, not held to
+# a converged answer's tolerance, as the controller paths classify their
+# status-1 lanes: the f32 solver stalls there at a KKT error of ~1e-3 to
+# 7e-3, the JAX package's f32 solver too (PERF.md, PR 7).  The free-running f32
+# trajectory is reported against the f64 one and not held to these: a
+# lane's target or OCP that flips between infeasible (keep the previous
+# target or input) and feasible on rounding jumps its input, and the loop
+# carries that on (PERF.md, PR 7: up to 0.59 of the box by step 9, while
+# every single f32 step lies within 2.1e-2 of f64 from the same state).
+LOOP_NSIM = 6
+LOOP_F64_TOL = 1e-6
+LOOP_STATUS_DIFF_MAX = 1
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
 
@@ -858,8 +890,9 @@ def record_ok_flags(runs):
 def cpu_reference(path, dtype_name):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
-    "enmpc", "nmpc_dis" or "cstr_exact") in one dtype, with the Riccati
-    ``ok`` flags of every call.  Returns (per-lane results, flags).  It runs
+    "enmpc", "nmpc_dis", "cstr_exact" or "cstr_loop") in one dtype, with the
+    Riccati ``ok`` flags of every call (for "cstr_loop": the closed loop's
+    history).  Returns (per-lane results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -872,6 +905,12 @@ def cpu_reference(path, dtype_name):
     flags = []
     undo = record_ok_flags([flags])
     try:
+        if path == "cstr_loop":
+            from mpc_code_tpu_torch.examples import closed_loop_workload as cw
+
+            H, _ = cw.run_loop(cw.make_config(), cw.draw_x0(N_CHECK, cpu, dtype=dtype),
+                               Nsim=LOOP_NSIM, device=cpu)
+            return H, flags
         if path in ("slice", "cstr_exact"):
             from mpc_code_tpu_torch.examples.bench_workload import (
                 draw_x0, make_problem, run_pipeline,
@@ -1062,6 +1101,156 @@ def controller_phase(dev, path: Path, launches, cpu_refs):
     return failures, report
 
 
+def loop_phase(dev, launches, cpu_refs):
+    """The warm batched CSTR closed loop (``examples/closed_loop_workload.py``)
+    at B lanes in f32 for LOOP_NSIM steps: per step the wall time, target
+    and OCP iterations, infeasible shares, launches of kernels 1 and 2 and
+    the share of non-finite lanes; then the first N_CHECK lanes run on the
+    card in f64 against the CPU f64 run, with one f32 step from each of
+    their steps' states held against the f64 step."""
+    import torch
+
+    from mpc_code_tpu_torch.examples import closed_loop_workload as cw
+    from mpc_code_tpu_torch.examples.bench_workload import U_BOX
+    from mpc_code_tpu_torch.loop.batched import (
+        cast_carry, history_from_outputs, init_carry, stack_outputs,
+    )
+    from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
+    from mpc_code_tpu_torch.ops import sweep_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    failures = []
+    cfg = cw.make_config()
+    step = cw.make_step(cfg, device=dev)
+    t0 = time.perf_counter()
+    cw.run_loop(cfg, cw.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
+    log(f"# cstr_loop warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
+
+    per_step = []
+
+    def on_step(k, carry, out):
+        k1, k2 = sweep_cuda.LAUNCHES, rk.LAUNCHES
+        sweep_cuda.LAUNCHES = rk.LAUNCHES = 0
+        bad = ~(torch.isfinite(carry.P).flatten(1).all(1)
+                & torch.isfinite(carry.xhat).all(1) & torch.isfinite(carry.x).all(1))
+        ss_it = out.ss_iters.cpu().numpy()
+        oc_it = out.ocp_iters.cpu().numpy()
+        q = lambda a: [float(np.median(a)), float(np.percentile(a, 90)), int(a.max())]  # noqa: E731
+        per_step.append(dict(
+            step=k, target_iters=q(ss_it), ocp_iters=q(oc_it),
+            target_infeasible=float((out.status_ss == 2).float().mean()),
+            ocp_infeasible=float((out.status_dyn == 2).float().mean()),
+            rk4_stage_jac=k1, riccati_kkt=k2,
+            nonfinite=float(bad.float().mean()),
+            nonfinite_check_lanes=int(bad[:N_CHECK].sum())))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    x0s = cw.draw_x0(B, dev)
+    sweep_cuda.LAUNCHES = rk.LAUNCHES = 0
+    H32, times = cw.run_loop(cfg, x0s, Nsim=LOOP_NSIM, step=step, on_step=on_step)
+    launches["rk4_stage_jac_loop"] = sum(r["rk4_stage_jac"] for r in per_step)
+    launches["riccati_kkt_loop"] = sum(r["riccati_kkt"] for r in per_step)
+    for r, tm in zip(per_step, times):
+        r.update(wall_ms=1e3 * tm["wall_s"],
+                 **{f"{ph}_ms": 1e3 * tm[ph] for ph in cw.PHASES})
+        log("# cstr_loop step " + json.dumps(r))
+    wall = sum(tm["wall_s"] for tm in times)
+    warm = times[1:]
+    split = {ph: float(np.mean([tm[ph] for tm in warm])) * 1e3 for ph in cw.PHASES}
+    it = H32["OCP_ITERS"]
+    report = dict(
+        batch=B, N=cw.N, Mx=cw.MX, steps=LOOP_NSIM, wall_s=wall,
+        lane_steps_per_s=B * LOOP_NSIM / wall,
+        step0_ms=1e3 * times[0]["wall_s"],
+        warm_step_ms=float(np.mean([tm["wall_s"] for tm in warm])) * 1e3,
+        warm_split_ms=split,
+        ocp_iters_cold_median=float(np.median(it[0])),
+        ocp_iters_warm_median=float(np.median(it[1:])),
+        ocp_iters_cold_mean=float(it[0].mean()), ocp_iters_warm_mean=float(it[1:].mean()),
+        target_iters_median=float(np.median(H32["SS_ITERS"])),
+        ocp_ok_share=float((H32["STATUS_DYN"] != 2).mean()),
+        target_ok_share=float((H32["STATUS_SS"] != 2).mean()),
+        launches={"rk4_stage_jac": launches["rk4_stage_jac_loop"],
+                  "riccati_kkt": launches["riccati_kkt_loop"]},
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log("# cstr_loop " + json.dumps(report))
+    if any(min(r["rk4_stage_jac"], r["riccati_kkt"]) <= 0 for r in per_step):
+        failures.append("cstr_loop: kernel 1 or 2 not launched on some step")
+    if any(r["nonfinite_check_lanes"] for r in per_step):
+        failures.append("cstr_loop: a non-finite lane among the check lanes")
+
+    # the first N_CHECK lanes: the card's f64 run against the CPU f64 run
+    # (worker process); from each of its steps' states one f32 step on the
+    # card; the main run's free-running f32 lanes, reported
+    t0 = time.perf_counter()
+    c64 = init_carry(cfg, cw.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
+    inputs = make_step_inputs(cfg, LOOP_NSIM)
+    outs64, outs32 = [], []
+    for k in range(LOOP_NSIM):
+        inp = StepInput(*(a[k] for a in inputs))
+        outs32.append(step(cast_carry(c64, torch.float32), inp)[1])
+        c64, out = step(c64, inp)
+        outs64.append(out)
+    H64 = history_from_outputs(stack_outputs(outs64))
+    R32 = history_from_outputs(stack_outputs(outs32))
+    ref = cpu_refs[("cstr_loop", "float64")].result()[0]
+    f64_st = all((H64[k] == ref[k]).all() for k in ("STATUS_SS", "STATUS_DYN", "OCP_ITERS"))
+    f64_err = max(nerr(torch.as_tensor(H64[k]), torch.as_tensor(ref[k])) for k in ("U", "Xp"))
+    it64 = H64["OCP_ITERS"]
+    log(f"# cstr_loop cross-check, gpu f64 ({N_CHECK} lanes x {LOOP_NSIM} steps): "
+        f"statuses and OCP iterations equal {f64_st}, max norm err U/Xp {f64_err:.3e} "
+        f"(tol {LOOP_F64_TOL:g}); f64 OCP iterations median / mean cold "
+        f"{np.median(it64[0]):g} / {it64[0].mean():.2f}, warm {np.median(it64[1:]):g} / "
+        f"{it64[1:].mean():.2f}")
+    report.update(f64_ocp_iters_cold_mean=float(it64[0].mean()),
+                  f64_ocp_iters_warm_mean=float(it64[1:].mean()))
+    if not (f64_st and f64_err <= LOOP_F64_TOL):
+        failures.append(f"cstr_loop: gpu f64 against cpu f64: statuses equal {f64_st}, "
+                        f"err {f64_err:.3e}")
+
+    def against_f64(h32):
+        """|dU|/box of an f32 history against the f64 one over three kinds
+        of lane-step (the OCP stopped on the same iteration; converged on
+        another; stopped at the cap short of the tolerance, status 1, on
+        another) as (max, count) each, the lanes differing in OCP
+        infeasibility at each step, and the largest |dU|/box of each step."""
+        du = (np.abs(h32["U"] - H64["U"]) / U_BOX).max(axis=2)          # (Nsim, 64)
+        same = h32["OCP_ITERS"] == H64["OCP_ITERS"]
+        short = ~same & (h32["STATUS_DYN"] == 1)
+        kinds = [(float(du[m].max()) if m.any() else 0.0, int(m.sum()))
+                 for m in (same, ~same & ~short, short)]
+        st = ((h32["STATUS_DYN"] == 2) != (H64["STATUS_DYN"] == 2)).sum(1)
+        return kinds, st, du.max(axis=1)
+
+    def describe(kinds, st):
+        (s, ns), (m, nm), (sh, nsh) = kinds
+        return (f"max |dU|/box {s:.3e} over {ns} lane-steps on the same OCP iteration "
+                f"(tol {U_TOL:g}), {m:.3e} over {nm} converged on another (tol "
+                f"{U_TOL_MOVED:g}), {sh:.3e} over {nsh} stopped at the cap short of "
+                f"the tolerance (reported); OCP infeasibility differences per step "
+                f"{st.tolist()} (at most {LOOP_STATUS_DIFF_MAX})")
+
+    kinds, st_diff, _ = against_f64(R32)
+    log("# cstr_loop cross-check, gpu f32 step by step from the f64 states: "
+        + describe(kinds, st_diff))
+    (du_s, _), (du_m, _), (du_short, n_short) = kinds
+    if not (du_s <= U_TOL and du_m <= U_TOL_MOVED and st_diff.max() <= LOOP_STATUS_DIFF_MAX):
+        failures.append(f"cstr_loop: f32 steps against f64: dU/box {du_s:.3e} / {du_m:.3e}, "
+                        f"infeasibility differences {st_diff.tolist()}")
+    free = {k: v[:, :N_CHECK] for k, v in H32.items()}
+    fr_kinds, fr_st, fr_step = against_f64(free)
+    log(f"# cstr_loop free-running f32 lanes against the f64 run (reported, not held): "
+        f"max |dU|/box per step {np.round(fr_step, 4).tolist()}; " + describe(fr_kinds, fr_st))
+    report.update(xcheck_gpu_f64_err=f64_err, xcheck_f32_step_du_same=du_s,
+                  xcheck_f32_step_du_moved=du_m, xcheck_f32_step_du_short=du_short,
+                  xcheck_f32_step_short=n_short,
+                  xcheck_f32_step_status_diff_max=int(st_diff.max()),
+                  free_f32_du_max=float(fr_step.max()),
+                  free_f32_status_diff_max=int(fr_st.max()))
+    log(f"# cstr_loop cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
+    return failures, report
+
+
 def main() -> int:
     try:
         import torch
@@ -1099,7 +1288,7 @@ def main() -> int:
             "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
             "riccati_kkt_cstr_exact")
     results = {k: {} for k in keys}
-    launches = dict.fromkeys(keys, 0)
+    launches = dict.fromkeys(keys + ("rk4_stage_jac_loop", "riccati_kkt_loop"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -1139,10 +1328,13 @@ def main() -> int:
 
     # the CPU side of every cross-check, in worker processes beside the
     # card's phases
-    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=mp.get_context("spawn"))
-    cpu_refs = {(p, dt): pool.submit(cpu_reference, p, dt)
-                for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact")
-                for dt in ("float64", "float32")}
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 1, mp_context=mp.get_context("spawn"))
+    # the closed loop's CPU run is the longest: it starts first, on a third
+    # worker, and the others keep their order
+    cpu_refs = {("cstr_loop", "float64"): pool.submit(cpu_reference, "cstr_loop", "float64")}
+    cpu_refs.update({(p, dt): pool.submit(cpu_reference, p, dt)
+                     for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact")
+                     for dt in ("float64", "float32")})
     enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
                  "riccati_kkt_enmpc", ENMPC_U_TOL)
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
@@ -1155,7 +1347,8 @@ def main() -> int:
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
               ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches, cpu_refs)),
               ("cstr_exact", lambda: slice_phase(dev, xprob, launches, cpu_refs,
-                                                 exact=True)))
+                                                 exact=True)),
+              ("cstr_loop", lambda: loop_phase(dev, launches, cpu_refs)))
     try:
         for name, phase in phases:
             t0 = time.perf_counter()
@@ -1206,11 +1399,16 @@ def main() -> int:
             k["launches_by_path"] = {"cstr": launches["riccati_kkt"],
                                      "enmpc": launches["riccati_kkt_enmpc"],
                                      "nmpc_dis": launches["riccati_kkt_nmpc_dis"],
-                                     "cstr_exact": launches["riccati_kkt_cstr_exact"]}
+                                     "cstr_exact": launches["riccati_kkt_cstr_exact"],
+                                     "cstr_loop": launches["riccati_kkt_loop"]}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
                                             launches["riccati_kkt_nmpc_dis"])
+        if name == "rk4_stage_jac":
+            # kernel 1 on the closed loop's OCP solves too
+            k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
+                                     "cstr_loop": launches["rk4_stage_jac_loop"]}
         if name == "stage_sweep":
             # the Gauss-Newton build, checked against its plain version; no
             # path of the smoke launches it

@@ -43,11 +43,17 @@ def _cstr_rhs(x, u, F0):
 
 
 def plant_fxp(x, t, u, pxp, pxmp):
-    """Plant ODE with scheduled feed flow (Ex_NMPC.py:40-78)."""
+    """Plant ODE with scheduled feed flow (Ex_NMPC.py:40-78).  The flows
+    are tensors of the state's dtype: ``torch.where`` on two Python floats
+    rounds them to f32 (ROADMAP Queue 3, F10)."""
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
-    F0 = torch.where(t <= 5, 0.1, torch.where(t <= 15, 0.15,
-                                              torch.where(t <= 25, 0.08, 0.1)))
-    return _cstr_rhs(x, u, F0.to(x.dtype))
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    F0 = torch.where(t <= 5, c(0.1), torch.where(t <= 15, c(0.15),
+                                                 torch.where(t <= 25, c(0.08), c(0.1))))
+    return _cstr_rhs(x, u, F0)
 
 
 def plant_fyp(x, u, t, pyp, pymp):

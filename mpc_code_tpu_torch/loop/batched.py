@@ -1,0 +1,509 @@
+"""Batched closed-loop MPC step (port of ``mpc_code_tpu/loop/batched.py``).
+
+One sampling instant of the reference's closed loop (MPC_code.py:485-875)
+for a batch of B scenarios at once: measure -> estimate -> steady-state
+target (dense IPM) -> OCP (the structured IPM, warm-started from the
+shifted previous primal solution and the shifted duals, or the dense IPM
+on the shooting OCP) -> plant.  Time-varying parameters over the horizon,
+time-varying setpoints, white process and measurement noise and the real
+(non-nominal) plant all run inside the step; the exogenous data of each
+instant enters through one :class:`~mpc_code_tpu_torch.loop.schedules.StepInput`
+shared by every lane (JAX vmaps the step with ``in_axes=(0, None)``,
+``parallel/mesh.py:86-87``).
+
+Layout.  Every field of :class:`MPCCarry` and :class:`MPCStepOut` has a
+leading batch dimension B; each lane has its own plant state.  Where the
+JAX step selects with ``jnp.where(ok, ...)`` on one lane, this one selects
+per lane with ``torch.where(ok[:, None], ...)``: a lane whose target is
+infeasible keeps its previous target, a lane whose OCP is infeasible keeps
+its input and warm start and predicts its estimate by the model
+(MPC_code.py:714-718, 786-805), and the masked solver loops freeze each
+lane once it is done, so one diverged lane never stalls the batch.
+
+Estimators: kalss and lue (static gain), kal (linear models only) and ekf.
+The MHE (ROADMAP Queue 1 item 17) and modifier adaptation (item 23) raise
+``NotImplementedError``.  There is no ``lax.scan``: :func:`run_traced` is
+a host loop over the steps on device tensors.  JAX's ``batch_hint`` picks
+a TPU sweep layout and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from mpc_code_tpu_torch.config import LinearModel, MPCConfig
+from mpc_code_tpu_torch.device import resolve_device
+from mpc_code_tpu_torch.estimators.ekf import ekf
+from mpc_code_tpu_torch.estimators.linear import build_augmented, kalman, kalss, kalss_gain
+from mpc_code_tpu_torch.loop.schedules import StepInput, default_step_input, make_step_inputs
+from mpc_code_tpu_torch.models import (
+    build_model, build_plant, build_ss_cost, build_stage_cost, build_terminal_cost,
+)
+from mpc_code_tpu_torch.ocp.shooting import _user_constraint_dim, build_ocp
+from mpc_code_tpu_torch.ocp.target import build_target
+from mpc_code_tpu_torch.ops.linalg import sqrtm_psd
+from mpc_code_tpu_torch.solver.ipm import make_solver
+from mpc_code_tpu_torch.solver.nlp import STATUS_INFEASIBLE
+
+
+class MPCCarry(NamedTuple):
+    x: torch.Tensor       # plant state (B, nxp)
+    xhat: torch.Tensor    # model state estimate (B, nx)
+    dhat: torch.Tensor    # disturbance estimate (B, nd)
+    P: torch.Tensor       # estimator covariance (B, naug, naug)
+    u: torch.Tensor       # last applied input (B, nu)
+    xs: torch.Tensor      # current state target (B, nx)
+    us: torch.Tensor      # current input target (B, nu)
+    w_prev: torch.Tensor  # previous OCP solution, flat layout (B, nw)
+    ocp_ok: torch.Tensor  # last OCP feasibility flag (B,)
+    t: torch.Tensor       # time (B,)
+    mhe: Any = None       # MHE window state (kind='mhe': ROADMAP Queue 1 item 17)
+    lam: Any = None       # modifier-adaptation lambda (Adaptation: item 23)
+    # dual/barrier warm start of the structured OCP solver (dict with
+    # zl/zu/lam/nus (B, N, .) and mu/sf/ok (B,), shifted one stage per step
+    # like the primal warm start; None = dual warm start off)
+    duals: Any = None
+
+
+class MPCStepOut(NamedTuple):
+    x: torch.Tensor        # plant state at measurement time (history Xp)
+    y: torch.Tensor        # measured output (history Yp)
+    yhat: torch.Tensor     # pre-correction model output (history Y_HAT)
+    u: torch.Tensor
+    xs: torch.Tensor
+    us: torch.Tensor
+    ys: torch.Tensor
+    xhat: torch.Tensor     # post-correction estimate
+    dhat: torch.Tensor
+    status_ss: torch.Tensor
+    status_dyn: torch.Tensor
+    ocp_iters: torch.Tensor
+    lam: Any = None        # modifier adaptation only (not ported)
+    cor: Any = None
+    upopt: Any = None
+    ypopt: Any = None
+    ss_iters: Any = None   # target solver iterations (the port's own field)
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _vec(v):
+    return np.asarray(v, float).reshape(-1)
+
+
+def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
+                  use_structured: Optional[bool] = None, device=None,
+                  target_dtype=None) -> Callable:
+    """Build ``step(carry, inp=None, mark=None) -> (MPCCarry, MPCStepOut)``.
+
+    ``inp`` is the :class:`StepInput` of this instant, shared by every lane
+    (one row of ``make_step_inputs(cfg, Nsim)``); when omitted a fixed
+    default (setpoints from ``ysp/usp/xsp``, zero parameters, no noise) is
+    used.  The step runs on ``device`` (default ``cuda``) in the dtype of
+    the carry.  ``use_structured`` (default: whenever the config is not
+    estimation-only) solves the OCP with the structured Riccati IPM and the
+    dual warm start of ``carry.duals``; ``False`` solves the dense shooting
+    OCP with the dense IPM.  ``target_dtype`` (default: the carry's) is the
+    dtype the steady-state target is solved in; its answer is cast back.
+    ``mark(name)``, if given, is called after each
+    phase of the step ("estimate", "target", "ocp", "plant"), so that a
+    caller can time them.
+    """
+    dev = resolve_device(device)
+    nx, nu, nd, N = cfg.nx, cfg.nu, cfg.nd, cfg.N
+    nxu = nx + nu
+    est = cfg.estimator
+    kind = est.kind
+    if kind == "mhe":
+        raise _todo("the traced MHE estimator (kind='mhe')", "17")
+    if kind not in ("kalss", "lue", "kal", "ekf"):
+        raise ValueError(f"estimator kind {kind!r} unsupported in the batched "
+                         "step (supported: kalss, lue, kal, ekf, mhe)")
+    if kind == "kal" and not isinstance(cfg.model, LinearModel):
+        # the reference hard-exits (MPC_code.py:643-646)
+        raise ValueError(
+            "estimator kind 'kal' requires a LinearModel (reference "
+            "MPC_code.py:643-646); use 'ekf' for nonlinear models")
+    estimating = bool(cfg.estimating)
+    if cfg.Adaptation and not estimating:
+        raise _todo("modifier adaptation (cfg.Adaptation: build_ssp, build_ssp2, "
+                    "make_lambda_update)", "23")
+
+    model = build_model(cfg)
+    plant = build_plant(cfg, model)
+    aug = build_augmented(cfg, model)
+
+    if use_structured is None:
+        use_structured = not estimating
+    elif use_structured and estimating:
+        raise ValueError("use_structured=True but the config is estimation-only")
+    if not estimating:
+        f_obj = build_stage_cost(cfg.stage_cost)
+        vfin = build_terminal_cost(cfg)
+        tspec = build_target(cfg, model, build_ss_cost(cfg.ss_cost))
+        ospec = build_ocp(cfg, model, f_obj, vfin)
+        target_solve = make_solver(tspec.nlp, cfg.sol_opts_ss)
+        nw, ns = ospec.nw, ospec.ns
+    if use_structured:
+        from mpc_code_tpu_torch.solver.riccati import (
+            build_structured_ocp, make_structured_solver,
+        )
+
+        socp = build_structured_ocp(cfg, model, f_obj, vfin, device=dev)
+        struct_solve = make_structured_solver(socp, cfg.sol_opts_dyn)
+        # the port's structured OCP has no shared output slacks (ROADMAP
+        # Queue 1 item 21): the flat layout's slack tail is zero-padded
+        nup = socp.nxa - nx
+        du_aug = nup > 0
+    elif not estimating:
+        ocp_solve = make_solver(ospec.nlp, cfg.sol_opts_dyn)
+
+    K_gain = None
+    if kind in ("kalss", "lue"):
+        if cfg.StateFeedback and cfg.dist.offree == "no":
+            K_gain = torch.eye(aug.n, dtype=torch.float64)
+        elif est.K is not None:
+            K_gain = torch.as_tensor(np.asarray(est.K, float))
+        else:
+            K_gain = kalss_gain(cfg, model)
+
+    def mat(v):
+        return None if v is None else torch.as_tensor(np.asarray(v, float))
+
+    Qkf, Rkf = mat(est.Q_kf), mat(est.R_kf)
+    dmin, dmax = (None if v is None else mat(_vec(v))
+                  for v in (cfg.bounds.dmin, cfg.bounds.dmax))
+    # noise shaping (MPC_code.py:537-541, 823-827)
+    Rv = None if cfg.R_wn is None else sqrtm_psd(mat(cfg.R_wn))
+    GQw = None
+    if cfg.Q_wn is not None and cfg.G_wn is not None:
+        GQw = mat(cfg.G_wn) @ sqrtm_psd(mat(cfg.Q_wn))
+    x0_m, u0 = mat(_vec(cfg.x0_m)), mat(_vec(cfg.u0))
+    if not estimating:
+        t_bounds = (tspec.lbw, tspec.ubw, tspec.lbg, tspec.ubg)
+        o_lbw, o_ubw = mat(ospec.lbw), mat(ospec.ubw)
+    default_inp = default_step_input(cfg, ysp=ysp, usp=usp, xsp=xsp)
+    with_d = cfg.dist.offree != "no"     # the estimator's state carries d
+    h = cfg.h
+
+    def step(c: MPCCarry, inp: Optional[StepInput] = None,
+             mark: Optional[Callable[[str], None]] = None):
+        if inp is None:
+            inp = default_inp
+        Bsz = c.x.shape[0]
+        kw = dict(dtype=c.x.dtype, device=c.x.device)
+
+        def T(v):
+            return None if v is None else torch.as_tensor(v, **kw)
+
+        def lanes(v):
+            v = T(v)
+            return v.expand((Bsz,) + tuple(v.shape))
+
+        inp = StepInput(*(T(a) for a in inp))
+        t_k = c.t
+        px0, py0 = lanes(inp.px_h[0]), lanes(inp.py_h[0])
+        pxp, pyp = lanes(inp.pxp), lanes(inp.pyp)
+        pxmp, pymp = lanes(inp.pxmp), lanes(inp.pymp)
+        lam_k = torch.zeros((Bsz, cfg.ny, nu), **kw)
+
+        # pre-correction model output (MPC_code.py:524)
+        yhat_k = vmap(model.fy)(c.xhat, c.u, c.dhat, t_k, py0)
+
+        # measurement (MPC_code.py:531-541)
+        if plant.nominal:
+            y_k = vmap(plant.fy)(c.x, c.u, c.dhat, t_k, py0)
+        else:
+            y_k = vmap(plant.fy)(c.x, c.u, pyp, t_k, pymp)
+        if Rv is not None:
+            y_k = y_k + T(Rv) @ inp.v_wn
+
+        # estimator (MPC_code.py:546-668)
+        x_es = torch.cat([c.xhat, c.dhat], -1) if with_d else c.xhat
+        P = c.P
+        if kind in ("kalss", "lue"):
+            x_es = kalss(aug, y_k, c.u, T(K_gain), x_es, t_k, py0)
+        elif kind == "kal":
+            P, _, x_es = kalman(aug, h, y_k, c.u, T(Qkf), T(Rkf), P, x_es, t_k, px0, py0)
+        else:
+            P, _, x_es = ekf(aug, h, y_k, c.u, T(Qkf), T(Rkf), P, x_es, t_k, px0, py0)
+        if with_d:
+            xhat = x_es[:, :nx]
+            dhat = x_es[:, nx : nx + nd]
+            if dmin is not None:                       # MPC_code.py:660-665
+                dhat = torch.minimum(torch.maximum(dhat, T(dmin)), T(dmax))
+        else:
+            xhat, dhat = x_es, c.dhat
+        if mark is not None:
+            mark("estimate")
+
+        def plant_step(x, u):
+            # plant update incl. process noise (MPC_code.py:813-827)
+            if plant.nominal:
+                xn = vmap(plant.fx, in_dims=(0, 0, None, 0, 0, 0))(
+                    x, u, h, dhat, t_k, pxmp)
+            else:
+                xn = vmap(plant.fx, in_dims=(0, 0, 0, 0, None, 0))(
+                    x, u, pxp, t_k, h, pxmp)
+            if GQw is not None:
+                xn = xn + T(GQw) @ inp.w_wn
+            return xn
+
+        if estimating:
+            # estimation-only mode (MPC_code.py:200, 675): no target/OCP,
+            # the input is never recomputed, the correction is carried
+            x_next = plant_step(c.x, c.u)
+            if mark is not None:
+                mark("plant")
+            zero_i = torch.zeros(Bsz, dtype=torch.int32, device=kw["device"])
+            carry = c._replace(x=x_next, xhat=xhat, dhat=dhat, P=P, t=t_k + h)
+            out = MPCStepOut(x=c.x, y=y_k, yhat=yhat_k, u=c.u, xs=c.xs,
+                             us=c.us, ys=yhat_k, xhat=xhat, dhat=dhat,
+                             status_ss=zero_i, status_dyn=zero_i, ocp_iters=zero_i)
+            return carry, out
+
+        # target problem (MPC_code.py:693-718); the guess mirrors the host
+        # loop's fixed x0_m/u0-based guess
+        x0_mB, u0B = lanes(x0_m), lanes(u0)
+        par_ss = dict(usp=lanes(inp.usp), ysp=lanes(inp.ysp), xsp=lanes(inp.xsp),
+                      d=dhat, us_prev=c.us, lam=lam_k, t=t_k, px=px0, py=py0)
+        wss0 = torch.cat([x0_mB, u0B, vmap(model.fy)(x0_mB, u0B, dhat, t_k, py0)], -1)
+        if target_dtype is not None:
+            wss0 = wss0.to(target_dtype)
+            par_ss = {k: v.to(target_dtype) for k, v in par_ss.items()}
+        rss = target_solve(wss0, par_ss, *t_bounds)
+        ss_ok = (rss.status != STATUS_INFEASIBLE)[:, None]
+        w_ss = rss.w.to(kw["dtype"])
+        xs = torch.where(ss_ok, w_ss[:, :nx], c.xs)          # MPC_code.py:714-718
+        us = torch.where(ss_ok, w_ss[:, nx:nxu], c.us)
+        ys = vmap(model.fy)(xs, us, dhat, t_k, py0)          # MPC_code.py:730-731
+        if mark is not None:
+            mark("target")
+
+        # OCP with pinned x0 and shifted warm start (flat layout carried;
+        # MPC_code.py:757-764)
+        shifted = torch.cat([c.w_prev[:, nxu : nw - ns], c.us, c.xs,
+                             c.w_prev[:, nw - ns : nw]], -1)
+        w0 = torch.where(c.ocp_ok[:, None], shifted, c.w_prev)
+        par = dict(x0=xhat, xs=xs, us=us, d=dhat, um1=c.u, t=t_k, lam=lam_k,
+                   px=lanes(inp.px_h), py=lanes(inp.py_h))
+        model_next = vmap(model.fx, in_dims=(0, 0, None, 0, 0, 0))
+        if use_structured:
+            body0 = w0[:, : N * nxu].reshape(Bsz, N, nxu)
+            Xg = torch.cat([body0[:, :, :nx], w0[:, None, N * nxu : N * nxu + nx]], 1)
+            Ug = body0[:, :, nx:]
+            if du_aug:
+                Uprev = torch.cat([c.u[:, None], Ug[:, :-1]], 1)
+                Xg = torch.cat([Xg, torch.cat([Uprev, Ug[:, -1:]], 1)], -1)
+            # dual/barrier warm start: the previous step's multipliers
+            # shifted one stage (the primal's shift, MPC_code.py:740-764,
+            # extended to the duals); gated off after an infeasible step
+            # exactly like the primal freeze
+            rs = struct_solve(par, Xg.contiguous(), Ug.contiguous(), ws=c.duals)
+            ok = rs.status != STATUS_INFEASIBLE
+            if c.duals is not None:
+                def _shift(a):
+                    return torch.cat([a[:, 1:], a[:, -1:]], 1)
+
+                duals_n = dict(zl=_shift(rs.zl), zu=_shift(rs.zu),
+                               lam=_shift(rs.lam), nus=_shift(rs.nus),
+                               mu=rs.mu, sf=rs.sf, ok=ok)
+            else:
+                duals_n = None
+            okc = ok[:, None]
+            u_k = torch.where(okc, rs.U[:, 0, :nu], c.u)         # MPC_code.py:786-805
+            xhat_next = torch.where(okc, rs.X[:, 1, :nx],
+                                    model_next(xhat, c.u, h, dhat, t_k, px0))
+            body_n = torch.cat([rs.X[:, :N, :nx], rs.U[:, :, :nu]], -1).reshape(Bsz, -1)
+            # flat-layout slack tail: zero-padded where the dense layout
+            # reserves slots (slacks=True with no y bounds)
+            w_new = torch.cat([body_n, rs.X[:, N, :nx], torch.zeros((Bsz, ns), **kw)], -1)
+            w_prev = torch.where(okc, w_new, c.w_prev)
+            status_dyn, iters_dyn = rs.status, rs.iters
+        else:
+            lbw = T(o_lbw).expand(Bsz, nw).clone()
+            ubw = T(o_ubw).expand(Bsz, nw).clone()
+            lbw[:, :nx] = xhat
+            ubw[:, :nx] = xhat
+            r = ocp_solve(w0, par, lbw, ubw, ospec.lbg, ospec.ubg)
+            ok = r.status != STATUS_INFEASIBLE
+            okc = ok[:, None]
+            u_k = torch.where(okc, r.w[:, nxu - nu : nxu], c.u)  # MPC_code.py:786-805
+            xhat_next = torch.where(okc, r.w[:, nxu : nxu + nx],
+                                    model_next(xhat, c.u, h, dhat, t_k, px0))
+            w_prev = torch.where(okc, r.w, c.w_prev)
+            duals_n = c.duals
+            status_dyn, iters_dyn = r.status, r.iters
+        if mark is not None:
+            mark("ocp")
+
+        # plant update (MPC_code.py:813-827)
+        x_next = plant_step(c.x, u_k)
+        if mark is not None:
+            mark("plant")
+
+        carry = MPCCarry(x=x_next, xhat=xhat_next, dhat=dhat, P=P, u=u_k,
+                         xs=xs, us=us, w_prev=w_prev, ocp_ok=ok,
+                         t=t_k + h, mhe=c.mhe, lam=c.lam, duals=duals_n)
+        out = MPCStepOut(x=c.x, y=y_k, yhat=yhat_k, u=u_k, xs=xs, us=us,
+                         ys=ys, xhat=xhat, dhat=dhat, status_ss=rss.status,
+                         status_dyn=status_dyn, ocp_iters=iters_dyn,
+                         ss_iters=rss.iters)
+        return carry, out
+
+    return step
+
+
+def init_carry(cfg: MPCConfig, x0=None, mhe=None, state=None,
+               dual_ws: Optional[bool] = None, batch: Optional[int] = None,
+               device=None, dtype=None) -> MPCCarry:
+    """Initial carry mirroring the reference's loop-state init
+    (MPC_code.py:442-484), for a batch of lanes on ``device`` (default
+    ``cuda``).
+
+    ``x0``: the plant's initial state, (nx,) shared or (B, nx) one per lane
+    (default ``cfg.x0_p``); ``batch`` sets B when ``x0`` is not given per
+    lane (default 1).  ``dtype`` defaults to that of a floating ``x0``
+    tensor, else f64.  The estimate starts at ``cfg.x0_m`` and the warm
+    start at (x0_m, u0) on every stage.
+    ``state``: a dict with the host loop's final state (x, xhat, dhat, u,
+    P, t and optionally xs/us, w_opt/ocp_feasible): continue from it.
+    ``dual_ws``: carry the structured OCP solver's dual/barrier warm start
+    (default: whenever the config is not estimation-only).  Pass ``False``
+    when stepping with ``use_structured=False``.
+    ``mhe`` (an MHE window) is not ported (ROADMAP Queue 1 item 17).
+    """
+    if mhe is not None or cfg.estimator.kind == "mhe":
+        raise _todo("the MHE window carry (init_carry(..., mhe=...), kind='mhe')", "17")
+    dev = resolve_device(device)
+    nx, nu, nd, N = cfg.nx, cfg.nu, cfg.nd, cfg.N
+    naug = nx + nd if cfg.dist.offree != "no" else nx
+    if state is not None and x0 is None:
+        x0 = state["x"]
+    if dtype is None:
+        dtype = (x0.dtype if torch.is_tensor(x0) and x0.is_floating_point()
+                 else torch.float64)
+    kw = dict(dtype=dtype, device=dev)
+
+    def T(v):
+        return torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v) else v, float), **kw)
+
+    x0 = T(_vec(cfg.x0_p) if x0 is None else x0)
+    Bsz = x0.shape[0] if x0.dim() == 2 else (1 if batch is None else int(batch))
+
+    def lanes(v):
+        v = T(v)
+        return v.expand((Bsz,) + tuple(v.shape)).clone()
+
+    if x0.dim() == 1:
+        x0 = lanes(x0)
+    x0_m, u0 = _vec(cfg.x0_m), _vec(cfg.u0)
+    dhat0 = np.zeros(nd) if cfg.dhat0 is None else _vec(cfg.dhat0)
+    P0 = (np.asarray(cfg.estimator.P0, float) if cfg.estimator.P0 is not None
+          else np.zeros((naug, naug)))
+    nxu = nx + nu
+    ns = (2 * cfg.ny + _user_constraint_dim(cfg.G_ineq, cfg)
+          + _user_constraint_dim(cfg.H_eq, cfg)) if cfg.slacks else 0
+    nw = nxu * N + nx + ns
+    # [x0_m, u0] on every stage, x0_m at N, the slack tail (if any) at 0
+    w0 = np.concatenate([np.tile(np.concatenate([x0_m, u0]), N), x0_m, np.zeros(ns)])
+    lam0 = np.zeros((cfg.ny, nu)) if cfg.Adaptation and not cfg.estimating else None
+    if dual_ws is None:
+        dual_ws = not cfg.estimating
+    duals0 = None
+    if dual_ws:
+        # zero template with ok=False: step 0 runs the cold dual init and
+        # every later step warm-starts from the shifted multipliers
+        from mpc_code_tpu_torch.solver.riccati import build_structured_ocp
+
+        socp0 = build_structured_ocp(cfg, build_model(cfg),
+                                     build_stage_cost(cfg.stage_cost),
+                                     build_terminal_cost(cfg), device=dev)
+        nzs0 = socp0.nxa + socp0.nu + socp0.ni
+        duals0 = dict(zl=torch.zeros((Bsz, N, nzs0), **kw),
+                      zu=torch.zeros((Bsz, N, nzs0), **kw),
+                      lam=torch.zeros((Bsz, N, socp0.nxa), **kw),
+                      nus=torch.zeros((Bsz, N, socp0.ni), **kw),
+                      mu=torch.zeros(Bsz, **kw), sf=torch.ones(Bsz, **kw),
+                      ok=torch.zeros(Bsz, dtype=torch.bool, device=dev))
+    carry = MPCCarry(x=x0, xhat=lanes(x0_m), dhat=lanes(dhat0), P=lanes(P0),
+                     u=lanes(u0), xs=lanes(x0_m), us=lanes(u0), w_prev=lanes(w0),
+                     ocp_ok=torch.ones(Bsz, dtype=torch.bool, device=dev),
+                     t=torch.zeros(Bsz, **kw), mhe=None,
+                     lam=None if lam0 is None else lanes(lam0), duals=duals0)
+    if state is not None:
+        carry = carry._replace(
+            xhat=lanes(state["xhat"]), dhat=lanes(state["dhat"]),
+            u=lanes(state["u"]), P=lanes(state["P"]),
+            t=torch.full((Bsz,), float(state["t"]), **kw))
+        if state.get("xs") is not None:
+            carry = carry._replace(xs=lanes(state["xs"]), us=lanes(state["us"]))
+        if state.get("w_opt") is not None and np.asarray(state["w_opt"]).shape == (nw,):
+            carry = carry._replace(
+                w_prev=lanes(state["w_opt"]),
+                ocp_ok=torch.full((Bsz,), bool(state["ocp_feasible"]), device=dev))
+    return carry
+
+
+def cast_carry(carry: MPCCarry, dtype) -> MPCCarry:
+    """The carry with every floating tensor (the duals' too) cast to
+    ``dtype``: to step a state of one run in another precision."""
+    def cast(v):
+        if isinstance(v, dict):
+            return {k: cast(x) for k, x in v.items()}
+        return v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+
+    return MPCCarry(*(cast(v) for v in carry))
+
+
+def stack_outputs(outs: Sequence[MPCStepOut]) -> MPCStepOut:
+    """The per-step outputs of a run stacked over a leading ``(Nsim,)`` axis:
+    ``(Nsim, B, ...)``, the axis order of JAX's vmapped scan."""
+    return MPCStepOut(*(None if getattr(outs[0], f) is None
+                        else torch.stack([getattr(o, f) for o in outs])
+                        for f in MPCStepOut._fields))
+
+
+def run_traced(cfg: MPCConfig, carry0: Optional[MPCCarry] = None,
+               Nsim: Optional[int] = None, inputs: Optional[StepInput] = None,
+               t0: float = 0.0, k0: int = 0,
+               use_structured: Optional[bool] = None, device=None):
+    """Run the full-fidelity closed loop for ``Nsim`` steps.
+
+    A host loop over the steps on device tensors (the JAX ``lax.scan`` has
+    no counterpart): precomputes the schedule/noise stack, steps the batch,
+    and returns ``(final_carry, history)`` with the simulator's history
+    keys, each ``(Nsim, B, ...)``.  ``carry0`` defaults to
+    ``init_carry(cfg)``, one lane.
+    """
+    dev = resolve_device(device)
+    Nsim = cfg.Nsim if Nsim is None else Nsim
+    if inputs is None:
+        inputs = make_step_inputs(cfg, Nsim, t0=t0, k0=k0)
+    if carry0 is None:
+        carry0 = init_carry(cfg, device=dev,
+                            dual_ws=None if use_structured is not False else False)
+    step = make_mpc_step(cfg, use_structured=use_structured, device=dev)
+    carry, outs = carry0, []
+    for k in range(Nsim):
+        carry, out = step(carry, StepInput(*(a[k] for a in inputs)))
+        outs.append(out)
+    return carry, history_from_outputs(stack_outputs(outs))
+
+
+def history_from_outputs(outs: MPCStepOut) -> Dict[str, np.ndarray]:
+    """Map stacked MPCStepOut tensors to the simulator's history keys."""
+    H = {
+        "Xp": outs.x, "Yp": outs.y, "Y_HAT": outs.yhat, "U": outs.u,
+        "XS": outs.xs, "US": outs.us, "YS": outs.ys, "X_HAT_CORR": outs.xhat,
+        "D_HAT": outs.dhat, "STATUS_SS": outs.status_ss,
+        "STATUS_DYN": outs.status_dyn, "OCP_ITERS": outs.ocp_iters,
+        "SS_ITERS": outs.ss_iters,
+    }
+    return {k: v.detach().cpu().numpy() for k, v in H.items() if v is not None}

@@ -15,7 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpc_code_tpu_torch.config import MPCConfig, SSCost, StageCost
+from mpc_code_tpu_torch.config import LinearModel, MPCConfig, SSCost, StageCost
+from mpc_code_tpu_torch.ops.dare import solve_dare
 
 
 def _w(M):
@@ -71,15 +72,28 @@ def build_ss_cost(ssc: SSCost) -> Callable:
 
 
 def build_terminal_cost(cfg: MPCConfig) -> Callable:
-    """Vfin(dx, xs): the user callable, or zero.  The DARE terminal weight
-    (``terminal.riccati``, linear models only) is not ported yet."""
+    """Vfin(dx, xs): the user callable, the DARE weight, or zero
+    (Utilities.defVfin, Utilities.py:383-420).
+
+    The caller passes dx already shifted by xs when QForm is on
+    (Control_Calc.py:194-196, 209).  Riccati mode: P solves DARE(A, B, Q,
+    R-or-S) of the linear model (MPC_code.py:253-255 swaps S for R when
+    only S is given), once, in f64 on the CPU."""
     tc = cfg.terminal
     if tc.vfin is not None:
         return tc.vfin
     if tc.riccati:
-        raise NotImplementedError(
-            "the DARE terminal cost (ops/dare.py) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+        m = cfg.model
+        if not isinstance(m, LinearModel):
+            raise ValueError("Riccati terminal cost requires a linear model")
+        sc = cfg.stage_cost
+        P = solve_dare(_w(m.A), _w(m.B), _w(sc.Q),
+                       _w(sc.R if sc.R is not None else sc.S))
+
+        def vfin(dx, xs):
+            return 0.5 * (dx @ (P.to(dx) @ dx))
+
+        return vfin
 
     def vfin(dx, xs):
         return torch.zeros((), dtype=dx.dtype, device=dx.device)

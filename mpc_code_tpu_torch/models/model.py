@@ -1,18 +1,25 @@
-"""Controller-model constructor (port of ``mpc_code_tpu/models/model.py``).
+"""Controller-model and plant constructors (port of ``mpc_code_tpu/models/model.py``).
 
 Returns plain callables over torch tensors with the reference's positional
-signatures (``defF_model``, Utilities.py:102-245):
+signatures (``defF_model``, Utilities.py:102-245; ``defF_p``,
+Utilities.py:21-100):
 
 - ``Fx_model(x, u, k, d, t, px) -> x_next``   (k = integration interval h)
 - ``Fy_model(x, u, d, t, py) -> y``
+- ``Fx_p(x, u, pxp, t, k, pxmp) -> x_next``
+- ``Fy_p(x, u, pyp, t, pymp) -> y``
 
 The callables act on one point; a batch goes through ``torch.func.vmap``.
 They also take lanes-minor (dim, L) arguments, and ``torch.fx`` traces the
 output map for the CUDA sweeps.  This slice covers the NL-continuous model
 form (RK4 with Mx sub-steps and the optional saturation guard) and the
 NL-discrete form (a user one-step map), with a user output map or
-StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the linear form and
-C-matrix outputs raise ``NotImplementedError`` naming their ROADMAP item.
+StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the linear model
+form and C-matrix model outputs raise ``NotImplementedError`` naming their
+ROADMAP item.  ``build_plant`` covers every plant form: the nominal alias
+of the model, ``LinearPlant``, ``ContinuousPlant`` (RK4 with its optional
+saturation guard) and ``DiscretePlant``, with LinPar and outputs from
+StateFeedback, ``Cp`` or the user's ``fy``.
 """
 
 from __future__ import annotations
@@ -22,13 +29,22 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from mpc_code_tpu_torch.config import ContinuousModel, DiscreteModel, MPCConfig
+from mpc_code_tpu_torch.config import (
+    ContinuousModel, ContinuousPlant, DiscreteModel, DiscretePlant,
+    LinearPlant, MPCConfig,
+)
 from mpc_code_tpu_torch.ops.integrators import rk4, saturate
 
 
 class ModelFns(NamedTuple):
     fx: Callable  # Fx_model(x, u, k, d, t, px)
     fy: Callable  # Fy_model(x, u, d, t, py)
+
+
+class PlantFns(NamedTuple):
+    fx: Callable  # Fx_p(x, u, pxp, t, k, pxmp)  [nominal: model signature]
+    fy: Callable  # Fy_p(x, u, pyp, t, pymp)     [nominal: model signature]
+    nominal: bool
 
 
 def _mat(M):
@@ -91,3 +107,75 @@ def build_model(cfg: MPCConfig) -> ModelFns:
         return out
 
     return ModelFns(fx=fx, fy=fy)
+
+
+def build_plant(cfg: MPCConfig, model: ModelFns) -> PlantFns:
+    """Build (Fx_p, Fy_p) from the config.
+
+    Reference: Utilities.defF_p (Utilities.py:21-100) and dispatch
+    MPC_code.py:171-198.  With Fp_nominal the plant aliases the model and is
+    called with the *model* signature in the loop (MPC_code.py:532, 814).
+    """
+    if cfg.Fp_nominal or cfg.plant is None:
+        return PlantFns(fx=model.fx, fy=model.fy, nominal=True)
+
+    p = cfg.plant
+    lin_par = cfg.LinPar
+
+    if isinstance(p, LinearPlant):
+        Ap, Bp = _mat(p.Ap), _mat(p.Bp)
+
+        def fxp(x, u, pxp, t, k, pxmp):
+            return Ap.to(x) @ x + Bp.to(x) @ u + pxp + pxmp   # Utilities.py:48
+
+    elif isinstance(p, ContinuousPlant):
+        user_fxp, plo, phi = p.fx, p.clip_lo, p.clip_hi
+
+        def fxp_eval(xx, tt, uu, pp, pm):
+            # ODE-input saturation (same guard as ContinuousModel; the
+            # reference pattern Ex_NMPC_dis.py:75-77)
+            return user_fxp(saturate(xx, plo, phi), tt, uu, pp, pm)
+
+        integ = rk4(fxp_eval, p.Mx)
+
+        def fxp(x, u, pxp, t, k, pxmp):
+            out = integ(x, t, k, u, pxp, pxmp)                 # Utilities.py:58-75
+            if lin_par:
+                out = out + pxp + pxmp                         # Utilities.py:78-82
+            return out
+
+    elif isinstance(p, DiscretePlant):
+        user_map = p.Fx
+
+        def fxp(x, u, pxp, t, k, pxmp):
+            out = user_map(x, t, u, pxp, pxmp)                 # Utilities.py:51-56
+            if lin_par:
+                out = out + pxp + pxmp
+            return out
+
+    else:
+        raise TypeError(f"unsupported plant spec {type(p)}")
+
+    if cfg.StateFeedback:
+
+        def fyp(x, u, pyp, t, pymp):
+            return x                                           # Utilities.py:84-86
+
+    elif isinstance(p, LinearPlant) or p.fy is None:
+        Cp = _mat(p.Cp)
+        if Cp is None:
+            raise ValueError("plant output map missing: provide Cp, fy, or StateFeedback")
+
+        def fyp(x, u, pyp, t, pymp):
+            return Cp.to(x) @ x + pyp + pymp                   # Utilities.py:88-91
+
+    else:
+        user_fyp = p.fy
+
+        def fyp(x, u, pyp, t, pymp):
+            out = user_fyp(x, u, t, pyp, pymp)                 # Utilities.py:93-98
+            if lin_par:
+                out = out + pyp + pymp
+            return out
+
+    return PlantFns(fx=fxp, fy=fyp, nominal=False)

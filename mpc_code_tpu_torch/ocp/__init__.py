@@ -1,1 +1,2 @@
-"""Problem builders of the port (``ocp/target.py``)."""
+"""Problem builders of the port: the dense shooting OCP (``ocp/shooting.py``)
+and the steady-state target (``ocp/target.py``)."""

@@ -4,7 +4,8 @@
 the NLP over wss = [xs, us, ys] that the dense IPM (``solver/ipm.py``)
 solves before every OCP.  The plant steady state, the plant optimum, the
 modifier-adaptation update and the steady-state hunt of the JAX module
-are not ported yet (ROADMAP Queue 1 item 10).
+(``build_ssp``, ``build_ssp2``, ``make_lambda_update``, ``build_ss_id``)
+are not ported yet (ROADMAP Queue 1 item 23).
 """
 
 from __future__ import annotations

@@ -7,10 +7,12 @@ continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
 with the u_prev state augmentation that Delta-u bounds and Delta-u costs
 (``DUForm``, ``DUFormEcon``) need, with the Gauss-Newton Hessian, the
 monotone barrier, the rollout-free adaptive step controller
-(``ls_mode='adaptive'``) and best-iterate bookkeeping.  Plain continuous
-shooting also takes the exact Lagrangian Hessian (the default of
-``SolverOptions``).  Every other configuration raises
-``NotImplementedError`` naming its ROADMAP item.
+(``ls_mode='adaptive'``), best-iterate bookkeeping and the closed loop's
+cross-solve dual/barrier warm start (``solve(..., ws=)``: the previous
+step's multipliers and barrier, shifted one stage and rescaled to the new
+objective scaling).  Plain continuous shooting also takes the exact
+Lagrangian Hessian (the default of ``SolverOptions``).  Every other
+configuration raises ``NotImplementedError`` naming its ROADMAP item.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
@@ -546,11 +548,16 @@ def _nan0(a):
 
 def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions(),
                            parallel: bool = False) -> Callable:
-    """Build ``solve(p, X0, U0, max_iter=None) -> StructResult`` for a batch.
+    """Build ``solve(p, X0, U0, max_iter=None, ws=None) -> StructResult``
+    for a batch.
 
     X0 (B, N+1, nxa), U0 (B, N, nu) warm starts in user units; X0[:, 0] is
     overwritten by the pinned initial state from p.  ``max_iter`` overrides
-    ``opts.max_iter`` per call (pass-1 cap and rescue share one solver)."""
+    ``opts.max_iter`` per call (pass-1 cap and rescue share one solver).
+    ``ws`` is the cross-solve dual/barrier warm start of the closed loop: a
+    dict with ``zl``, ``zu`` (B, N, nxa+nu+ni), ``lam`` (B, N, nxa), ``nus``
+    (B, N, ni), ``mu``, ``sf`` and ``ok`` (B,), the previous step's result
+    shifted one stage; a lane with ``ok`` False starts cold."""
     if parallel:
         raise _todo("the associative-scan Riccati (parallel=True)",
                     "Queue 1 item 21")
@@ -613,8 +620,6 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                            torch.zeros_like(num))
 
     def solve(p, X0, U0, max_iter=None, ws=None) -> StructResult:
-        if ws is not None:
-            raise _todo("the cross-solve warm start ws=", "Queue 1 item 13")
         dev = s.device
         X0 = torch.as_tensor(X0, device=dev)
         U0 = torch.as_tensor(U0, device=dev)
@@ -689,11 +694,40 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             return zl, zu
 
         zl0, zu0 = dual_init(mkZ(X_init, U_init, S_init), lbz, ubz, hlz, huz)
+        lam0 = torch.zeros((Bsz, N, nxa), **kw)
+        nus0 = torch.zeros((Bsz, N, ni), **kw)
+        if ws is not None:
+            # cross-solve dual/barrier warm start (the closed loop's regime,
+            # JAX riccati.py:1296-1330).  The carried duals are in the
+            # previous solve's objective scaling: rescale by sf_new/sf_old
+            # (stationarity and complementarity both scale linearly with
+            # sf).  ws["ok"] gates each lane (False -> the cold init above)
+            ws_ok = torch.as_tensor(ws["ok"], device=dev).to(torch.bool).expand(Bsz)
+            rs = sf / torch.clamp(torch.as_tensor(ws["sf"], **kw), min=1e-12)
+
+            def carried(v):
+                v = torch.as_tensor(v, **kw)
+                return _nan0(v * _lane(rs, v))
+
+            def gate(new, old):
+                return torch.where(_lane(ws_ok, old), new, old)
+
+            zl0 = gate(torch.where(hlz, torch.clamp(carried(ws["zl"]), 1e-8, 1e8), 0.0), zl0)
+            zu0 = gate(torch.where(huz, torch.clamp(carried(ws["zu"]), 1e-8, 1e8), 0.0), zu0)
+            lam0 = gate(carried(ws["lam"]), lam0)
+            if ni:
+                nus0 = gate(carried(ws["nus"]), nus0)
+            # the carried barrier is floored at max(tol/10, 1e-6): a converged
+            # tight-tol solve leaves mu ~ tol/10, and the monotone strategy
+            # can only decrease it, so starting the next, shifted problem
+            # that low strands the iterate off the central path; capped at
+            # mu_init
+            mu_w = torch.clamp(torch.as_tensor(ws["mu"], **kw) * rs,
+                               max(opts.tol / 10.0, 1e-6), opts.mu_init)
+            mu0 = torch.where(ws_ok, mu_w, mu0)
         full = lambda v: torch.full((Bsz,), v, **kw)  # noqa: E731
         st = dict(
-            X=X_init, U=U_init, S=S_init,
-            lam=torch.zeros((Bsz, N, nxa), **kw),
-            nus=torch.zeros((Bsz, N, ni), **kw),
+            X=X_init, U=U_init, S=S_init, lam=lam0, nus=nus0,
             zl=zl0, zu=zu0, mu=mu0, nu_pen=full(1.0), delta=full(0.0),
             it=torch.zeros(Bsz, dtype=torch.int32, device=dev),
             done=torch.zeros(Bsz, dtype=torch.bool, device=dev),

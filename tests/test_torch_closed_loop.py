@@ -1,0 +1,233 @@
+"""The port's batched closed loop (``loop/batched.py``) against the JAX package, CPU, f64.
+
+- ``make_step_inputs``: the port's schedule and noise stack against JAX's,
+  array for array and bit for bit, on ``examples/nmpc.py`` (output noise,
+  ``defSP``) and ``examples/nmpc_dis.py`` (the ``def_pxp`` schedule, the
+  setpoint program), 30 steps.
+- The structured closed loop: 4 steps of ``make_mpc_step`` on 3 lanes
+  (different plant states, shared step inputs) at N=5, against JAX's
+  ``make_mpc_step`` jitted and vmapped once over the lanes with
+  ``in_axes=(0, None)``, stepped by a Python loop.  nmpc: the EKF, the
+  example's exact Hessian, RK4 Mx=2 in the model and the plant (nmpc_dis,
+  the Luenberger observer with the u_prev warm start, is in
+  ``test_torch_closed_loop_dis.py``).  STATUS_SS, STATUS_DYN and
+  OCP_ITERS equal at every step (the dual warm start cuts the OCP
+  iterations after step 0); U, Xp, XS, US, D_HAT and X_HAT_CORR within
+  rtol 1e-6 / atol 1e-8: measured max |a-b| 1.7e-13 over both loops.
+- ``use_structured=False`` on one lane: ``run_traced`` against JAX's
+  ``run_traced(..., use_structured=False)`` on nmpc (N=5, Mx=2, 3 steps),
+  the same keys within 1e-8 (measured 1.1e-13).
+- ``make_mpc_step`` raises ``NotImplementedError`` naming ROADMAP item 17
+  for the MHE and item 23 for modifier adaptation, and ``init_carry`` item
+  17 for an MHE window; both run on the card unless given
+  ``device="cpu"``.
+
+About 30 s in one process with the suite's JAX compilation cache warm,
+43 s cold (builder's CPU runs, most of it JAX tracing and compiling the
+reference steps).
+"""
+
+import dataclasses as dc
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+torch.set_num_threads(1)
+
+N, NSIM = 5, 4
+KEYS = (("U", "u"), ("Xp", "x"), ("XS", "xs"), ("US", "us"), ("D_HAT", "dhat"),
+        ("X_HAT_CORR", "xhat"))
+STATUS = (("STATUS_SS", "status_ss"), ("STATUS_DYN", "status_dyn"),
+          ("OCP_ITERS", "ocp_iters"))
+
+
+def _configs(name, Nsim=NSIM):
+    from mpc_code_tpu.config import SolverOptions as JOpts
+    from mpc_code_tpu_torch.convert import config_from_numpy
+
+    jmod = __import__(f"mpc_code_tpu.examples.{name}", fromlist=["make_config"])
+    pmod = __import__(f"mpc_code_tpu_torch.examples.{name}", fromlist=["make_config"])
+    jcfg = jmod.make_config(Nsim=Nsim).replace(N=N)
+    if name == "nmpc":
+        jcfg = jcfg.replace(model=dc.replace(jcfg.model, Mx=2),
+                            plant=dc.replace(jcfg.plant, Mx=2))
+    else:
+        jcfg = jcfg.replace(sol_opts_dyn=JOpts(hessian="gauss_newton"))
+    return jcfg, config_from_numpy(jcfg, pmod.make_config(Nsim=Nsim))
+
+
+X0_SHIFT = {"nmpc": np.array([[0.0, 0.0, 0.0], [0.02, 1.0, 0.005], [-0.03, -2.0, -0.01]]),
+            "nmpc_dis": np.array([[0.0] * 6, [0, 0, 0.3, -0.2, 0.05, 0],
+                                  [0, 0, -0.5, 0.4, 0, 0.05]])}
+
+
+@pytest.mark.parametrize("name", ["nmpc", "nmpc_dis"])
+def test_step_inputs_match_jax(name):
+    from mpc_code_tpu.loop.schedules import make_step_inputs as jmsi
+    from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
+
+    jcfg, pcfg = _configs(name, Nsim=30)
+    got, ref = make_step_inputs(pcfg, 30), jmsi(jcfg, 30)
+    for f in StepInput._fields:
+        a, b = getattr(got, f), np.asarray(getattr(ref, f))
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    if name == "nmpc":
+        assert np.abs(got.v_wn).max() > 0          # the noise is drawn
+    tens = make_step_inputs(pcfg, 3, dtype=torch.float64)
+    assert torch.equal(tens.ysp, torch.as_tensor(got.ysp[:3]))
+
+
+def structured_loops(name, vmapped=True):
+    """(the port's history, JAX's outputs) of NSIM structured steps on the
+    3 lanes of ``name``.  JAX's step is jitted and vmapped over the lanes,
+    or with ``vmapped=False`` jitted for one lane and called per lane
+    (the same arithmetic; JAX traces and compiles it in about half the
+    time)."""
+    from mpc_code_tpu.loop import batched as jb
+    from mpc_code_tpu.loop.schedules import make_step_inputs as jmsi
+    from mpc_code_tpu_torch.loop import batched as pb
+    from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
+
+    jcfg, pcfg = _configs(name)
+    x0 = np.asarray(jcfg.x0_p, float)[None] + X0_SHIFT[name]
+
+    # the split sweep form (as tests/test_torch_nmpc_dis.py): JAX traces
+    # its lanes-minor discrete sweep far longer inside the solver
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MPC_TPU_FAST_SWEEP", "1")
+    try:
+        step = jb.make_mpc_step(jcfg)
+    finally:
+        mp.undo()
+    # through numpy: no weak-typed leaves, so the carry the step returns
+    # has the types of the one it takes and the step compiles once
+    carries = [jax.tree.map(lambda a: jnp.asarray(np.asarray(a)),
+                            jb.init_carry(jcfg, jnp.asarray(x))) for x in x0]
+    jin = jmsi(jcfg, NSIM)
+    jouts = []
+    if vmapped:
+        jstep = jax.jit(jax.vmap(step, in_axes=(0, None)))
+        jc = jax.tree.map(lambda *a: jnp.stack(a), *carries)
+    else:
+        jstep = jax.jit(step)
+    for k in range(NSIM):
+        inp = jax.tree.map(lambda a: jnp.asarray(a[k]), jin)
+        if vmapped:
+            jc, o = jstep(jc, inp)
+        else:
+            lanes = [jstep(c, inp) for c in carries]
+            carries = [c for c, _ in lanes]
+            o = jax.tree.map(lambda *a: jnp.stack(a), *[o for _, o in lanes])
+        jouts.append(jax.device_get(o))
+    J = {f: np.stack([np.asarray(getattr(o, f)) for o in jouts])
+         for _, f in KEYS + STATUS}
+
+    pstep = pb.make_mpc_step(pcfg, device="cpu")
+    pc = pb.init_carry(pcfg, torch.as_tensor(x0), device="cpu")
+    assert pc.duals is not None and not bool(pc.duals["ok"].any())
+    pin = make_step_inputs(pcfg, NSIM)
+    pouts = []
+    for k in range(NSIM):
+        pc, o = pstep(pc, StepInput(*(a[k] for a in pin)))
+        pouts.append(o)
+    return pb.history_from_outputs(pb.stack_outputs(pouts)), J
+
+
+@pytest.fixture(scope="module")
+def loops():
+    return structured_loops("nmpc")
+
+
+def check_statuses(H, J):
+    for hk, jk in STATUS:
+        assert H[hk].shape == (NSIM, 3)
+        np.testing.assert_array_equal(H[hk], J[jk], err_msg=hk)
+    assert (H["STATUS_DYN"] == 0).all()
+    # warm steps take fewer OCP iterations than the cold step 0
+    assert (H["OCP_ITERS"][1:].mean(0) < H["OCP_ITERS"][0]).all()
+
+
+def check_trajectories(H, J):
+    for hk, jk in KEYS:
+        np.testing.assert_allclose(H[hk], J[jk], rtol=1e-6, atol=1e-8, err_msg=hk)
+
+
+def test_structured_loop_statuses_match_jax(loops):
+    check_statuses(*loops)
+
+
+def test_structured_loop_trajectories_match_jax(loops):
+    check_trajectories(*loops)
+
+
+def test_dense_loop_matches_jax():
+    from mpc_code_tpu.loop.batched import run_traced as jrun
+    from mpc_code_tpu_torch.loop.batched import run_traced
+
+    jcfg, pcfg = _configs("nmpc", Nsim=3)
+    _, Hj = jrun(jcfg, Nsim=3, use_structured=False)
+    _, H = run_traced(pcfg, Nsim=3, use_structured=False, device="cpu")
+    for hk, _ in STATUS:
+        np.testing.assert_array_equal(H[hk][:, 0], Hj[hk], err_msg=hk)
+    for hk, _ in KEYS + (("Yp", "y"),):
+        got, ref = H[hk][:, 0], np.asarray(Hj[hk])
+        assert np.abs(got - ref).max() <= 1e-8, hk
+
+
+def test_unported_features_raise():
+    from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.loop.batched import init_carry, make_mpc_step
+
+    cfg = make_config().replace(N=N)
+    mhe = cfg.replace(estimator=dc.replace(cfg.estimator, kind="mhe"))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        make_mpc_step(mhe, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        init_carry(mhe, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        init_carry(cfg, mhe=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 23"):
+        make_mpc_step(cfg.replace(Adaptation=True), device="cpu")
+
+
+def test_loop_entry_points_default_to_the_card():
+    from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.loop.batched import init_carry, make_mpc_step
+
+    cfg = make_config().replace(N=N)
+    if torch.cuda.is_available():
+        assert init_carry(cfg).x.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mpc_step(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_carry(cfg)
+    c = init_carry(cfg, torch.zeros((2, 3), dtype=torch.float32), device="cpu")
+    assert c.x.device.type == "cpu" and c.x.dtype == torch.float32 and c.P.shape == (2, 5, 5)
+
+
+def test_estimation_only_step_keeps_the_input():
+    """``cfg.estimating`` (MPC_code.py:200, 675): the step only measures,
+    estimates and moves the plant; the input, targets and warm start stay,
+    and no OCP is built (``use_structured=True`` is refused)."""
+    from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.loop.batched import init_carry, make_mpc_step
+
+    cfg = make_config().replace(N=N, estimating=True)
+    cfg = cfg.replace(model=dc.replace(cfg.model, Mx=2), plant=dc.replace(cfg.plant, Mx=2))
+    with pytest.raises(ValueError, match="estimation-only"):
+        make_mpc_step(cfg, use_structured=True, device="cpu")
+    step = make_mpc_step(cfg, device="cpu")
+    c0 = init_carry(cfg, torch.as_tensor([[0.8, 330.0, 0.6], [0.85, 326.0, 0.65]]),
+                    device="cpu")
+    assert c0.duals is None
+    c1, out = step(c0)
+    assert torch.equal(c1.u, c0.u) and torch.equal(c1.w_prev, c0.w_prev)
+    assert (out.status_dyn == 0).all() and (out.ocp_iters == 0).all()
+    assert not torch.equal(c1.x, c0.x) and not torch.equal(c1.P, c0.P)
+    assert torch.isfinite(c1.xhat).all()
