@@ -6,10 +6,13 @@ NVIDIA H100 and the CUDA toolkit:
 
     python3 chip_smoke.py
 
+Arguments name the phases to run, as ``PHASES`` spells them (for trying
+one phase on the card): ``python3 chip_smoke.py lmpc_loop clb``.
+
 It never imports JAX or the JAX package.  Phases:
 
 1. the card's name and power limit (nvidia-smi), then builds the CUDA
-   kernels of the five paths from ``mpc_code_tpu_torch/csrc``, one
+   kernels of the seven paths from ``mpc_code_tpu_torch/csrc``, one
    ``nvcc`` each, all started together;
 2. kernel phases: each kernel against its plain PyTorch version on the
    card at its path's shapes, in f64 and f32, with the normalised error
@@ -22,7 +25,9 @@ It never imports JAX or the JAX package.  Phases:
    solve at the quadruple tank's (N=50, nxa=8, nu=2), the fused stage
    sweep at the exact-Hessian CSTR path's (N=50, nz=5, ni=2; the Riccati
    KKT solve has the CSTR path's shapes there), in its exact build and in
-   its Gauss-Newton build; an f32 sweep (kernels 1, 3, 5) must also lie
+   its Gauss-Newton build, the Riccati KKT solve at the LMPC loop's
+   (N=50, nxa=5, nu=2) and the bench port's (N=20, nxa=3, nu=2, 1024
+   lanes); an f32 sweep (kernels 1, 3, 5) must also lie
    no farther from the f64 plain version than twice its f32 plain version;
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
@@ -62,7 +67,17 @@ It never imports JAX or the JAX package.  Phases:
    the first 64 lanes run on the card in f64 against the CPU f64 run,
    with one f32 step from each of their steps' states held against the
    f64 step (the free-running f32 lanes' drift is reported);
-8. one ``{"kernels": [...]}`` line, and as the last line
+8. LMPC closed-loop phase (``lmpc_loop``): ``examples/lmpc_loop_workload.py``
+   — the linear-model MPC on the nonlinear CSTR plant (Kalman filter,
+   dense-IPM target in f64, structured OCP of the affine model with the
+   u_prev rows, nxa=5, whose only kernel is the Riccati KKT solve),
+   B=16384 lanes, LOOP_NSIM steps, f32 — checked as phase 7, with the
+   kernel's launches equal to the OCP solver's passes on every step, and
+   each step replayed with its OCP under the profiler for its launches
+   per pass;
+9. the bench port (``clb``): ``examples/closed_loop_bench.py`` at its
+   defaults (B=1024, 20 steps, cap 10), its two lines;
+10. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -156,6 +171,14 @@ RESOLVE_MAX = 64                   # failing lanes re-solved on the CPU in f64
 LOOP_NSIM = 6
 LOOP_F64_TOL = 1e-6
 LOOP_STATUS_DIFF_MAX = 1
+# The LMPC loop (lmpc_loop) keeps these rules with one change: its f32 OCP
+# stops at the cap short of the tolerance on every feasible lane-step (the
+# JAX package's f32 solver too, PERF.md section 6), so a lane-step on which
+# both precisions stop at the cap unconverged is labelled feasible (1) or
+# not (2) by its feasibility error at the cap; those are reported apart,
+# and a lane-step that differs in infeasibility (at most
+# LOOP_STATUS_DIFF_MAX a step) is not held to a U tolerance.
+CLB_BATCH, CLB_STEPS = 1024, 20    # the bench port's defaults
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
 
@@ -242,21 +265,21 @@ def sweep_inputs(dtype, device, clip_lo, clip_hi, seed=1):
     return arrs, clip_lanes
 
 
-def riccati_inputs(dtype, device, nxa=3, nu=2, N=50, seed=2):
+def riccati_inputs(dtype, device, nxa=3, nu=2, N=50, seed=2, batch=B):
     import torch
 
     rng = np.random.default_rng(seed)
     nz = nxa + nu
-    M = rng.normal(size=(B, N, nz, nz)) * 0.5
+    M = rng.normal(size=(batch, N, nz, nz)) * 0.5
     Hs = M @ np.swapaxes(M, -1, -2) + 0.1 * np.eye(nz)
-    q = rng.normal(size=(B, N, nz))
-    A = 0.9 * np.eye(nxa) + 0.1 * rng.normal(size=(B, N, nxa, nxa))
-    Bm = rng.normal(size=(B, N, nxa, nu)) * 0.5
-    rd = rng.normal(size=(B, N, nxa)) * 0.1
-    MP = rng.normal(size=(B, nxa, nxa))
+    q = rng.normal(size=(batch, N, nz))
+    A = 0.9 * np.eye(nxa) + 0.1 * rng.normal(size=(batch, N, nxa, nxa))
+    Bm = rng.normal(size=(batch, N, nxa, nu)) * 0.5
+    rd = rng.normal(size=(batch, N, nxa)) * 0.1
+    MP = rng.normal(size=(batch, nxa, nxa))
     PN = MP @ np.swapaxes(MP, -1, -2) + np.eye(nxa)
-    pN = rng.normal(size=(B, nxa))
-    delta = np.zeros(B)
+    pN = rng.normal(size=(batch, nxa))
+    delta = np.zeros(batch)
     bad_lane = 7
     Hs[bad_lane, N - 1, nxa:, nxa:] = -1e3 * np.eye(nu)   # indefinite Quu
     kw = dict(dtype=dtype, device=device)
@@ -325,15 +348,16 @@ def kernel_phase(dev, socp, results):
     return failures
 
 
-def riccati_check(dev, dtype, N, nxa, nu, out):
-    """Kernel 2 against its plain version at (N, nxa, nu); the numbers go
-    into ``out[dtype name]``.  Returns the failures."""
+def riccati_check(dev, dtype, N, nxa, nu, out, batch=B):
+    """Kernel 2 against its plain version at (N, nxa, nu) on ``batch``
+    lanes; the numbers go into ``out[dtype name]``.  Returns the
+    failures."""
     import torch
 
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
     tname = str(dtype).replace("torch.", "")
-    ins, bad_lane = riccati_inputs(dtype, dev, nxa, nu, N)
+    ins, bad_lane = riccati_inputs(dtype, dev, nxa, nu, N, batch=batch)
     got = rk.riccati_kkt(*ins, nxa=nxa, nu=nu)
     ref = rk.riccati_ref(*ins, nxa=nxa, nu=nu)
     torch.cuda.synchronize()
@@ -345,16 +369,16 @@ def riccati_check(dev, dtype, N, nxa, nu, out):
                   for g, r in zip(got[1:], ref[1:]))
     # the kernel alone into preallocated outputs, and the call as the
     # solver makes it (riccati.py: riccati_kkt on its (B, N, ...) tensors)
-    outs = rk.empty_outputs(B, N, nxa, nu, dtype, dev)
+    outs = rk.empty_outputs(batch, N, nxa, nu, dtype, dev)
     ms = cuda_ms(lambda: rk.launch(ins, outs, nxa=nxa, nu=nu), 20)
     call_ms = cuda_ms(lambda: rk.riccati_kkt(*ins, nxa=nxa, nu=nu), 20)
     geo = rk.launch_geometry(N, nxa, nu, ins[0].element_size())
     plain_ms = cuda_ms(lambda: rk.riccati_ref(*ins, nxa=nxa, nu=nu), 2)
-    byt = rk.riccati_bytes(B, N, nxa, nu, ins[0].element_size())
-    ops = rk.riccati_ops(B, N, nxa, nu)
+    byt = rk.riccati_bytes(batch, N, nxa, nu, ins[0].element_size())
+    ops = rk.riccati_ops(batch, N, nxa, nu)
     t_b, t_o = byt / H100_BYTES_PER_S * 1e3, ops / H100_FLOPS[tname] * 1e3
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32["riccati_kkt"]
-    log(f"# kernel riccati_kkt ({N}, {nxa}, {nu}) {tname}: max_norm_err={err:.3e} "
+    log(f"# kernel riccati_kkt ({N}, {nxa}, {nu}) B={batch} {tname}: max_norm_err={err:.3e} "
         f"max_abs_err={abs_err:.3e} (tol {tol:g}) ok_flags_equal={flags_equal} "
         f"bad_lane_ok={bool(ok_g[bad_lane])} n_not_ok={int((~ok_r).sum())} "
         f"kernel_ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
@@ -527,6 +551,21 @@ def nmpc_dis_kernel_phase(dev, dprob, results):
             plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
         failures += riccati_check(dev, dtype, cfg.N, dprob.socp.nxa, dprob.socp.nu,
                                   results["riccati_kkt_nmpc_dis"])
+    return failures
+
+
+def lmpc_kernel_phase(dev, lsocp, csocp, results):
+    """Kernel 2 at the shapes of the two linear-model paths, against its
+    plain version: the LMPC loop's OCP, (N, nxa, nu) = (50, 5, 2) on B
+    lanes, and the bench port's, (20, 3, 2) on CLB_BATCH lanes."""
+    import torch
+
+    failures = []
+    for dtype in (torch.float64, torch.float32):
+        failures += riccati_check(dev, dtype, lsocp.N, lsocp.nxa, lsocp.nu,
+                                  results["riccati_kkt_lmpc"])
+        failures += riccati_check(dev, dtype, csocp.N, csocp.nxa, csocp.nu,
+                                  results["riccati_kkt_clb"], batch=CLB_BATCH)
     return failures
 
 
@@ -890,9 +929,9 @@ def record_ok_flags(runs):
 def cpu_reference(path, dtype_name):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
-    "enmpc", "nmpc_dis", "cstr_exact" or "cstr_loop") in one dtype, with the
-    Riccati ``ok`` flags of every call (for "cstr_loop": the closed loop's
-    history).  Returns (per-lane results, flags).  It runs
+    "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop" or "lmpc_loop") in one
+    dtype, with the Riccati ``ok`` flags of every call (for the loops: the
+    closed loop's history).  Returns (per-lane results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -905,11 +944,14 @@ def cpu_reference(path, dtype_name):
     flags = []
     undo = record_ok_flags([flags])
     try:
-        if path == "cstr_loop":
+        if path in ("cstr_loop", "lmpc_loop"):
             from mpc_code_tpu_torch.examples import closed_loop_workload as cw
+            from mpc_code_tpu_torch.examples import lmpc_loop_workload as lw
 
-            H, _ = cw.run_loop(cw.make_config(), cw.draw_x0(N_CHECK, cpu, dtype=dtype),
-                               Nsim=LOOP_NSIM, device=cpu)
+            wl = cw if path == "cstr_loop" else lw
+            cfg = wl.make_config()
+            H, _ = wl.run_loop(cfg, wl.draw_x0(N_CHECK, cpu, dtype=dtype),
+                               Nsim=LOOP_NSIM, device=cpu, step=wl.make_step(cfg, cpu))
             return H, flags
         if path in ("slice", "cstr_exact"):
             from mpc_code_tpu_torch.examples.bench_workload import (
@@ -1101,65 +1143,177 @@ def controller_phase(dev, path: Path, launches, cpu_refs):
     return failures, report
 
 
-def loop_phase(dev, launches, cpu_refs):
-    """The warm batched CSTR closed loop (``examples/closed_loop_workload.py``)
-    at B lanes in f32 for LOOP_NSIM steps: per step the wall time, target
-    and OCP iterations, infeasible shares, launches of kernels 1 and 2 and
-    the share of non-finite lanes; then the first N_CHECK lanes run on the
-    card in f64 against the CPU f64 run, with one f32 step from each of
-    their steps' states held against the f64 step."""
+class Loop(NamedTuple):
+    """One closed-loop phase as the smoke drives it."""
+    name: str              # "cstr_loop" or "lmpc_loop"
+    wl: Any                # its workload module (make_config, make_step, draw_x0, run_loop)
+    u_box: Any             # width of the input bounds
+    counters: dict         # kernel name -> the module whose LAUNCHES counts it
+    profile_ocp: bool      # replay each step with its OCP under torch.profiler
+    cap_apart: bool        # put apart the lane-steps both precisions stop at the cap
+
+
+def ocp_passes(out):
+    """Passes of the structured solver's loop in a step: a lane that
+    converged (status 0) stopped after ``iters + 1`` passes, the last one
+    finding it converged; any other lane ran ``iters`` passes, to the cap.
+    Kernel 2 (and on the CSTR loop kernel 1) launches once a pass."""
+    it = out.ocp_iters + (out.status_dyn == 0).to(out.ocp_iters.dtype)
+    return int(it.max())
+
+
+def profile_ocp_steps(step, carries, inputs):
+    """Replay each step from its input carry with the OCP phase (from the
+    ``target`` mark to the ``ocp`` mark) under torch.profiler: per step the
+    solver's passes, its kernel launches per pass, its device busy share
+    and its wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpc_code_tpu_torch.loop.schedules import StepInput
+
+    rows = []
+    for k, c in enumerate(carries):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        clock = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            if name == "target":
+                prof.start()
+                clock["t0"] = time.perf_counter()
+            elif name == "ocp":
+                clock["wall"] = time.perf_counter() - clock["t0"]
+                prof.stop()
+
+        _, out = step(c, StepInput(*(a[k] for a in inputs)), mark=mark)
+        kern = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) for e in kern) / 1e6
+        if busy <= 0:
+            raise RuntimeError("torch.profiler recorded no device time")
+        n = ocp_passes(out)
+        rows.append(dict(step=k, passes=n,
+                         launches_per_pass=sum(e.count for e in kern) / max(n, 1),
+                         busy_share=busy / clock["wall"], ocp_ms=1e3 * clock["wall"]))
+    return rows
+
+
+def against_f64(h32, H64, u_box, cap=None):
+    """|dU|/box of an f32 history against the f64 one over three kinds of
+    lane-step (the OCP stopped on the same iteration; converged on another;
+    stopped at the cap short of the tolerance, status 1, on another) as
+    (max, count) each, the lanes differing in OCP infeasibility at each
+    step, and the largest |dU|/box of each step.  With ``cap`` (lmpc_loop)
+    the lane-steps on which both runs stopped at the cap unconverged, whose
+    label (1, feasible, or 2, not) rests on the feasibility error at the
+    cap, are put apart and returned as a fourth kind (max, count, their
+    infeasibility differences), and a lane-step differing in infeasibility
+    (counted against the limit) is not held to a U tolerance: its input is
+    the previous one on one side."""
+    du = (np.abs(h32["U"] - H64["U"]) / u_box).max(axis=2)          # (Nsim, lanes)
+    same = h32["OCP_ITERS"] == H64["OCP_ITERS"]
+    short = ~same & (h32["STATUS_DYN"] == 1)
+    diff = (h32["STATUS_DYN"] == 2) != (H64["STATUS_DYN"] == 2)
+    held = np.ones_like(same)
+    apart = None
+    if cap is not None:
+        capped = ((h32["OCP_ITERS"] == cap) & (H64["OCP_ITERS"] == cap)
+                  & (h32["STATUS_DYN"] != 0) & (H64["STATUS_DYN"] != 0))
+        apart = (float(du[capped].max()) if capped.any() else 0.0, int(capped.sum()),
+                 (diff & capped).sum(1).tolist())
+        diff = diff & ~capped
+        held = ~capped & ~diff
+    kinds = [(float(du[m].max()) if m.any() else 0.0, int(m.sum()))
+             for m in (same & held, ~same & ~short & held, short & held)]
+    return kinds, diff.sum(1), du.max(axis=1), apart
+
+
+def describe(kinds, st, apart=None):
+    (s, ns), (m, nm), (sh, nsh) = kinds
+    out = (f"max |dU|/box {s:.3e} over {ns} lane-steps on the same OCP iteration "
+           f"(tol {U_TOL:g}), {m:.3e} over {nm} converged on another (tol "
+           f"{U_TOL_MOVED:g}), {sh:.3e} over {nsh} stopped at the cap short of "
+           f"the tolerance (reported); OCP infeasibility differences per step "
+           f"{st.tolist()} (at most {LOOP_STATUS_DIFF_MAX})")
+    if apart is not None:
+        out += (f"; both runs stopped at the cap unconverged (reported): {apart[1]} "
+                f"lane-steps, max |dU|/box {apart[0]:.3e}, infeasibility "
+                f"differences per step {apart[2]}")
+    return out
+
+
+def loop_phase(dev, loop: Loop, launches, cpu_refs):
+    """A warm batched closed loop (``examples/closed_loop_workload.py``, the
+    CSTR NMPC; ``examples/lmpc_loop_workload.py``, the LMPC on the
+    nonlinear CSTR plant) at B lanes in f32 for LOOP_NSIM steps: per step
+    the wall time and each phase's, target and OCP iterations, infeasible
+    shares, the launches of the path's kernels (each once per pass of the
+    OCP solver, on every step) and the share of non-finite lanes; with
+    ``profile_ocp``, each step replayed with its OCP under the profiler for
+    its launches per pass; then the first N_CHECK lanes run on the card in
+    f64 against the CPU f64 run, with one f32 step from each of their
+    steps' states held against the f64 step."""
     import torch
 
-    from mpc_code_tpu_torch.examples import closed_loop_workload as cw
-    from mpc_code_tpu_torch.examples.bench_workload import U_BOX
     from mpc_code_tpu_torch.loop.batched import (
         cast_carry, history_from_outputs, init_carry, stack_outputs,
     )
     from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
-    from mpc_code_tpu_torch.ops import sweep_cuda
-    from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
     failures = []
-    cfg = cw.make_config()
-    step = cw.make_step(cfg, device=dev)
+    name, wl, U_BOX = loop.name, loop.wl, loop.u_box
+    cfg = wl.make_config()
+    cap = cfg.sol_opts_dyn.max_iter
+    step = wl.make_step(cfg, device=dev)
     t0 = time.perf_counter()
-    cw.run_loop(cfg, cw.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
-    log(f"# cstr_loop warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
+    wl.run_loop(cfg, wl.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
+    log(f"# {name} warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
 
-    per_step = []
+    per_step, carries = [], []
 
     def on_step(k, carry, out):
-        k1, k2 = sweep_cuda.LAUNCHES, rk.LAUNCHES
-        sweep_cuda.LAUNCHES = rk.LAUNCHES = 0
+        counts = {}
+        for kname, mod in loop.counters.items():
+            counts[kname] = mod.LAUNCHES
+            mod.LAUNCHES = 0
         bad = ~(torch.isfinite(carry.P).flatten(1).all(1)
                 & torch.isfinite(carry.xhat).all(1) & torch.isfinite(carry.x).all(1))
         ss_it = out.ss_iters.cpu().numpy()
         oc_it = out.ocp_iters.cpu().numpy()
         q = lambda a: [float(np.median(a)), float(np.percentile(a, 90)), int(a.max())]  # noqa: E731
         per_step.append(dict(
-            step=k, target_iters=q(ss_it), ocp_iters=q(oc_it),
+            step=k, target_iters=q(ss_it), ocp_iters=q(oc_it), ocp_passes=ocp_passes(out),
             target_infeasible=float((out.status_ss == 2).float().mean()),
             ocp_infeasible=float((out.status_dyn == 2).float().mean()),
-            rk4_stage_jac=k1, riccati_kkt=k2,
+            **counts,
             nonfinite=float(bad.float().mean()),
+            nonfinite_P=float((~torch.isfinite(carry.P).flatten(1).all(1)).float().mean()),
+            nonfinite_xhat=float((~torch.isfinite(carry.xhat).all(1)).float().mean()),
             nonfinite_check_lanes=int(bad[:N_CHECK].sum())))
+        if k + 1 < LOOP_NSIM and loop.profile_ocp:
+            carries.append(carry)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    x0s = cw.draw_x0(B, dev)
-    sweep_cuda.LAUNCHES = rk.LAUNCHES = 0
-    H32, times = cw.run_loop(cfg, x0s, Nsim=LOOP_NSIM, step=step, on_step=on_step)
-    launches["rk4_stage_jac_loop"] = sum(r["rk4_stage_jac"] for r in per_step)
-    launches["riccati_kkt_loop"] = sum(r["riccati_kkt"] for r in per_step)
+    x0s = wl.draw_x0(B, dev)
+    if loop.profile_ocp:
+        carries.append(init_carry(cfg, x0s, device=dev, dtype=x0s.dtype))
+    for mod in loop.counters.values():
+        mod.LAUNCHES = 0
+    H32, times = wl.run_loop(cfg, x0s, Nsim=LOOP_NSIM, step=step, on_step=on_step)
+    for kname in loop.counters:
+        launches[f"{kname}_{name}"] = sum(r[kname] for r in per_step)
     for r, tm in zip(per_step, times):
         r.update(wall_ms=1e3 * tm["wall_s"],
-                 **{f"{ph}_ms": 1e3 * tm[ph] for ph in cw.PHASES})
-        log("# cstr_loop step " + json.dumps(r))
+                 **{f"{ph}_ms": 1e3 * tm[ph] for ph in wl.PHASES})
+        log(f"# {name} step " + json.dumps(r))
     wall = sum(tm["wall_s"] for tm in times)
     warm = times[1:]
-    split = {ph: float(np.mean([tm[ph] for tm in warm])) * 1e3 for ph in cw.PHASES}
+    split = {ph: float(np.mean([tm[ph] for tm in warm])) * 1e3 for ph in wl.PHASES}
     it = H32["OCP_ITERS"]
     report = dict(
-        batch=B, N=cw.N, Mx=cw.MX, steps=LOOP_NSIM, wall_s=wall,
+        batch=B, N=wl.N, Mx=getattr(wl, "MX", None), steps=LOOP_NSIM, wall_s=wall,
         lane_steps_per_s=B * LOOP_NSIM / wall,
         step0_ms=1e3 * times[0]["wall_s"],
         warm_step_ms=float(np.mean([tm["wall_s"] for tm in warm])) * 1e3,
@@ -1170,20 +1324,32 @@ def loop_phase(dev, launches, cpu_refs):
         target_iters_median=float(np.median(H32["SS_ITERS"])),
         ocp_ok_share=float((H32["STATUS_DYN"] != 2).mean()),
         target_ok_share=float((H32["STATUS_SS"] != 2).mean()),
-        launches={"rk4_stage_jac": launches["rk4_stage_jac_loop"],
-                  "riccati_kkt": launches["riccati_kkt_loop"]},
+        ocp_status_counts=[np.bincount(r, minlength=3).tolist() for r in H32["STATUS_DYN"]],
+        launches={k: launches[f"{k}_{name}"] for k in loop.counters},
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
-    log("# cstr_loop " + json.dumps(report))
-    if any(min(r["rk4_stage_jac"], r["riccati_kkt"]) <= 0 for r in per_step):
-        failures.append("cstr_loop: kernel 1 or 2 not launched on some step")
+    log(f"# {name} " + json.dumps(report))
+    if any(r[k] != r["ocp_passes"] for r in per_step for k in loop.counters):
+        failures.append(f"{name}: a kernel's launches differ from the OCP passes on "
+                        "some step")
     if any(r["nonfinite_check_lanes"] for r in per_step):
-        failures.append("cstr_loop: a non-finite lane among the check lanes")
+        failures.append(f"{name}: a non-finite lane among the check lanes")
+
+    if loop.profile_ocp:
+        # each step again from its input carry, the OCP under the profiler
+        t0 = time.perf_counter()
+        rows = profile_ocp_steps(step, carries, make_step_inputs(cfg, LOOP_NSIM))
+        for r in rows:
+            log(f"# {name} profile, OCP " + json.dumps(r))
+        report["ocp_launches_per_pass"] = [r["launches_per_pass"] for r in rows]
+        report["ocp_busy_share"] = [r["busy_share"] for r in rows]
+        log(f"# {name} profiled replay: {time.perf_counter() - t0:.1f} s")
+        del carries
 
     # the first N_CHECK lanes: the card's f64 run against the CPU f64 run
     # (worker process); from each of its steps' states one f32 step on the
     # card; the main run's free-running f32 lanes, reported
     t0 = time.perf_counter()
-    c64 = init_carry(cfg, cw.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
+    c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
     inputs = make_step_inputs(cfg, LOOP_NSIM)
     outs64, outs32 = [], []
     for k in range(LOOP_NSIM):
@@ -1193,11 +1359,11 @@ def loop_phase(dev, launches, cpu_refs):
         outs64.append(out)
     H64 = history_from_outputs(stack_outputs(outs64))
     R32 = history_from_outputs(stack_outputs(outs32))
-    ref = cpu_refs[("cstr_loop", "float64")].result()[0]
+    ref = cpu_refs[(name, "float64")].result()[0]
     f64_st = all((H64[k] == ref[k]).all() for k in ("STATUS_SS", "STATUS_DYN", "OCP_ITERS"))
     f64_err = max(nerr(torch.as_tensor(H64[k]), torch.as_tensor(ref[k])) for k in ("U", "Xp"))
     it64 = H64["OCP_ITERS"]
-    log(f"# cstr_loop cross-check, gpu f64 ({N_CHECK} lanes x {LOOP_NSIM} steps): "
+    log(f"# {name} cross-check, gpu f64 ({N_CHECK} lanes x {LOOP_NSIM} steps): "
         f"statuses and OCP iterations equal {f64_st}, max norm err U/Xp {f64_err:.3e} "
         f"(tol {LOOP_F64_TOL:g}); f64 OCP iterations median / mean cold "
         f"{np.median(it64[0]):g} / {it64[0].mean():.2f}, warm {np.median(it64[1:]):g} / "
@@ -1205,53 +1371,74 @@ def loop_phase(dev, launches, cpu_refs):
     report.update(f64_ocp_iters_cold_mean=float(it64[0].mean()),
                   f64_ocp_iters_warm_mean=float(it64[1:].mean()))
     if not (f64_st and f64_err <= LOOP_F64_TOL):
-        failures.append(f"cstr_loop: gpu f64 against cpu f64: statuses equal {f64_st}, "
+        failures.append(f"{name}: gpu f64 against cpu f64: statuses equal {f64_st}, "
                         f"err {f64_err:.3e}")
 
-    def against_f64(h32):
-        """|dU|/box of an f32 history against the f64 one over three kinds
-        of lane-step (the OCP stopped on the same iteration; converged on
-        another; stopped at the cap short of the tolerance, status 1, on
-        another) as (max, count) each, the lanes differing in OCP
-        infeasibility at each step, and the largest |dU|/box of each step."""
-        du = (np.abs(h32["U"] - H64["U"]) / U_BOX).max(axis=2)          # (Nsim, 64)
-        same = h32["OCP_ITERS"] == H64["OCP_ITERS"]
-        short = ~same & (h32["STATUS_DYN"] == 1)
-        kinds = [(float(du[m].max()) if m.any() else 0.0, int(m.sum()))
-                 for m in (same, ~same & ~short, short)]
-        st = ((h32["STATUS_DYN"] == 2) != (H64["STATUS_DYN"] == 2)).sum(1)
-        return kinds, st, du.max(axis=1)
-
-    def describe(kinds, st):
-        (s, ns), (m, nm), (sh, nsh) = kinds
-        return (f"max |dU|/box {s:.3e} over {ns} lane-steps on the same OCP iteration "
-                f"(tol {U_TOL:g}), {m:.3e} over {nm} converged on another (tol "
-                f"{U_TOL_MOVED:g}), {sh:.3e} over {nsh} stopped at the cap short of "
-                f"the tolerance (reported); OCP infeasibility differences per step "
-                f"{st.tolist()} (at most {LOOP_STATUS_DIFF_MAX})")
-
-    kinds, st_diff, _ = against_f64(R32)
-    log("# cstr_loop cross-check, gpu f32 step by step from the f64 states: "
-        + describe(kinds, st_diff))
+    kcap = cap if loop.cap_apart else None
+    kinds, st_diff, _, apart = against_f64(R32, H64, U_BOX, kcap)
+    log(f"# {name} cross-check, gpu f32 step by step from the f64 states: "
+        + describe(kinds, st_diff, apart))
     (du_s, _), (du_m, _), (du_short, n_short) = kinds
     if not (du_s <= U_TOL and du_m <= U_TOL_MOVED and st_diff.max() <= LOOP_STATUS_DIFF_MAX):
-        failures.append(f"cstr_loop: f32 steps against f64: dU/box {du_s:.3e} / {du_m:.3e}, "
+        failures.append(f"{name}: f32 steps against f64: dU/box {du_s:.3e} / {du_m:.3e}, "
                         f"infeasibility differences {st_diff.tolist()}")
     free = {k: v[:, :N_CHECK] for k, v in H32.items()}
-    fr_kinds, fr_st, fr_step = against_f64(free)
-    log(f"# cstr_loop free-running f32 lanes against the f64 run (reported, not held): "
-        f"max |dU|/box per step {np.round(fr_step, 4).tolist()}; " + describe(fr_kinds, fr_st))
+    fr_kinds, fr_st, fr_step, fr_apart = against_f64(free, H64, U_BOX, kcap)
+    log(f"# {name} free-running f32 lanes against the f64 run (reported, not held): "
+        f"max |dU|/box per step {np.round(fr_step, 4).tolist()}; "
+        + describe(fr_kinds, fr_st, fr_apart))
     report.update(xcheck_gpu_f64_err=f64_err, xcheck_f32_step_du_same=du_s,
                   xcheck_f32_step_du_moved=du_m, xcheck_f32_step_du_short=du_short,
                   xcheck_f32_step_short=n_short,
                   xcheck_f32_step_status_diff_max=int(st_diff.max()),
                   free_f32_du_max=float(fr_step.max()),
                   free_f32_status_diff_max=int(fr_st.max()))
-    log(f"# cstr_loop cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
+    if apart is not None:
+        report.update(xcheck_f32_step_capped=apart[1], xcheck_f32_step_capped_du=apart[0])
+    log(f"# {name} cpu f64 cross-check: {time.perf_counter() - t0:.1f} s")
     return failures, report
 
 
+def clb_phase(dev, launches):
+    """The port of ``tools/closed_loop_bench.py``
+    (``examples/closed_loop_bench.py``) at its defaults: B=1024, 20 steps,
+    cap 10, f32 on the card; its two lines, with the Riccati kernel's
+    launches counted over its four runs (warm-up and three timed)."""
+    from mpc_code_tpu_torch.examples import closed_loop_bench as cb
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    rk.LAUNCHES = 0
+    lines, r = cb.run(CLB_BATCH, CLB_STEPS, 10, device=dev)
+    launches["riccati_kkt_clb"] = rk.LAUNCHES
+    for line in lines:
+        log(line)
+    st = r["status"]
+    report = dict(batch=CLB_BATCH, steps=CLB_STEPS, run_s=r["run_s"], reps_s=r["reps_s"],
+                  compile_s=r["compile_s"], lane_steps_per_s=r["lane_steps_per_s"],
+                  ocp_status_counts=np.bincount(st.ravel(), minlength=3).tolist(),
+                  ocp_iters_median_by_step=np.median(r["iters"], 1).tolist(),
+                  riccati_kkt=rk.LAUNCHES)
+    log("# clb " + json.dumps(report))
+    failures = []
+    if rk.LAUNCHES <= 0:
+        failures.append("clb: the Riccati kernel was not launched")
+    if not np.isfinite(r["run_s"]):
+        failures.append("clb: no run time")
+    return failures, report
+
+
+PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
+          "stage_sweep kernel", "slice", "enmpc", "nmpc_dis", "cstr_exact",
+          "cstr_loop", "lmpc_loop", "clb")
+
+
 def main() -> int:
+    # with no arguments every phase runs; arguments name the phases to run
+    # (for trying one on the card), as PHASES spells them
+    selected = sys.argv[1:] or list(PHASES)
+    if not set(selected) <= set(PHASES):
+        print(f"chip_smoke: unknown phase in {selected}; phases: {PHASES}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1274,21 +1461,31 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from mpc_code_tpu_torch.device import pin_fp32_precision
+    from mpc_code_tpu_torch.examples import closed_loop_bench as cb
+    from mpc_code_tpu_torch.examples import closed_loop_workload as cw
     from mpc_code_tpu_torch.examples import enmpc_workload as ew
+    from mpc_code_tpu_torch.examples import lmpc_loop_workload as lw
     from mpc_code_tpu_torch.examples import nmpc_dis_workload as dw
-    from mpc_code_tpu_torch.examples.bench_workload import make_problem
-    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_map_cuda
+    from mpc_code_tpu_torch.examples.bench_workload import U_BOX, make_problem
+    from mpc_code_tpu_torch.models import build_model, build_stage_cost, build_terminal_cost
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
     from mpc_code_tpu_torch.solver import sweep_kernel as sk
+    from mpc_code_tpu_torch.solver.riccati import build_structured_ocp
+
+    def linear_ocp(cfg):
+        return build_structured_ocp(cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
+                                    build_terminal_cost(cfg), device=dev)
 
     pin_fp32_precision()       # as bench.py:40-42 pins the matmul precision
     dev = torch.device("cuda")
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
             "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
-            "riccati_kkt_cstr_exact")
+            "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb")
     results = {k: {} for k in keys}
-    launches = dict.fromkeys(keys + ("rk4_stage_jac_loop", "riccati_kkt_loop"), 0)
+    launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
+                                     "riccati_kkt_lmpc_loop"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -1296,9 +1493,10 @@ def main() -> int:
         dprob = dw.make_problem(dev)
         xprob = make_problem(dev, hessian="exact")
         ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
+        lsocp, csocp = linear_ocp(lw.make_config()), linear_ocp(cb.make_config())
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(8) as ex:
+        with cf.ThreadPoolExecutor(9) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -1310,6 +1508,7 @@ def main() -> int:
                                            dc.npx),
                 "riccati_kkt_nmpc_dis": ex.submit(rk.build_kernel, dprob.socp.nxa,
                                                   dprob.socp.nu),
+                "riccati_kkt_lmpc": ex.submit(rk.build_kernel, lsocp.nxa, lsocp.nu),
                 **{key: ex.submit(sk.make_stage_sweep(xsocp, hessian).build,
                                   xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)
                    for key, hessian in (("stage_sweep", "exact"),
@@ -1328,29 +1527,39 @@ def main() -> int:
 
     # the CPU side of every cross-check, in worker processes beside the
     # card's phases
-    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 1, mp_context=mp.get_context("spawn"))
-    # the closed loop's CPU run is the longest: it starts first, on a third
-    # worker, and the others keep their order
-    cpu_refs = {("cstr_loop", "float64"): pool.submit(cpu_reference, "cstr_loop", "float64")}
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 2, mp_context=mp.get_context("spawn"))
+    # the closed loops' CPU runs are the longest: they start first, on a
+    # third and a fourth worker, and the others keep their order
+    cpu_refs = {(p, "float64"): pool.submit(cpu_reference, p, "float64")
+                for p in ("cstr_loop", "lmpc_loop") if p in selected}
     cpu_refs.update({(p, dt): pool.submit(cpu_reference, p, dt)
-                     for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact")
+                     for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact") if p in selected
                      for dt in ("float64", "float32")})
     enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
                  "riccati_kkt_enmpc", ENMPC_U_TOL)
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
                     "riccati_kkt_nmpc_dis", NMPC_DIS_U_TOL)
+    cstr_loop = Loop("cstr_loop", cw, U_BOX, {"rk4_stage_jac": sweep_cuda, "riccati_kkt": rk},
+                     profile_ocp=False, cap_apart=False)
+    lmpc_loop = Loop("lmpc_loop", lw, lw.U_BOX, {"riccati_kkt": rk},
+                     profile_ocp=True, cap_apart=True)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
+              ("lmpc kernel", lambda: lmpc_kernel_phase(dev, lsocp, csocp, results)),
               ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprob, results)),
               ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
               ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches, cpu_refs)),
               ("cstr_exact", lambda: slice_phase(dev, xprob, launches, cpu_refs,
                                                  exact=True)),
-              ("cstr_loop", lambda: loop_phase(dev, launches, cpu_refs)))
+              ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs)),
+              ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
+              ("clb", lambda: clb_phase(dev, launches)))
     try:
         for name, phase in phases:
+            if name not in selected:
+                continue
             t0 = time.perf_counter()
             try:
                 out = phase()
@@ -1400,15 +1609,23 @@ def main() -> int:
                                      "enmpc": launches["riccati_kkt_enmpc"],
                                      "nmpc_dis": launches["riccati_kkt_nmpc_dis"],
                                      "cstr_exact": launches["riccati_kkt_cstr_exact"],
-                                     "cstr_loop": launches["riccati_kkt_loop"]}
+                                     "cstr_loop": launches["riccati_kkt_cstr_loop"],
+                                     "lmpc_loop": launches["riccati_kkt_lmpc_loop"],
+                                     "clb": launches["riccati_kkt_clb"]}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
                                             launches["riccati_kkt_nmpc_dis"])
+            # the linear-model paths: the LMPC loop at (50, 5, 2) and the
+            # bench port at (20, 3, 2) on CLB_BATCH lanes
+            k["at_lmpc_loop_shapes"] = entry(name, results["riccati_kkt_lmpc"],
+                                             launches["riccati_kkt_lmpc_loop"])
+            k["at_clb_shapes"] = entry(name, results["riccati_kkt_clb"],
+                                       launches["riccati_kkt_clb"])
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
-                                     "cstr_loop": launches["rk4_stage_jac_loop"]}
+                                     "cstr_loop": launches["rk4_stage_jac_cstr_loop"]}
         if name == "stage_sweep":
             # the Gauss-Newton build, checked against its plain version; no
             # path of the smoke launches it

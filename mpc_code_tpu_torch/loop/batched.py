@@ -23,7 +23,9 @@ lane once it is done, so one diverged lane never stalls the batch.
 Estimators: kalss and lue (static gain), kal (linear models only) and ekf.
 The MHE (ROADMAP Queue 1 item 17) and modifier adaptation (item 23) raise
 ``NotImplementedError``.  There is no ``lax.scan``: :func:`run_traced` is
-a host loop over the steps on device tensors.  JAX's ``batch_hint`` picks
+a host loop over the steps on device tensors, and
+:func:`run_traced_checkpointed` the same loop in segments with an NPZ
+checkpoint after each.  JAX's ``batch_hint`` picks
 a TPU sweep layout and has no counterpart here.
 """
 
@@ -490,11 +492,105 @@ def run_traced(cfg: MPCConfig, carry0: Optional[MPCCarry] = None,
         carry0 = init_carry(cfg, device=dev,
                             dual_ws=None if use_structured is not False else False)
     step = make_mpc_step(cfg, use_structured=use_structured, device=dev)
-    carry, outs = carry0, []
-    for k in range(Nsim):
+    return _run_steps(step, carry0, inputs)
+
+
+def _run_steps(step, carry, inputs):
+    """Step ``carry`` through every row of ``inputs``; returns the final
+    carry and the history."""
+    outs = []
+    for k in range(len(inputs.ysp)):
         carry, out = step(carry, StepInput(*(a[k] for a in inputs)))
         outs.append(out)
     return carry, history_from_outputs(stack_outputs(outs))
+
+
+def _carry_arrays(carry: MPCCarry) -> Dict[str, np.ndarray]:
+    """The carry as named numpy arrays, field by field (the ``duals``
+    dict entry by entry as ``duals.<key>``); None fields are left out."""
+    out = {}
+    for name, v in zip(MPCCarry._fields, carry):
+        items = v.items() if isinstance(v, dict) else [(None, v)]
+        for key, a in items:
+            if a is not None:
+                out[name if key is None else f"{name}.{key}"] = a.detach().cpu().numpy()
+    return out
+
+
+def _carry_from_arrays(template: MPCCarry, arrays, device) -> MPCCarry:
+    """The inverse of ``_carry_arrays`` on ``device``, shaped by
+    ``template`` (its None fields stay None)."""
+    def get(name):
+        return torch.as_tensor(np.asarray(arrays[name]), device=device)
+
+    fields = {}
+    for name, v in zip(MPCCarry._fields, template):
+        if isinstance(v, dict):
+            fields[name] = {key: get(f"{name}.{key}") for key in v}
+        else:
+            fields[name] = None if v is None else get(name)
+    return MPCCarry(**fields)
+
+
+def run_traced_checkpointed(cfg: MPCConfig, path: str, segment: int = 100,
+                            carry0: Optional[MPCCarry] = None,
+                            Nsim: Optional[int] = None, t0: float = 0.0,
+                            use_structured: Optional[bool] = None,
+                            resume: bool = True, device=None):
+    """``run_traced`` in segments of ``segment`` steps with an NPZ
+    checkpoint written after each (JAX ``batched.py:532-602``).
+
+    ``path`` is rewritten atomically after every segment with the carry
+    (field by field), the history so far and the resume index; if the file
+    exists (and ``resume``), the run continues from it, so a killed sweep
+    loses at most one segment.  ``carry0`` (default ``init_carry(cfg)``, one
+    lane) also gives the structure a checkpoint is read back into.
+    """
+    import os
+    import tempfile
+
+    dev = resolve_device(device)
+    Nsim = cfg.Nsim if Nsim is None else Nsim
+    if carry0 is None:
+        carry0 = init_carry(cfg, device=dev,
+                            dual_ws=None if use_structured is not False else False)
+    k_done, carry = 0, carry0
+    hist_acc: Dict[str, list] = {}
+    if resume and os.path.exists(path):
+        with np.load(path, allow_pickle=False) as z:
+            k_done = int(z["__k_done__"])
+            t0 = float(z["__t_next__"])
+            carry = _carry_from_arrays(
+                carry0, {k[len("__carry_"):-2]: z[k] for k in z.files
+                         if k.startswith("__carry_")}, dev)
+            for key in z.files:
+                if not key.startswith("__"):
+                    hist_acc[key] = [z[key]]
+
+    step = make_mpc_step(cfg, use_structured=use_structured, device=dev)
+
+    def save():
+        payload = {f"__carry_{k}__": v for k, v in _carry_arrays(carry).items()}
+        payload["__k_done__"] = np.asarray(k_done)
+        payload["__t_next__"] = np.asarray(t0)
+        for key, parts in hist_acc.items():
+            payload[key] = np.concatenate(parts, axis=0)
+        # the suffix must be ".npz": np.savez appends it to any other name
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                                   suffix=".npz")
+        os.close(fd)
+        np.savez(tmp, **payload)
+        os.replace(tmp, path)
+
+    while k_done < Nsim:
+        n = min(segment, Nsim - k_done)
+        carry, H_seg = _run_steps(step, carry, make_step_inputs(cfg, n, t0=t0, k0=k_done))
+        for key, v in H_seg.items():
+            hist_acc.setdefault(key, []).append(v)
+        k_done += n
+        t0 += n * cfg.h
+        save()
+    return carry, {k: np.concatenate(v, axis=0) for k, v in hist_acc.items()}
 
 
 def history_from_outputs(outs: MPCStepOut) -> Dict[str, np.ndarray]:

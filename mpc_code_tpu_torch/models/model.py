@@ -10,16 +10,17 @@ Utilities.py:21-100):
 - ``Fy_p(x, u, pyp, t, pymp) -> y``
 
 The callables act on one point; a batch goes through ``torch.func.vmap``.
-They also take lanes-minor (dim, L) arguments, and ``torch.fx`` traces the
-output map for the CUDA sweeps.  This slice covers the NL-continuous model
-form (RK4 with Mx sub-steps and the optional saturation guard) and the
-NL-discrete form (a user one-step map), with a user output map or
-StateFeedback, and ``offree`` in {'no', 'nl', 'lin'}; the linear model
-form and C-matrix model outputs raise ``NotImplementedError`` naming their
-ROADMAP item.  ``build_plant`` covers every plant form: the nominal alias
-of the model, ``LinearPlant``, ``ContinuousPlant`` (RK4 with its optional
-saturation guard) and ``DiscretePlant``, with LinPar and outputs from
-StateFeedback, ``Cp`` or the user's ``fy``.
+The continuous and discrete forms also take lanes-minor (dim, L) arguments,
+and ``torch.fx`` traces their output maps for the CUDA sweeps.  Every model
+form is covered: the linear form (``A x + B u``, or affine around ``xlin``
+and ``ulin``), the NL-continuous form (RK4 with Mx sub-steps and the
+optional saturation guard) and the NL-discrete form (a user one-step map);
+outputs from StateFeedback, the C matrix (affine around ``xlin`` and
+``ylin`` for the linear form) or the user's ``fy``; and ``offree`` in
+{'no', 'nl', 'lin'}.  ``build_plant`` covers every plant form: the nominal
+alias of the model, ``LinearPlant``, ``ContinuousPlant`` (RK4 with its
+optional saturation guard) and ``DiscretePlant``, with LinPar and outputs
+from StateFeedback, ``Cp`` or the user's ``fy``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from mpc_code_tpu_torch.config import (
     ContinuousModel, ContinuousPlant, DiscreteModel, DiscretePlant,
-    LinearPlant, MPCConfig,
+    LinearModel, LinearPlant, MPCConfig,
 )
 from mpc_code_tpu_torch.ops.integrators import rk4, saturate
 
@@ -52,54 +53,90 @@ def _mat(M):
 
 
 def build_model(cfg: MPCConfig) -> ModelFns:
-    """Build (Fx_model, Fy_model) for a ``ContinuousModel`` or
-    ``DiscreteModel`` config."""
+    """Build (Fx_model, Fy_model) from the config (Utilities.defF_model,
+    Utilities.py:102-245; dispatch MPC_code.py:94-167)."""
     m = cfg.model
-    if not isinstance(m, (ContinuousModel, DiscreteModel)):
-        raise NotImplementedError(
-            f"model form {type(m).__name__} is not ported yet (ROADMAP "
-            "Queue 1 item 24)")
-    if not cfg.StateFeedback and m.fy is None:
-        raise NotImplementedError(
-            "C-matrix outputs are not ported yet (ROADMAP Queue 1 item 24)")
     lin = cfg.dist.offree == "lin"
     # the matrices stay f64 CPU tensors; ``.to(x)`` casts them at call time
     # (and is what torch.fx records, so the CUDA code generator sees a
     # constant matrix)
     Bd, Cd = _mat(cfg.dist.Bd), _mat(cfg.dist.Cd)
     lin_par, state_fb = cfg.LinPar, cfg.StateFeedback
-    user_fy = m.fy
-    if isinstance(m, DiscreteModel):
-        user_map = m.Fx
+    if isinstance(m, LinearModel):
+        A, Bm = _mat(m.A), _mat(m.B)
+        xlin, ulin = _mat(m.xlin), _mat(m.ulin)
 
-        def step(x, u, k, d, t, px):
-            return user_map(x, u, d, t, px)                # Utilities.py:186-190
+        def fx(x, u, k, d, t, px):
+            if xlin is not None:
+                xl = xlin.to(x)
+                out = A.to(x) @ (x - xl) + Bm.to(x) @ (u - ulin.to(x)) + xl  # Utilities.py:142
+            else:
+                out = A.to(x) @ x + Bm.to(x) @ u           # Utilities.py:147
+            if lin:
+                out = out + Bd.to(out) @ d                 # Utilities.py:150
+            return out + px                                # Utilities.py:153 (always)
+
+    elif isinstance(m, (ContinuousModel, DiscreteModel)):
+        if isinstance(m, DiscreteModel):
+            user_map = m.Fx
+
+            def step(x, u, k, d, t, px):
+                return user_map(x, u, d, t, px)            # Utilities.py:186-190
+        else:
+            user_fx, lo, hi = m.fx, m.clip_lo, m.clip_hi
+
+            def fx_eval(xx, tt, uu, dd, pp):
+                # ODE-input saturation (the reference's own stability guard
+                # pattern, Ex_NMPC_dis.py:75-77)
+                return user_fx(saturate(xx, lo, hi), uu, dd, tt, pp)
+
+            integ = rk4(fx_eval, m.Mx)
+
+            def step(x, u, k, d, t, px):
+                return integ(x, t, k, u, d, px)            # Utilities.py:157-172
+
+        def fx(x, u, k, d, t, px):
+            out = step(x, u, k, d, t, px)
+            if lin:
+                out = out + Bd.to(out) @ d                 # Utilities.py:174-177
+            if lin_par:
+                out = out + px                             # Utilities.py:180-183
+            return out
+
     else:
-        user_fx, lo, hi = m.fx, m.clip_lo, m.clip_hi
+        raise TypeError(f"unsupported model spec {type(m)}")
 
-        def fx_eval(xx, tt, uu, dd, pp):
-            # ODE-input saturation (the reference's own stability guard
-            # pattern, Ex_NMPC_dis.py:75-77)
-            return user_fx(saturate(xx, lo, hi), uu, dd, tt, pp)
+    if state_fb:
+        def y_base(x, u, d, t, py):
+            return x                                       # Utilities.py:201-205
 
-        integ = rk4(fx_eval, m.Mx)
+    elif isinstance(m, LinearModel) and m.C is not None:
+        C = _mat(m.C)
+        xlin, ylin = _mat(m.xlin), _mat(m.ylin)
 
-        def step(x, u, k, d, t, px):
-            return integ(x, t, k, u, d, px)                # Utilities.py:157-172
+        def y_base(x, u, d, t, py):
+            if ylin is not None and xlin is not None:
+                return C.to(x) @ (x - xlin.to(x)) + ylin.to(x)  # Utilities.py:216
+            if ylin is not None:
+                return C.to(x) @ x + ylin.to(x)            # Utilities.py:222
+            return C.to(x) @ x                             # Utilities.py:227
 
-    def fx(x, u, k, d, t, px):
-        out = step(x, u, k, d, t, px)
-        if lin:
-            out = out + Bd.to(out) @ d                     # Utilities.py:174-177
-        if lin_par:
-            out = out + px                                 # Utilities.py:180-183
-        return out
+    elif not isinstance(m, LinearModel) and m.fy is None and m.C is not None:
+        C = _mat(m.C)
+
+        def y_base(x, u, d, t, py):
+            return C.to(x) @ x
+
+    else:
+        user_fy = None if isinstance(m, LinearModel) else m.fy
+        if user_fy is None:
+            raise ValueError("model output map missing: provide C, fy, or StateFeedback")
+
+        def y_base(x, u, d, t, py):
+            return user_fy(x, u, d, t, py)                 # Utilities.py:232-238
 
     def fy(x, u, d, t, py):
-        if state_fb:
-            out = x                                        # Utilities.py:201-205
-        else:
-            out = user_fy(x, u, d, t, py)                  # Utilities.py:232-238
+        out = y_base(x, u, d, t, py)
         if lin:
             out = out + Cd.to(x) @ d
         if lin_par:

@@ -1,17 +1,19 @@
 """Structure-exploiting interior-point solver for shooting OCPs (parts 1-4).
 
-Port of ``mpc_code_tpu/solver/riccati.py`` for three configurations: plain
+Port of ``mpc_code_tpu/solver/riccati.py`` for four configurations: plain
 continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
-(the quadruple tank, Ex_NMPC_dis) and the ContForm economic transcription
-(Ex_ENMPC), each with or without output bounds, the shooting forms also
+(the quadruple tank, Ex_NMPC_dis), linear-model shooting (the LMPC
+examples) and the ContForm economic transcription (Ex_ENMPC), each with
+or without output bounds, the shooting forms also
 with the u_prev state augmentation that Delta-u bounds and Delta-u costs
 (``DUForm``, ``DUFormEcon``) need, with the Gauss-Newton Hessian, the
 monotone barrier, the rollout-free adaptive step controller
 (``ls_mode='adaptive'``), best-iterate bookkeeping and the closed loop's
 cross-solve dual/barrier warm start (``solve(..., ws=)``: the previous
 step's multipliers and barrier, shifted one stage and rescaled to the new
-objective scaling).  Plain continuous shooting also takes the exact
-Lagrangian Hessian (the default of ``SolverOptions``).  Every other
+objective scaling).  Plain continuous shooting and linear-model shooting
+also take the exact Lagrangian Hessian (the default of
+``SolverOptions``).  Every other
 configuration raises ``NotImplementedError`` naming its ROADMAP item.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
@@ -32,8 +34,10 @@ dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
 gradient and Hessian), or, under the exact Hessian, the fused generic
 stage-derivative sweep (``solver/sweep_kernel.py``: every output of
 ``make_stage_derivs`` in one pass), and the Riccati KKT solve
-(``solver/riccati_kernel.py``).  The rest is IPM algebra on whole
-tensors.
+(``solver/riccati_kernel.py``).  A linear model has no derivative
+kernel, in JAX as here: its stage derivatives come from
+``make_stage_derivs`` by ``torch.func``, and the Riccati KKT solve is
+its one kernel.  The rest is IPM algebra on whole tensors.
 
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
 freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
@@ -52,7 +56,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
 from mpc_code_tpu_torch.config import (
-    ContinuousModel, DiscreteModel, MPCConfig, SolverOptions,
+    DiscreteModel, LinearModel, MPCConfig, SolverOptions,
 )
 from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.models.model import ModelFns
@@ -92,7 +96,10 @@ class StructuredOCP:
     ``(xa, u, pk) -> xa_next``, which the exact Lagrangian Hessian
     traverses, and ``lowering`` what the fused stage sweep's code
     generator needs; both are None where the exact Hessian is not ported
-    (the discrete map, ContForm, the u_prev augmentation).
+    (the discrete map, ContForm, the u_prev augmentation of a continuous
+    model).  A ``LinearModel`` has ``dyn`` (with the u_prev rows) and
+    neither a sweep nor a lowering: the solver differentiates ``dyn`` by
+    ``torch.func``, as JAX does.
     """
 
     N: int
@@ -225,9 +232,6 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     # discrete cost forms, as in the reference (JAX riccati.py:244-249, 287-290)
     if cfg.Collocation and not cont_form:
         raise _todo("Collocation", "Queue 1 item 20")
-    if not isinstance(cfg.model, (ContinuousModel, DiscreteModel)):
-        raise _todo(f"the structured OCP for {type(cfg.model).__name__}",
-                    "Queue 1 item 24")
     ymin = b.resolved("dyn", "ymin")
     ymax = b.resolved("dyn", "ymax")
     y_free = ymin is None and ymax is None
@@ -375,10 +379,24 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
                              stage_cf=stage_cf)
 
+    m = cfg.model
+    if isinstance(m, LinearModel):
+        # no dynamics sweep: JAX takes its fast sweep only for the
+        # continuous and discrete forms (JAX riccati.py:604-606), and the
+        # solver differentiates this generic map (JAX dyn, :376-389, scaled
+        # as dyn_s, :411-414) by torch.func
+        def dyn_lin(xa, u, pk):
+            uu = _t(su, u) * u
+            xn = model.fx((_t(sxa, xa) * xa)[:nx], uu, h, pk["d"], pk["t"], pk["px"])
+            if du_coupled:
+                xn = torch.cat([xn, uu])
+            return xn / _t(sxa, xa)
+
+        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_lin)
+
     # the dynamics sweep: value and Jacobians of the model's step for all
     # stages in one pass; the augmented u_prev rows have a constant
     # Jacobian structure assembled here (JAX riccati.py:600-679)
-    m = cfg.model
     Bd = (np.asarray(cfg.dist.Bd, float)
           if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
     lin_par = cfg.LinPar
@@ -583,17 +601,26 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
     N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
     nz = nxa + nu
+    # The route is chosen here, once, from the OCP's structure.
     # Gauss-Newton: the split sweep, dynamics from their kernel and the
     # cost and rows by torch.func; ContForm's joint sweep also gives the
     # stage cost's value, gradient and Hessian (JAX fast_cf, riccati.py:
-    # 1150-1154).  Otherwise every output comes from the fused stage sweep,
-    # with the iterate's multipliers (JAX riccati.py:1394-1400); the card
-    # has no other path for it, so it always launches its kernel there.
+    # 1150-1154).  An OCP with neither a sweep kernel nor a lowering (a
+    # LinearModel) takes every output from make_stage_derivs vmapped over
+    # the B*N points, under either Hessian, as JAX does outside any Pallas
+    # kernel (JAX riccati.py:1150-1155, 1396-1398).  Otherwise every output
+    # comes from the fused stage sweep, with the iterate's multipliers (JAX
+    # riccati.py:1394-1400); the card has no other path for it, so it
+    # always launches its kernel there.
     fast_cf = s.stage_cf is not None and not exact
     split = (s.stage_dyn_jac is not None and not exact) or fast_cf
+    generic = (s.stage_dyn_jac is None and s.stage_cf is None
+               and s.lowering is None and s.dyn is not None)
     fused = None
-    v_stage = None
-    if not split:
+    v_stage = v_full = None
+    if generic:
+        v_full = vmap(make_stage_derivs(s, opts.hessian))
+    elif not split:
         from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
 
         fused = make_stage_sweep(s, opts.hessian)
@@ -756,6 +783,13 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             if fused is not None:
                 return fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"])) + (None,)
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
+            if v_full is not None:
+                out = v_full(Zs, pk, st["lam"].reshape(L, nxa), st["nus"].reshape(L, ni))
+                # A and B are column blocks of one Jacobian: copied out, as
+                # the Riccati kernel reads contiguous (B, N, ...) tensors (F11)
+                shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,))
+                return tuple(o.reshape((Bsz, N) + sh).contiguous()
+                             for o, sh in zip(out, shapes)) + (None,)
             derivs = v_stage(Zs, pk) if v_stage is not None else ()
             qv = None
             if fast_cf:

@@ -12,7 +12,10 @@
   tensors on each path (CSTR Gauss-Newton and exact, ENMPC, nmpc_dis) when
   the sweeps return what their kernels' wrappers return on the card: views
   of lane-innermost planes for kernel 4, contiguous (B, N, ...) tensors
-  for kernels 1, 3 and 5.  One iteration of each, tiny sizes.
+  for kernels 1, 3 and 5; and on the linear-model route, whose stage
+  derivatives come from ``torch.func`` (``lmpc_nlplant``, ``lmpc_cstr``,
+  under both Hessians; ROADMAP Queue 3, F11).  One iteration of each, tiny
+  sizes.
 """
 
 import functools
@@ -26,7 +29,9 @@ import jax.numpy as jnp
 
 torch.set_num_threads(1)
 
-PATH_SHAPES = [(50, 3, 2), (25, 2, 1), (50, 8, 2)]
+# CSTR, ENMPC, nmpc_dis; the LMPC loop (lmpc_nlplant), lmpc_wb and
+# lmpcxp_nlplant; the bench port (closed_loop_bench)
+PATH_SHAPES = [(50, 3, 2), (25, 2, 1), (50, 8, 2), (50, 5, 2), (50, 6, 2), (20, 3, 2)]
 SMEM_LIMIT = 227 * 1024
 
 
@@ -189,12 +194,34 @@ def _nmpc_dis():
     _solve_controller(nmpc_dis_workload)
 
 
-@pytest.mark.parametrize("path", ["cstr", "cstr_exact", "enmpc", "nmpc_dis"])
+def _solve_linear(name, hessian):
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.models import build_model, build_stage_cost, build_terminal_cost
+    from mpc_code_tpu_torch.solver.riccati import build_structured_ocp, make_structured_solver
+
+    mod = __import__(f"mpc_code_tpu_torch.examples.{name}", fromlist=["make_config"])
+    cfg = mod.make_config().replace(N=4)
+    s = build_structured_ocp(cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
+                             build_terminal_cost(cfg), device="cpu")
+    x0m, u0 = torch.as_tensor(np.asarray(cfg.x0_m, float)), torch.as_tensor(cfg.u0)
+    p = dict(x0=x0m.expand(3, cfg.nx), xs=x0m, us=u0, d=torch.zeros(cfg.nd), um1=u0,
+             t=0.0, lam=torch.zeros(cfg.ny, cfg.nu), px=torch.zeros(4, cfg.npx),
+             py=torch.zeros(4, cfg.npy))
+    X0 = torch.cat([x0m, u0])[: s.nxa].expand(3, 5, s.nxa)
+    make_structured_solver(s, SolverOptions(hessian=hessian))(
+        p, X0, u0.expand(3, 4, cfg.nu), max_iter=1)
+
+
+@pytest.mark.parametrize("path", ["cstr", "cstr_exact", "enmpc", "nmpc_dis",
+                                  "lmpc_nlplant", "lmpc_nlplant_exact", "lmpc_cstr"])
 def test_solver_hands_the_kernel_contiguous_tensors(path, monkeypatch):
     _card_layout_sweeps(monkeypatch)
     calls = _spy_riccati(monkeypatch)
     run = {"cstr": lambda: _solve_cstr("gauss_newton"),
            "cstr_exact": lambda: _solve_cstr("exact"),
-           "enmpc": _enmpc, "nmpc_dis": _nmpc_dis}[path]
+           "enmpc": _enmpc, "nmpc_dis": _nmpc_dis,
+           "lmpc_nlplant": lambda: _solve_linear("lmpc_nlplant", "gauss_newton"),
+           "lmpc_nlplant_exact": lambda: _solve_linear("lmpc_nlplant", "exact"),
+           "lmpc_cstr": lambda: _solve_linear("lmpc_cstr", "gauss_newton")}[path]
     run()
     assert calls, "the solver never called riccati_kkt"
