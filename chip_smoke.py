@@ -26,8 +26,9 @@ It never imports JAX or the JAX package.  Phases:
    sweep at the exact-Hessian CSTR path's (N=50, nz=5, ni=2; the Riccati
    KKT solve has the CSTR path's shapes there), in its exact build and in
    its Gauss-Newton build, the Riccati KKT solve at the LMPC loop's
-   (N=50, nxa=5, nu=2) and the bench port's (N=20, nxa=3, nu=2, 1024
-   lanes); an f32 sweep (kernels 1, 3, 5) must also lie
+   (N=50, nxa=5, nu=2), the bench port's (N=20, nxa=3, nu=2, 1024
+   lanes) and the structured MHE's (N=11, nxa=4, nu=4); an f32 sweep
+   (kernels 1, 3, 5) must also lie
    no farther from the f64 plain version than twice its f32 plain version;
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
@@ -60,7 +61,7 @@ It never imports JAX or the JAX package.  Phases:
    — the warm batched CSTR NMPC closed loop (EKF, dense-IPM target in
    f64, structured OCP under Gauss-Newton warm-started from the shifted primal
    and dual solution, non-nominal plant, output noise), B=16384 lanes,
-   LOOP_NSIM=6 steps, f32 — with per step the wall time, the target and
+   LOOP_NSIM=4 steps, f32 — with per step the wall time, the target and
    OCP iterations, the infeasible shares, the launches of kernels 1 and 2
    (both on every step) and the share of non-finite lanes; a summary of
    the cold step 0 against the warm steps and the warm step's phase split;
@@ -73,11 +74,24 @@ It never imports JAX or the JAX package.  Phases:
    u_prev rows, nxa=5, whose only kernel is the Riccati KKT solve),
    B=16384 lanes, LOOP_NSIM steps, f32 — checked as phase 7, with the
    kernel's launches equal to the OCP solver's passes on every step, and
-   each step replayed with its OCP under the profiler for its launches
-   per pass;
+   steps 0 and 3 replayed with their OCP under the profiler for its
+   launches per pass;
 9. the bench port (``clb``): ``examples/closed_loop_bench.py`` at its
    defaults (B=1024, 20 steps, cap 10), its two lines;
-10. one ``{"kernels": [...]}`` line, and as the last line
+10. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
+   — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
+   window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
+   economic target by the dense IPM and the ContForm OCP under
+   Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup,
+   the first full window and the MHE's dual warm start), ENMPC_NSIM steps,
+   f32 throughout — checked as phase 7, with on every step kernel 2's
+   launches in the MHE equal to the MHE solver's passes and in the OCP to
+   the OCP solver's, kernel 4's equal to the OCP's passes, the non-finite
+   shares of the MHE's P, x_bar, Pycondx_inv and the estimate, step 12
+   replayed with the MHE and the OCP under the profiler, and the 64-lane
+   f64 check holding every MHE, target and OCP iteration and status and the
+   estimate too;
+11. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -168,7 +182,9 @@ RESOLVE_MAX = 64                   # failing lanes re-solved on the CPU in f64
 # target or input) and feasible on rounding jumps its input, and the loop
 # carries that on (PERF.md, PR 7: up to 0.59 of the box by step 9, while
 # every single f32 step lies within 2.1e-2 of f64 from the same state).
-LOOP_NSIM = 6
+# 4 steps (the cold step and three warm ones) keep the whole smoke, with
+# enmpc_loop's 16, well inside its time limit
+LOOP_NSIM = 4
 LOOP_F64_TOL = 1e-6
 LOOP_STATUS_DIFF_MAX = 1
 # The LMPC loop (lmpc_loop) keeps these rules with one change: its f32 OCP
@@ -178,6 +194,16 @@ LOOP_STATUS_DIFF_MAX = 1
 # not (2) by its feasibility error at the cap; those are reported apart,
 # and a lane-step that differs in infeasibility (at most
 # LOOP_STATUS_DIFF_MAX a step) is not held to a U tolerance.
+# The ENMPC flagship loop (enmpc_loop) keeps the closed loops' rules for
+# ENMPC_NSIM steps: the traced MHE warmup (steps 0-8), the first full
+# window with the first prior update (step 9) and six steady steps with the
+# MHE's dual warm start (10-15); the JAX tool runs N_mhe + 2 + 20 = 32.
+# Its statuses and iterations (MHE, target, OCP) and U, Xp and the
+# estimate are held as the other loops' U and Xp; ENMPC_PROFILE_STEPS (a
+# steady step: the MHE warm-started, ~50 s under the profiler) are replayed
+# under the profiler.
+ENMPC_NSIM = 16
+ENMPC_PROFILE_STEPS = (12,)
 CLB_BATCH, CLB_STEPS = 1024, 20    # the bench port's defaults
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
@@ -569,6 +595,18 @@ def lmpc_kernel_phase(dev, lsocp, csocp, results):
     return failures
 
 
+def enmpc_mhe_kernel_phase(dev, msocp, results):
+    """Kernel 2 at the structured MHE's shapes, (N, nxa, nu) = (11, 4, 4)
+    on B lanes, against its plain version."""
+    import torch
+
+    failures = []
+    for dtype in (torch.float64, torch.float32):
+        failures += riccati_check(dev, dtype, msocp.N, msocp.nxa, msocp.nu,
+                                  results["riccati_kkt_enmpc_mhe"])
+    return failures
+
+
 def stage_sweep_inputs(dtype, device, socp, seed=5):
     """Inputs of the fused stage sweep at the exact-Hessian CSTR path's
     shapes: states and inputs over the bench's box (scaled), multipliers
@@ -929,7 +967,8 @@ def record_ok_flags(runs):
 def cpu_reference(path, dtype_name):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
-    "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop" or "lmpc_loop") in one
+    "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop" or
+    "enmpc_loop") in one
     dtype, with the Riccati ``ok`` flags of every call (for the loops: the
     closed loop's history).  Returns (per-lane results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
@@ -944,14 +983,16 @@ def cpu_reference(path, dtype_name):
     flags = []
     undo = record_ok_flags([flags])
     try:
-        if path in ("cstr_loop", "lmpc_loop"):
+        if path in ("cstr_loop", "lmpc_loop", "enmpc_loop"):
             from mpc_code_tpu_torch.examples import closed_loop_workload as cw
+            from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.examples import lmpc_loop_workload as lw
 
-            wl = cw if path == "cstr_loop" else lw
+            wl, nsim = {"cstr_loop": (cw, LOOP_NSIM), "lmpc_loop": (lw, LOOP_NSIM),
+                        "enmpc_loop": (mw, ENMPC_NSIM)}[path]
             cfg = wl.make_config()
             H, _ = wl.run_loop(cfg, wl.draw_x0(N_CHECK, cpu, dtype=dtype),
-                               Nsim=LOOP_NSIM, device=cpu, step=wl.make_step(cfg, cpu))
+                               Nsim=nsim, device=cpu, step=wl.make_step(cfg, cpu))
             return H, flags
         if path in ("slice", "cstr_exact"):
             from mpc_code_tpu_torch.examples.bench_workload import (
@@ -1145,58 +1186,85 @@ def controller_phase(dev, path: Path, launches, cpu_refs):
 
 class Loop(NamedTuple):
     """One closed-loop phase as the smoke drives it."""
-    name: str              # "cstr_loop" or "lmpc_loop"
+    name: str              # "cstr_loop", "lmpc_loop" or "enmpc_loop"
     wl: Any                # its workload module (make_config, make_step, draw_x0, run_loop)
     u_box: Any             # width of the input bounds
     counters: dict         # kernel name -> the module whose LAUNCHES counts it
-    profile_ocp: bool      # replay each step with its OCP under torch.profiler
+    profile: tuple         # phases replayed under torch.profiler ("estimate", "ocp")
     cap_apart: bool        # put apart the lane-steps both precisions stop at the cap
+    nsim: int = LOOP_NSIM
+    mhe: bool = False      # the estimator is the MHE: its solver's passes are counted
+    profile_steps: Any = None   # the steps replayed (None: every step)
+
+
+def solver_passes(iters, status):
+    """Passes of a solver's loop in a step: a lane that converged (status
+    0) stopped after ``iters + 1`` passes, the last one finding it
+    converged; any other lane ran ``iters`` passes, to the cap.  Kernel 2
+    (and the path's derivative kernel) launches once a pass."""
+    return int((iters + (status == 0).to(iters.dtype)).max())
 
 
 def ocp_passes(out):
-    """Passes of the structured solver's loop in a step: a lane that
-    converged (status 0) stopped after ``iters + 1`` passes, the last one
-    finding it converged; any other lane ran ``iters`` passes, to the cap.
-    Kernel 2 (and on the CSTR loop kernel 1) launches once a pass."""
-    it = out.ocp_iters + (out.status_dyn == 0).to(out.ocp_iters.dtype)
-    return int(it.max())
+    return solver_passes(out.ocp_iters, out.status_dyn)
 
 
-def profile_ocp_steps(step, carries, inputs):
-    """Replay each step from its input carry with the OCP phase (from the
-    ``target`` mark to the ``ocp`` mark) under torch.profiler: per step the
-    solver's passes, its kernel launches per pass, its device busy share
-    and its wall ms."""
+def mhe_passes(out):
+    return solver_passes(out.mhe_iters, out.mhe_status)
+
+
+# the marks that open and close each phase a replay profiles (None: the
+# step's start)
+PROFILE_WINDOWS = {"estimate": (None, "estimate"), "ocp": ("target", "ocp")}
+
+
+def profile_steps(step, carries, inputs, phases):
+    """Replay each step ``k`` from its input carry ``carries[k]`` with the
+    ``phases`` (the MHE's "estimate", the "ocp") under torch.profiler: per
+    step and phase the solver's passes, its kernel launches per pass, its
+    device busy share and its wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mpc_code_tpu_torch.loop.schedules import StepInput
 
     rows = []
-    for k, c in enumerate(carries):
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for k, c in carries.items():
+        profs = {ph: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                 for ph in phases}
         clock = {}
+
+        def begin(ph):
+            profs[ph].start()
+            clock[ph] = time.perf_counter()
 
         def mark(name):
             torch.cuda.synchronize()
-            if name == "target":
-                prof.start()
-                clock["t0"] = time.perf_counter()
-            elif name == "ocp":
-                clock["wall"] = time.perf_counter() - clock["t0"]
-                prof.stop()
+            for ph in phases:
+                opens, closes = PROFILE_WINDOWS[ph]
+                if name == closes:
+                    clock[ph] = time.perf_counter() - clock[ph]
+                    profs[ph].stop()
+                if name == opens:
+                    begin(ph)
 
+        torch.cuda.synchronize()
+        for ph in phases:
+            if PROFILE_WINDOWS[ph][0] is None:
+                begin(ph)
         _, out = step(c, StepInput(*(a[k] for a in inputs)), mark=mark)
-        kern = [e for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        busy = sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) for e in kern) / 1e6
-        if busy <= 0:
-            raise RuntimeError("torch.profiler recorded no device time")
-        n = ocp_passes(out)
-        rows.append(dict(step=k, passes=n,
-                         launches_per_pass=sum(e.count for e in kern) / max(n, 1),
-                         busy_share=busy / clock["wall"], ocp_ms=1e3 * clock["wall"]))
+        for ph in phases:
+            kern = [e for e in profs[ph].key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            busy = sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0)) for e in kern) / 1e6
+            if busy <= 0:
+                raise RuntimeError("torch.profiler recorded no device time")
+            n = mhe_passes(out) if ph == "estimate" else ocp_passes(out)
+            rows.append(dict(step=k, phase=ph, passes=n,
+                             launches_per_pass=sum(e.count for e in kern) / max(n, 1),
+                             busy_share=busy / clock[ph], ms=1e3 * clock[ph],
+                             ms_per_pass=1e3 * clock[ph] / max(n, 1)))
     return rows
 
 
@@ -1247,14 +1315,17 @@ def describe(kinds, st, apart=None):
 def loop_phase(dev, loop: Loop, launches, cpu_refs):
     """A warm batched closed loop (``examples/closed_loop_workload.py``, the
     CSTR NMPC; ``examples/lmpc_loop_workload.py``, the LMPC on the
-    nonlinear CSTR plant) at B lanes in f32 for LOOP_NSIM steps: per step
-    the wall time and each phase's, target and OCP iterations, infeasible
-    shares, the launches of the path's kernels (each once per pass of the
-    OCP solver, on every step) and the share of non-finite lanes; with
-    ``profile_ocp``, each step replayed with its OCP under the profiler for
-    its launches per pass; then the first N_CHECK lanes run on the card in
-    f64 against the CPU f64 run, with one f32 step from each of their
-    steps' states held against the f64 step."""
+    nonlinear CSTR plant; ``examples/enmpc_loop_workload.py``, the ENMPC
+    flagship with the MHE) at B lanes in f32 for ``loop.nsim`` steps: per
+    step the wall time and each phase's, MHE, target and OCP iterations,
+    infeasible shares, the launches of the path's kernels (in the OCP each
+    once per pass of the OCP solver, and kernel 2 in the MHE once per pass
+    of the MHE solver, on every step) and the share of non-finite lanes;
+    the steps of ``loop.profile_steps`` replayed with the phases of
+    ``loop.profile`` under the profiler for their launches per pass; then
+    the first N_CHECK lanes run on the card in f64 against the CPU f64 run,
+    with one f32 step from each of their steps' states held against the
+    f64 step."""
     import torch
 
     from mpc_code_tpu_torch.loop.batched import (
@@ -1263,7 +1334,7 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
 
     failures = []
-    name, wl, U_BOX = loop.name, loop.wl, loop.u_box
+    name, wl, U_BOX, nsim = loop.name, loop.wl, loop.u_box, loop.nsim
     cfg = wl.make_config()
     cap = cfg.sol_opts_dyn.max_iter
     step = wl.make_step(cfg, device=dev)
@@ -1271,39 +1342,62 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     wl.run_loop(cfg, wl.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
     log(f"# {name} warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
 
-    per_step, carries = [], []
+    # the launch counts at the end of the estimate phase (the MHE's share)
+    at_estimate = {}
+
+    def counted_step(c, inp, mark=None):
+        def mk(phase):
+            if phase == "estimate":
+                at_estimate.update({k: m.LAUNCHES for k, m in loop.counters.items()})
+            if mark is not None:
+                mark(phase)
+
+        return step(c, inp, mark=mk)
+
+    prof_steps = range(nsim) if loop.profile_steps is None else loop.profile_steps
+    per_step, carries = [], {}
 
     def on_step(k, carry, out):
         counts = {}
         for kname, mod in loop.counters.items():
             counts[kname] = mod.LAUNCHES
+            counts[f"{kname}_mhe"] = at_estimate[kname]
             mod.LAUNCHES = 0
-        bad = ~(torch.isfinite(carry.P).flatten(1).all(1)
-                & torch.isfinite(carry.xhat).all(1) & torch.isfinite(carry.x).all(1))
-        ss_it = out.ss_iters.cpu().numpy()
-        oc_it = out.ocp_iters.cpu().numpy()
+        est = carry.mhe if loop.mhe else carry
+        finite = lambda a: torch.isfinite(a).flatten(1).all(1)  # noqa: E731
+        bad = ~(finite(est.P) & finite(carry.xhat) & finite(carry.x))
         q = lambda a: [float(np.median(a)), float(np.percentile(a, 90)), int(a.max())]  # noqa: E731
-        per_step.append(dict(
-            step=k, target_iters=q(ss_it), ocp_iters=q(oc_it), ocp_passes=ocp_passes(out),
+        row = dict(
+            step=k, target_iters=q(out.ss_iters.cpu().numpy()),
+            ocp_iters=q(out.ocp_iters.cpu().numpy()), ocp_passes=ocp_passes(out),
             target_infeasible=float((out.status_ss == 2).float().mean()),
             ocp_infeasible=float((out.status_dyn == 2).float().mean()),
             **counts,
             nonfinite=float(bad.float().mean()),
-            nonfinite_P=float((~torch.isfinite(carry.P).flatten(1).all(1)).float().mean()),
-            nonfinite_xhat=float((~torch.isfinite(carry.xhat).all(1)).float().mean()),
-            nonfinite_check_lanes=int(bad[:N_CHECK].sum())))
-        if k + 1 < LOOP_NSIM and loop.profile_ocp:
-            carries.append(carry)
+            nonfinite_P=float((~finite(est.P)).float().mean()),
+            nonfinite_xhat=float((~finite(carry.xhat)).float().mean()),
+            nonfinite_check_lanes=int(bad[:N_CHECK].sum()))
+        if loop.mhe:
+            row.update(
+                mhe_iters=q(out.mhe_iters.cpu().numpy()), mhe_passes=mhe_passes(out),
+                mhe_status_counts=np.bincount(out.mhe_status.cpu().numpy(),
+                                              minlength=3).tolist(),
+                nonfinite_x_bar=float((~finite(est.x_bar)).float().mean()),
+                nonfinite_Pycondx_inv=float((~finite(est.sm.Pycondx_inv)).float().mean()))
+        per_step.append(row)
+        if k + 1 in prof_steps and loop.profile:
+            carries[k + 1] = carry
 
     torch.cuda.reset_peak_memory_stats(dev)
     x0s = wl.draw_x0(B, dev)
-    if loop.profile_ocp:
-        carries.append(init_carry(cfg, x0s, device=dev, dtype=x0s.dtype))
+    if 0 in prof_steps and loop.profile:
+        carries[0] = init_carry(cfg, x0s, device=dev, dtype=x0s.dtype)
     for mod in loop.counters.values():
         mod.LAUNCHES = 0
-    H32, times = wl.run_loop(cfg, x0s, Nsim=LOOP_NSIM, step=step, on_step=on_step)
+    H32, times = wl.run_loop(cfg, x0s, Nsim=nsim, step=counted_step, on_step=on_step)
     for kname in loop.counters:
         launches[f"{kname}_{name}"] = sum(r[kname] for r in per_step)
+        launches[f"{kname}_{name}_mhe"] = sum(r[f"{kname}_mhe"] for r in per_step)
     for r, tm in zip(per_step, times):
         r.update(wall_ms=1e3 * tm["wall_s"],
                  **{f"{ph}_ms": 1e3 * tm[ph] for ph in wl.PHASES})
@@ -1313,8 +1407,8 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     split = {ph: float(np.mean([tm[ph] for tm in warm])) * 1e3 for ph in wl.PHASES}
     it = H32["OCP_ITERS"]
     report = dict(
-        batch=B, N=wl.N, Mx=getattr(wl, "MX", None), steps=LOOP_NSIM, wall_s=wall,
-        lane_steps_per_s=B * LOOP_NSIM / wall,
+        batch=B, N=wl.N, Mx=getattr(wl, "MX", None), steps=nsim, wall_s=wall,
+        lane_steps_per_s=B * nsim / wall,
         step0_ms=1e3 * times[0]["wall_s"],
         warm_step_ms=float(np.mean([tm["wall_s"] for tm in warm])) * 1e3,
         warm_split_ms=split,
@@ -1327,21 +1421,38 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
         ocp_status_counts=[np.bincount(r, minlength=3).tolist() for r in H32["STATUS_DYN"]],
         launches={k: launches[f"{k}_{name}"] for k in loop.counters},
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if loop.mhe:
+        report.update(
+            step_ms=[1e3 * tm["wall_s"] for tm in times],
+            estimate_ms=[1e3 * tm["estimate"] for tm in times],
+            mhe_iters_median_by_step=np.median(H32["MHE_ITERS"], 1).tolist(),
+            mhe_ok_share=float((H32["MHE_STATUS"] != 2).mean()),
+            launches_mhe={k: launches[f"{k}_{name}_mhe"] for k in loop.counters})
     log(f"# {name} " + json.dumps(report))
-    if any(r[k] != r["ocp_passes"] for r in per_step for k in loop.counters):
-        failures.append(f"{name}: a kernel's launches differ from the OCP passes on "
-                        "some step")
+    # in the OCP each kernel launches once a pass of the OCP solver; in the
+    # MHE kernel 2 once a pass of the MHE solver, and no other kernel
+    for r in per_step:
+        for k in loop.counters:
+            in_mhe = r.get("mhe_passes", 0) if k == "riccati_kkt" else 0
+            if r[k] - r[f"{k}_mhe"] != r["ocp_passes"] or r[f"{k}_mhe"] != in_mhe:
+                failures.append(f"{name}: {k}'s launches on step {r['step']} "
+                                f"({r[f'{k}_mhe']} in the estimator, {r[k]} in all) "
+                                f"differ from the solvers' passes")
     if any(r["nonfinite_check_lanes"] for r in per_step):
         failures.append(f"{name}: a non-finite lane among the check lanes")
 
-    if loop.profile_ocp:
-        # each step again from its input carry, the OCP under the profiler
+    if loop.profile:
+        # the chosen steps again from their input carries, under the profiler
         t0 = time.perf_counter()
-        rows = profile_ocp_steps(step, carries, make_step_inputs(cfg, LOOP_NSIM))
+        rows = profile_steps(step, carries, make_step_inputs(cfg, nsim), loop.profile)
         for r in rows:
-            log(f"# {name} profile, OCP " + json.dumps(r))
-        report["ocp_launches_per_pass"] = [r["launches_per_pass"] for r in rows]
-        report["ocp_busy_share"] = [r["busy_share"] for r in rows]
+            log(f"# {name} profile, {r['phase']} " + json.dumps(r))
+        for ph, key in (("ocp", "ocp"), ("estimate", "mhe")):
+            sel = [r for r in rows if r["phase"] == ph]
+            if sel:
+                report[f"{key}_launches_per_pass"] = [r["launches_per_pass"] for r in sel]
+                report[f"{key}_busy_share"] = [r["busy_share"] for r in sel]
+                report[f"{key}_ms_per_pass"] = [r["ms_per_pass"] for r in sel]
         log(f"# {name} profiled replay: {time.perf_counter() - t0:.1f} s")
         del carries
 
@@ -1350,9 +1461,9 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     # card; the main run's free-running f32 lanes, reported
     t0 = time.perf_counter()
     c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
-    inputs = make_step_inputs(cfg, LOOP_NSIM)
+    inputs = make_step_inputs(cfg, nsim)
     outs64, outs32 = [], []
-    for k in range(LOOP_NSIM):
+    for k in range(nsim):
         inp = StepInput(*(a[k] for a in inputs))
         outs32.append(step(cast_carry(c64, torch.float32), inp)[1])
         c64, out = step(c64, inp)
@@ -1360,12 +1471,17 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     H64 = history_from_outputs(stack_outputs(outs64))
     R32 = history_from_outputs(stack_outputs(outs32))
     ref = cpu_refs[(name, "float64")].result()[0]
-    f64_st = all((H64[k] == ref[k]).all() for k in ("STATUS_SS", "STATUS_DYN", "OCP_ITERS"))
-    f64_err = max(nerr(torch.as_tensor(H64[k]), torch.as_tensor(ref[k])) for k in ("U", "Xp"))
+    equal_keys = ("STATUS_SS", "STATUS_DYN", "OCP_ITERS")
+    err_keys = ("U", "Xp")
+    if loop.mhe:
+        equal_keys += ("SS_ITERS", "MHE_STATUS", "MHE_ITERS")
+        err_keys += ("X_HAT_CORR", "D_HAT")
+    f64_st = all((H64[k] == ref[k]).all() for k in equal_keys)
+    f64_err = max(nerr(torch.as_tensor(H64[k]), torch.as_tensor(ref[k])) for k in err_keys)
     it64 = H64["OCP_ITERS"]
-    log(f"# {name} cross-check, gpu f64 ({N_CHECK} lanes x {LOOP_NSIM} steps): "
-        f"statuses and OCP iterations equal {f64_st}, max norm err U/Xp {f64_err:.3e} "
-        f"(tol {LOOP_F64_TOL:g}); f64 OCP iterations median / mean cold "
+    log(f"# {name} cross-check, gpu f64 ({N_CHECK} lanes x {nsim} steps): "
+        f"{', '.join(equal_keys)} equal {f64_st}, max norm err {'/'.join(err_keys)} "
+        f"{f64_err:.3e} (tol {LOOP_F64_TOL:g}); f64 OCP iterations median / mean cold "
         f"{np.median(it64[0]):g} / {it64[0].mean():.2f}, warm {np.median(it64[1:]):g} / "
         f"{it64[1:].mean():.2f}")
     report.update(f64_ocp_iters_cold_mean=float(it64[0].mean()),
@@ -1382,6 +1498,17 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     if not (du_s <= U_TOL and du_m <= U_TOL_MOVED and st_diff.max() <= LOOP_STATUS_DIFF_MAX):
         failures.append(f"{name}: f32 steps against f64: dU/box {du_s:.3e} / {du_m:.3e}, "
                         f"infeasibility differences {st_diff.tolist()}")
+    if loop.mhe:
+        # the f32 step's MHE estimate against the f64 step's, reported
+        est_err = max(nerr(torch.as_tensor(R32[k]), torch.as_tensor(H64[k]))
+                      for k in ("X_HAT_CORR", "D_HAT"))
+        mhe_same = float((R32["MHE_ITERS"] == H64["MHE_ITERS"]).mean())
+        st32 = np.bincount(R32["MHE_STATUS"].ravel(), minlength=3).tolist()
+        log(f"# {name} f32 step's MHE against f64 (reported): max norm err of the "
+            f"estimate {est_err:.3e}, share of lane-steps on the same MHE iteration "
+            f"{mhe_same:.4f}, f32 MHE statuses {st32}")
+        report.update(xcheck_f32_step_estimate_err=est_err,
+                      xcheck_f32_step_mhe_same_iter_share=mhe_same)
     free = {k: v[:, :N_CHECK] for k, v in H32.items()}
     fr_kinds, fr_st, fr_step, fr_apart = against_f64(free, H64, U_BOX, kcap)
     log(f"# {name} free-running f32 lanes against the f64 run (reported, not held): "
@@ -1428,8 +1555,8 @@ def clb_phase(dev, launches):
 
 
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
-          "stage_sweep kernel", "slice", "enmpc", "nmpc_dis", "cstr_exact",
-          "cstr_loop", "lmpc_loop", "clb")
+          "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
+          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "enmpc_loop")
 
 
 def main() -> int:
@@ -1463,6 +1590,7 @@ def main() -> int:
     from mpc_code_tpu_torch.device import pin_fp32_precision
     from mpc_code_tpu_torch.examples import closed_loop_bench as cb
     from mpc_code_tpu_torch.examples import closed_loop_workload as cw
+    from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
     from mpc_code_tpu_torch.examples import enmpc_workload as ew
     from mpc_code_tpu_torch.examples import lmpc_loop_workload as lw
     from mpc_code_tpu_torch.examples import nmpc_dis_workload as dw
@@ -1482,10 +1610,13 @@ def main() -> int:
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
             "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
-            "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb")
+            "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
+            "riccati_kkt_enmpc_mhe")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
-                                     "riccati_kkt_lmpc_loop"), 0)
+                                     "riccati_kkt_lmpc_loop", "riccati_kkt_enmpc_loop",
+                                     "riccati_kkt_enmpc_loop_mhe",
+                                     "rk4_quad_stage_hess_enmpc_loop"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -1494,9 +1625,10 @@ def main() -> int:
         xprob = make_problem(dev, hessian="exact")
         ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
         lsocp, csocp = linear_ocp(lw.make_config()), linear_ocp(cb.make_config())
+        msocp = mw.mhe_ocp(mw.make_config(), dev)
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(9) as ex:
+        with cf.ThreadPoolExecutor(10) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -1509,6 +1641,7 @@ def main() -> int:
                 "riccati_kkt_nmpc_dis": ex.submit(rk.build_kernel, dprob.socp.nxa,
                                                   dprob.socp.nu),
                 "riccati_kkt_lmpc": ex.submit(rk.build_kernel, lsocp.nxa, lsocp.nu),
+                "riccati_kkt_enmpc_mhe": ex.submit(rk.build_kernel, msocp.nxa, msocp.nu),
                 **{key: ex.submit(sk.make_stage_sweep(xsocp, hessian).build,
                                   xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)
                    for key, hessian in (("stage_sweep", "exact"),
@@ -1527,11 +1660,11 @@ def main() -> int:
 
     # the CPU side of every cross-check, in worker processes beside the
     # card's phases
-    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 2, mp_context=mp.get_context("spawn"))
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 3, mp_context=mp.get_context("spawn"))
     # the closed loops' CPU runs are the longest: they start first, on a
-    # third and a fourth worker, and the others keep their order
+    # third, fourth and fifth worker, and the others keep their order
     cpu_refs = {(p, "float64"): pool.submit(cpu_reference, p, "float64")
-                for p in ("cstr_loop", "lmpc_loop") if p in selected}
+                for p in ("enmpc_loop", "cstr_loop", "lmpc_loop") if p in selected}
     cpu_refs.update({(p, dt): pool.submit(cpu_reference, p, dt)
                      for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact") if p in selected
                      for dt in ("float64", "float32")})
@@ -1540,13 +1673,18 @@ def main() -> int:
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
                     "riccati_kkt_nmpc_dis", NMPC_DIS_U_TOL)
     cstr_loop = Loop("cstr_loop", cw, U_BOX, {"rk4_stage_jac": sweep_cuda, "riccati_kkt": rk},
-                     profile_ocp=False, cap_apart=False)
+                     profile=(), cap_apart=False)
     lmpc_loop = Loop("lmpc_loop", lw, lw.U_BOX, {"riccati_kkt": rk},
-                     profile_ocp=True, cap_apart=True)
+                     profile=("ocp",), cap_apart=True, profile_steps=(0, 3))
+    enmpc_loop = Loop("enmpc_loop", mw, mw.U_BOX,
+                      {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
+                      profile=("estimate", "ocp"), cap_apart=False, nsim=ENMPC_NSIM,
+                      mhe=True, profile_steps=ENMPC_PROFILE_STEPS)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
               ("lmpc kernel", lambda: lmpc_kernel_phase(dev, lsocp, csocp, results)),
+              ("enmpc_mhe kernel", lambda: enmpc_mhe_kernel_phase(dev, msocp, results)),
               ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprob, results)),
               ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
@@ -1555,7 +1693,8 @@ def main() -> int:
                                                  exact=True)),
               ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs)),
               ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
-              ("clb", lambda: clb_phase(dev, launches)))
+              ("clb", lambda: clb_phase(dev, launches)),
+              ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs)))
     try:
         for name, phase in phases:
             if name not in selected:
@@ -1611,7 +1750,8 @@ def main() -> int:
                                      "cstr_exact": launches["riccati_kkt_cstr_exact"],
                                      "cstr_loop": launches["riccati_kkt_cstr_loop"],
                                      "lmpc_loop": launches["riccati_kkt_lmpc_loop"],
-                                     "clb": launches["riccati_kkt_clb"]}
+                                     "clb": launches["riccati_kkt_clb"],
+                                     "enmpc_loop": launches["riccati_kkt_enmpc_loop"]}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
@@ -1622,10 +1762,19 @@ def main() -> int:
                                              launches["riccati_kkt_lmpc_loop"])
             k["at_clb_shapes"] = entry(name, results["riccati_kkt_clb"],
                                        launches["riccati_kkt_clb"])
+            # the ENMPC flagship loop's structured MHE at (11, 4, 4): its
+            # launches are the MHE's share of the loop's (the rest are its
+            # OCP's, at the ENMPC path's shapes)
+            k["at_enmpc_mhe_shapes"] = entry(name, results["riccati_kkt_enmpc_mhe"],
+                                             launches["riccati_kkt_enmpc_loop_mhe"])
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
                                      "cstr_loop": launches["rk4_stage_jac_cstr_loop"]}
+        if name == "rk4_quad_stage_hess":
+            # kernel 4 on the ENMPC flagship loop's OCP solves too
+            k["launches_by_path"] = {"enmpc": launches["rk4_quad_stage_hess"],
+                                     "enmpc_loop": launches["rk4_quad_stage_hess_enmpc_loop"]}
         if name == "stage_sweep":
             # the Gauss-Newton build, checked against its plain version; no
             # path of the smoke launches it

@@ -4,7 +4,8 @@
 ``MPCConfig`` (read through ``dataclasses.fields``, handed over as numpy)
 into a port config whose callables (model and plant maps, setpoint
 schedule, user costs) come from the port's own example.  ``result_from_numpy``
-carries ``X``, ``U``, the duals and the solver statistics of a result.
+carries ``X``, ``U``, the duals and the solver statistics of a result, and
+``mhe_carry_from_numpy`` the window state of the MHE (a JAX ``MHECarry``).
 Both sides then solve the same problem from the same numbers.
 """
 
@@ -61,3 +62,25 @@ def result_from_numpy(res, device="cpu") -> StructResult:
 def result_to_numpy(res: StructResult) -> dict:
     """Every field of a port result as a numpy array."""
     return {k: getattr(res, k).detach().cpu().numpy() for k in StructResult._fields}
+
+
+def mhe_carry_from_numpy(carry, lanes_axis: bool = False, device="cpu"):
+    """The port's ``MHECarry`` from any object with its fields (a JAX
+    ``MHECarry`` read through ``np.asarray``): the window buffers, ``sm``
+    field by field, ``steps`` (the warmup's counter: a carry of the traced
+    warmup) and the ``duals`` dict.  A JAX carry is one
+    lane: it gets a leading lane axis of 1 unless ``lanes_axis`` says its
+    arrays already have one."""
+    from mpc_code_tpu_torch.estimators.mhe import MHECarry, MHESmoothState
+
+    def T(a):
+        t = torch.as_tensor(np.array(np.asarray(a)), device=device)
+        return t if lanes_axis else t.unsqueeze(0)
+
+    sm = (None if carry.sm is None else
+          MHESmoothState(*(T(getattr(carry.sm, f)) for f in MHESmoothState._fields)))
+    fields = {f: T(getattr(carry, f)) for f in MHECarry._fields
+              if f not in ("sm", "steps", "duals")}
+    return MHECarry(**fields, sm=sm, steps=T(carry.steps).to(torch.int32),
+                    duals=None if carry.duals is None else
+                    {k: T(v) for k, v in carry.duals.items()})

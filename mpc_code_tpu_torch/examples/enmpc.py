@@ -1,13 +1,13 @@
-"""Economic NMPC of a 2-state reactor (port of ``mpc_code_tpu/examples/enmpc.py``;
-reference: Ex_ENMPC.py).
+"""Economic NMPC of a 2-state reactor with MHE (port of
+``mpc_code_tpu/examples/enmpc.py``; reference: Ex_ENMPC.py).
 
 StateFeedback outputs, output-disturbance model (Bd=0, Cd=I), economic
 steady-state and continuous-time stage costs u*(alfa*cA0 - beta*y2)
 (ContForm -> quadrature of the stage cost over each interval), user terminal
-weight 2000*||x-xs||^2.  The maps are written in torch ops on indexed
+weight 2000*||x-xs||^2, MHE with N_mhe=10 and the 'smooth' prior update
+(``estimators/mhe.py``).  The maps are written in torch ops on indexed
 components, so each argument may be one point or lanes-minor (dim, L), and
-``torch.fx`` traces them for the CUDA sweep.  The MHE part of the
-estimator configuration is carried as data only: the port has no MHE yet.
+``torch.fx`` traces them for the CUDA sweep.
 """
 
 import numpy as np

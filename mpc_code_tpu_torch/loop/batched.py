@@ -20,8 +20,11 @@ its input and warm start and predicts its estimate by the model
 (MPC_code.py:714-718, 786-805), and the masked solver loops freeze each
 lane once it is done, so one diverged lane never stalls the batch.
 
-Estimators: kalss and lue (static gain), kal (linear models only) and ekf.
-The MHE (ROADMAP Queue 1 item 17) and modifier adaptation (item 23) raise
+Estimators: kalss and lue (static gain), kal (linear models only), ekf and
+the MHE (``estimators/mhe.py``, both prior updates), whose growing-horizon
+warmup runs in the step from the cold window ``init_carry`` builds
+(MPC_code.py:591-598).  Modifier adaptation (ROADMAP Queue 1 item 23) and
+the hand-off from a host-warmed MHE (item 22) raise
 ``NotImplementedError``.  There is no ``lax.scan``: :func:`run_traced` is
 a host loop over the steps on device tensors, and
 :func:`run_traced_checkpointed` the same loop in segments with an NPZ
@@ -63,7 +66,7 @@ class MPCCarry(NamedTuple):
     w_prev: torch.Tensor  # previous OCP solution, flat layout (B, nw)
     ocp_ok: torch.Tensor  # last OCP feasibility flag (B,)
     t: torch.Tensor       # time (B,)
-    mhe: Any = None       # MHE window state (kind='mhe': ROADMAP Queue 1 item 17)
+    mhe: Any = None       # MHECarry window state (kind='mhe' only)
     lam: Any = None       # modifier-adaptation lambda (Adaptation: item 23)
     # dual/barrier warm start of the structured OCP solver (dict with
     # zl/zu/lam/nus (B, N, .) and mu/sf/ok (B,), shifted one stage per step
@@ -89,6 +92,8 @@ class MPCStepOut(NamedTuple):
     upopt: Any = None
     ypopt: Any = None
     ss_iters: Any = None   # target solver iterations (the port's own field)
+    mhe_status: Any = None  # MHE window solve status and iterations (port's own)
+    mhe_iters: Any = None
 
 
 def _todo(what: str, item: str):
@@ -122,9 +127,7 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
     nxu = nx + nu
     est = cfg.estimator
     kind = est.kind
-    if kind == "mhe":
-        raise _todo("the traced MHE estimator (kind='mhe')", "17")
-    if kind not in ("kalss", "lue", "kal", "ekf"):
+    if kind not in ("kalss", "lue", "kal", "ekf", "mhe"):
         raise ValueError(f"estimator kind {kind!r} unsupported in the batched "
                          "step (supported: kalss, lue, kal, ekf, mhe)")
     if kind == "kal" and not isinstance(cfg.model, LinearModel):
@@ -140,6 +143,10 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
     model = build_model(cfg)
     plant = build_plant(cfg, model)
     aug = build_augmented(cfg, model)
+    if kind == "mhe":
+        from mpc_code_tpu_torch.estimators.mhe import make_mhe_traced
+
+        mhe_step, _ = make_mhe_traced(cfg, model, device=dev)
 
     if use_structured is None:
         use_structured = not estimating
@@ -228,13 +235,17 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
 
         # estimator (MPC_code.py:546-668)
         x_es = torch.cat([c.xhat, c.dhat], -1) if with_d else c.xhat
-        P = c.P
+        P, mhe_c, mhe_out = c.P, c.mhe, {}
         if kind in ("kalss", "lue"):
             x_es = kalss(aug, y_k, c.u, T(K_gain), x_es, t_k, py0)
         elif kind == "kal":
             P, _, x_es = kalman(aug, h, y_k, c.u, T(Qkf), T(Rkf), P, x_es, t_k, px0, py0)
-        else:
+        elif kind == "ekf":
             P, _, x_es = ekf(aug, h, y_k, c.u, T(Qkf), T(Rkf), P, x_es, t_k, px0, py0)
+        else:
+            info = {}
+            mhe_c, x_es = mhe_step(c.mhe, y_k, c.u, x_es, t_k, px0, py0, info=info)
+            mhe_out = dict(mhe_status=info["status"], mhe_iters=info["iters"])
         if with_d:
             xhat = x_es[:, :nx]
             dhat = x_es[:, nx : nx + nd]
@@ -264,10 +275,11 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
             if mark is not None:
                 mark("plant")
             zero_i = torch.zeros(Bsz, dtype=torch.int32, device=kw["device"])
-            carry = c._replace(x=x_next, xhat=xhat, dhat=dhat, P=P, t=t_k + h)
+            carry = c._replace(x=x_next, xhat=xhat, dhat=dhat, P=P, t=t_k + h, mhe=mhe_c)
             out = MPCStepOut(x=c.x, y=y_k, yhat=yhat_k, u=c.u, xs=c.xs,
                              us=c.us, ys=yhat_k, xhat=xhat, dhat=dhat,
-                             status_ss=zero_i, status_dyn=zero_i, ocp_iters=zero_i)
+                             status_ss=zero_i, status_dyn=zero_i, ocp_iters=zero_i,
+                             **mhe_out)
             return carry, out
 
         # target problem (MPC_code.py:693-718); the guess mirrors the host
@@ -352,11 +364,11 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
 
         carry = MPCCarry(x=x_next, xhat=xhat_next, dhat=dhat, P=P, u=u_k,
                          xs=xs, us=us, w_prev=w_prev, ocp_ok=ok,
-                         t=t_k + h, mhe=c.mhe, lam=c.lam, duals=duals_n)
+                         t=t_k + h, mhe=mhe_c, lam=c.lam, duals=duals_n)
         out = MPCStepOut(x=c.x, y=y_k, yhat=yhat_k, u=u_k, xs=xs, us=us,
                          ys=ys, xhat=xhat, dhat=dhat, status_ss=rss.status,
                          status_dyn=status_dyn, ocp_iters=iters_dyn,
-                         ss_iters=rss.iters)
+                         ss_iters=rss.iters, **mhe_out)
         return carry, out
 
     return step
@@ -379,10 +391,10 @@ def init_carry(cfg: MPCConfig, x0=None, mhe=None, state=None,
     ``dual_ws``: carry the structured OCP solver's dual/barrier warm start
     (default: whenever the config is not estimation-only).  Pass ``False``
     when stepping with ``use_structured=False``.
-    ``mhe`` (an MHE window) is not ported (ROADMAP Queue 1 item 17).
+    ``mhe``: an ``MHECarry`` of B lanes to start the MHE from; for
+    estimator kind 'mhe' it defaults to the cold window of
+    ``make_mhe_cold_carry`` (the growing-horizon warmup runs in the step).
     """
-    if mhe is not None or cfg.estimator.kind == "mhe":
-        raise _todo("the MHE window carry (init_carry(..., mhe=...), kind='mhe')", "17")
     dev = resolve_device(device)
     nx, nu, nd, N = cfg.nx, cfg.nu, cfg.nd, cfg.N
     naug = nx + nd if cfg.dist.offree != "no" else nx
@@ -434,10 +446,16 @@ def init_carry(cfg: MPCConfig, x0=None, mhe=None, state=None,
                       nus=torch.zeros((Bsz, N, socp0.ni), **kw),
                       mu=torch.zeros(Bsz, **kw), sf=torch.ones(Bsz, **kw),
                       ok=torch.zeros(Bsz, dtype=torch.bool, device=dev))
+    if cfg.estimator.kind == "mhe" and mhe is None:
+        from mpc_code_tpu_torch.estimators.mhe import make_mhe_cold_carry
+
+        inp0 = default_step_input(cfg)
+        mhe = make_mhe_cold_carry(cfg, px0=inp0.px_h[0], py0=inp0.py_h[0],
+                                  batch=Bsz, device=dev, dtype=dtype)
     carry = MPCCarry(x=x0, xhat=lanes(x0_m), dhat=lanes(dhat0), P=lanes(P0),
                      u=lanes(u0), xs=lanes(x0_m), us=lanes(u0), w_prev=lanes(w0),
                      ocp_ok=torch.ones(Bsz, dtype=torch.bool, device=dev),
-                     t=torch.zeros(Bsz, **kw), mhe=None,
+                     t=torch.zeros(Bsz, **kw), mhe=mhe,
                      lam=None if lam0 is None else lanes(lam0), duals=duals0)
     if state is not None:
         carry = carry._replace(
@@ -453,15 +471,22 @@ def init_carry(cfg: MPCConfig, x0=None, mhe=None, state=None,
     return carry
 
 
+def _is_record(v):
+    return isinstance(v, tuple) and hasattr(v, "_fields")
+
+
 def cast_carry(carry: MPCCarry, dtype) -> MPCCarry:
-    """The carry with every floating tensor (the duals' too) cast to
-    ``dtype``: to step a state of one run in another precision."""
+    """The carry with every floating tensor (those of the duals and of the
+    MHE window too) cast to ``dtype``: to step a state of one run in
+    another precision."""
     def cast(v):
         if isinstance(v, dict):
             return {k: cast(x) for k, x in v.items()}
+        if _is_record(v):
+            return type(v)(*(cast(x) for x in v))
         return v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
 
-    return MPCCarry(*(cast(v) for v in carry))
+    return cast(carry)
 
 
 def stack_outputs(outs: Sequence[MPCStepOut]) -> MPCStepOut:
@@ -505,31 +530,42 @@ def _run_steps(step, carry, inputs):
     return carry, history_from_outputs(stack_outputs(outs))
 
 
+def _items(v, name):
+    """(dotted name, tensor) of every tensor in a nested carry value: a
+    dict entry by entry (``duals.<key>``), a NamedTuple field by field
+    (``mhe.sm.<field>``); None is left out."""
+    if v is None:
+        return
+    if isinstance(v, dict):
+        for k, x in v.items():
+            yield from _items(x, f"{name}.{k}")
+    elif _is_record(v):
+        for f, x in zip(v._fields, v):
+            yield from _items(x, f"{name}.{f}")
+    else:
+        yield name, v
+
+
 def _carry_arrays(carry: MPCCarry) -> Dict[str, np.ndarray]:
-    """The carry as named numpy arrays, field by field (the ``duals``
-    dict entry by entry as ``duals.<key>``); None fields are left out."""
-    out = {}
-    for name, v in zip(MPCCarry._fields, carry):
-        items = v.items() if isinstance(v, dict) else [(None, v)]
-        for key, a in items:
-            if a is not None:
-                out[name if key is None else f"{name}.{key}"] = a.detach().cpu().numpy()
-    return out
+    """The carry as named numpy arrays, field by field, nested fields under
+    dotted names; None fields are left out."""
+    return {k: a.detach().cpu().numpy()
+            for name, v in zip(MPCCarry._fields, carry) for k, a in _items(v, name)}
 
 
 def _carry_from_arrays(template: MPCCarry, arrays, device) -> MPCCarry:
     """The inverse of ``_carry_arrays`` on ``device``, shaped by
     ``template`` (its None fields stay None)."""
-    def get(name):
+    def build(v, name):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: build(x, f"{name}.{k}") for k, x in v.items()}
+        if _is_record(v):
+            return type(v)(*(build(x, f"{name}.{f}") for f, x in zip(v._fields, v)))
         return torch.as_tensor(np.asarray(arrays[name]), device=device)
 
-    fields = {}
-    for name, v in zip(MPCCarry._fields, template):
-        if isinstance(v, dict):
-            fields[name] = {key: get(f"{name}.{key}") for key in v}
-        else:
-            fields[name] = None if v is None else get(name)
-    return MPCCarry(**fields)
+    return MPCCarry(*(build(v, name) for name, v in zip(MPCCarry._fields, template)))
 
 
 def run_traced_checkpointed(cfg: MPCConfig, path: str, segment: int = 100,
@@ -600,6 +636,7 @@ def history_from_outputs(outs: MPCStepOut) -> Dict[str, np.ndarray]:
         "XS": outs.xs, "US": outs.us, "YS": outs.ys, "X_HAT_CORR": outs.xhat,
         "D_HAT": outs.dhat, "STATUS_SS": outs.status_ss,
         "STATUS_DYN": outs.status_dyn, "OCP_ITERS": outs.ocp_iters,
-        "SS_ITERS": outs.ss_iters,
+        "SS_ITERS": outs.ss_iters, "MHE_STATUS": outs.mhe_status,
+        "MHE_ITERS": outs.mhe_iters,
     }
     return {k: v.detach().cpu().numpy() for k, v in H.items() if v is not None}

@@ -1,8 +1,9 @@
 """Cost constructors (port of ``mpc_code_tpu/models/costs.py``).
 
 Plain callables over torch tensors: stage cost ``F_obj(x, u, y, xs, us,
-ys)`` (Utilities.defF_obj:323-381), steady-state cost (defFss_obj:267-321)
-and terminal cost ``Vfin(dx, xs)`` (defVfin:383-420).  Matrix weights are
+ys)`` (Utilities.defF_obj:323-381), steady-state cost (defFss_obj:267-321),
+terminal cost ``Vfin(dx, xs)`` (defVfin:383-420) and MHE stage cost
+``F_obj_mhe(w, v, t)`` (defF_obj_mhe:675-709).  Matrix weights are
 kept as f64 CPU tensors and cast to the argument's dtype and device at call
 time with ``.to(x)``, which ``torch.fx`` records, so the CUDA code
 generator (``ops/codegen.py``) sees a constant matrix.
@@ -15,7 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mpc_code_tpu_torch.config import LinearModel, MPCConfig, SSCost, StageCost
+from mpc_code_tpu_torch.config import LinearModel, MHECost, MPCConfig, SSCost, StageCost
 from mpc_code_tpu_torch.ops.dare import solve_dare
 
 
@@ -69,6 +70,28 @@ def build_ss_cost(ssc: SSCost) -> Callable:
     if ssc.f_obj is not None:
         return ssc.f_obj
     raise ValueError("steady-state cost is empty")
+
+
+def build_mhe_cost(mc: MHECost) -> Callable:
+    """F_obj_mhe(w, v, t) — LP ``r_w·w + r_v·v`` (no abs: the reference's
+    quirk, Utilities.py:692-696), QP ``0.5 (w'Qw + v'Rv)`` or the user's."""
+    if mc.r_w is not None:
+        r_w, r_v = _w(mc.r_w), _w(mc.r_v)
+
+        def f(w, v, t):
+            return torch.sum(r_w.to(w) @ w) + torch.sum(r_v.to(v) @ v)
+
+        return f
+    if mc.Q is not None:
+        Q, R = _w(mc.Q), _w(mc.R)
+
+        def f(w, v, t):
+            return 0.5 * (w @ (Q.to(w) @ w) + v @ (R.to(v) @ v))
+
+        return f
+    if mc.f_obj is not None:
+        return mc.f_obj
+    raise ValueError("MHE cost is empty")
 
 
 def build_terminal_cost(cfg: MPCConfig) -> Callable:

@@ -216,3 +216,58 @@ def build_plant(cfg: MPCConfig, model: ModelFns) -> PlantFns:
             return out
 
     return PlantFns(fx=fxp, fy=fyp, nominal=False)
+
+
+def build_mhe_model(cfg: MPCConfig, model: ModelFns) -> Callable:
+    """Augmented-state MHE dynamics ``Fx_mhe(csi, u, k, t, w, px) -> csi_next``
+    over csi = [x; d], with the process noise w entering through G
+    (Utilities.defFx_mhe, Utilities.py:713-823).
+
+    A dedicated MHE state map (``fx_mhe_cont`` by RK4 with ``Mx_mhe``
+    sub-steps, or ``fx_mhe_dis``) is used when the config gives one, with
+    ``+ Bd d`` under offree='lin', d carried constant, ``+ G w`` and the
+    LinPar term; otherwise the controller model is augmented as the main
+    loop does for the other estimators (MPC_code.py:546-558), plus ``G w``."""
+    nx, nd = cfg.nx, cfg.nd
+    est = cfg.estimator
+    lin = cfg.dist.offree == "lin"
+    lin_par = cfg.LinPar
+    G = torch.eye(nx + nd, dtype=torch.float64) if est.G_mhe is None else _mat(est.G_mhe)
+    Bd = _mat(cfg.dist.Bd)
+
+    if est.fx_mhe_cont is not None:
+        user_fc = est.fx_mhe_cont
+        integ = rk4(lambda xx, tt, uu, dd, pp, ww: user_fc(xx, uu, dd, tt, pp, ww),
+                    est.Mx_mhe)
+
+        def core(x, u, k, d, t, px, w):
+            return integ(x, t, k, u, d, px, w)                 # Utilities.py:746-762
+
+    elif est.fx_mhe_dis is not None:
+        user_fd = est.fx_mhe_dis
+
+        def core(x, u, k, d, t, px, w):
+            return user_fd(x, u, d, t, px, w)                  # Utilities.py:776-780
+
+    if est.fx_mhe_cont is not None or est.fx_mhe_dis is not None:
+
+        def fx_mhe(csi, u, k, t, w, px):
+            x1, d1 = csi[:nx], csi[nx : nx + nd]
+            xn = core(x1, u, k, d1, t, px, w)
+            if lin:
+                xn = xn + Bd.to(xn) @ d1                       # Utilities.py:804-808
+            out = torch.cat([xn, d1]) + G.to(xn) @ w           # Utilities.py:813-821
+            if lin_par:
+                out = out + torch.cat([px, out.new_zeros(nd)])
+            return out
+
+    else:
+        def fx_mhe(csi, u, k, t, w, px):
+            if nd > 0:
+                x1, d1 = csi[:nx], csi[nx : nx + nd]
+                out = torch.cat([model.fx(x1, u, k, d1, t, px), d1])
+            else:
+                out = model.fx(csi, u, k, csi.new_zeros(0), t, px)
+            return out + G.to(out) @ w
+
+    return fx_mhe

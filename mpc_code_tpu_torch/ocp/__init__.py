@@ -1,2 +1,3 @@
-"""Problem builders of the port: the dense shooting OCP (``ocp/shooting.py``)
-and the steady-state target (``ocp/target.py``)."""
+"""The port's problem transcriptions: the dense shooting OCP (``ocp/shooting.py``),
+the steady-state target (``ocp/target.py``) and the MHE window NLP in its
+dense and structured forms (``ocp/mhe.py``)."""

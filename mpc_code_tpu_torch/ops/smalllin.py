@@ -43,3 +43,11 @@ def solve_lu(A, b):
     x = _nan_where(info > 0, x)
     return x.squeeze(-1) if vec else x
 
+
+
+def inv(A):
+    """Inverse of (..., n, n) by pivoted LU; a singular lane comes back as
+    NaN, where ``torch.linalg.inv`` raises for the whole batch and JAX's
+    unrolled elimination gives non-finite values on that lane only."""
+    Ainv, info = torch.linalg.inv_ex(A)
+    return _nan_where(info > 0, Ainv)

@@ -104,69 +104,60 @@ def cf_bytes(Bsz, N, nx, nu, nd, npx, npy, itemsize) -> int:
 
 
 def rk4_quad_stage_hess_plain(f, q, Mx, xs, us, pxs, pys, t, h, d, x_ss, u_ss):
-    """Lanes-minor joint rollout; first order by nz forward tangents
-    (``torch.func.jvp``, vmapped over the directions), the Hessian by
-    forward-over-reverse (jvp of the vjp gradient of the quadrature), then
-    symmetrised: the arithmetic of ``integrators.rk4_quad_stage_hess``'s
-    batched JAX rule."""
+    """The joint rollout per (scenario, stage) point, vmapped over the
+    points: the Jacobians of the state and of the quadrature by reverse
+    mode, the quadrature's Hessian by reverse over reverse, then
+    symmetrised.  The values are those of ``integrators.rk4_quad_stage_hess``'s
+    batched JAX rule (forward tangents) to rounding; torch's forward mode
+    runs Python decompositions for every op that mixes a tensor and a
+    Python number, ~20x slower through the sub-steps on the CPU."""
     Bsz, N, nx = xs.shape
     nu = us.shape[-1]
     L = Bsz * N
-    nz = nx + nu
 
-    def st(a):
-        return a.reshape(L, a.shape[-1]).t()
+    def flat(a):
+        return a.reshape(L, a.shape[-1])
 
-    def sh(a):
-        return a.repeat_interleave(N, dim=0).t()
+    def rep(a):
+        return a.repeat_interleave(N, dim=0)
 
-    xT, uT, pxT, pyT = st(xs), st(us), st(pxs), st(pys)
-    dT, xsT, usT = sh(d), sh(x_ss), sh(u_ss)
-    tT, hT = t.repeat_interleave(N), h.repeat_interleave(N)
-
-    def roll(xv, uv):
-        dt = hT / Mx
-        acc = torch.zeros_like(tT)
-        tv = tT
+    def roll(z, t0, hh, dd, px, xss, uss, py):
+        """[x(t0 + hh); quadrature] from z = [x; u] at one point."""
+        xv, uv = z[:nx], z[nx:]
+        dt = hh / Mx
+        acc = torch.zeros_like(t0)
+        tv = t0
         for _ in range(Mx):
-            k1 = f(xv, tv, uv, dT, pxT, xsT, usT, pyT)
-            q1 = q(xv, tv, uv, dT, pxT, xsT, usT, pyT)
+            k1 = f(xv, tv, uv, dd, px, xss, uss, py)
+            q1 = q(xv, tv, uv, dd, px, xss, uss, py)
             x2 = xv + dt / 2 * k1
-            k2 = f(x2, tv + dt / 2, uv, dT, pxT, xsT, usT, pyT)
-            q2 = q(x2, tv + dt / 2, uv, dT, pxT, xsT, usT, pyT)
+            k2 = f(x2, tv + dt / 2, uv, dd, px, xss, uss, py)
+            q2 = q(x2, tv + dt / 2, uv, dd, px, xss, uss, py)
             x3 = xv + dt / 2 * k2
-            k3 = f(x3, tv + dt / 2, uv, dT, pxT, xsT, usT, pyT)
-            q3 = q(x3, tv + dt / 2, uv, dT, pxT, xsT, usT, pyT)
+            k3 = f(x3, tv + dt / 2, uv, dd, px, xss, uss, py)
+            q3 = q(x3, tv + dt / 2, uv, dd, px, xss, uss, py)
             x4 = xv + dt * k3
-            k4 = f(x4, tv + dt, uv, dT, pxT, xsT, usT, pyT)
-            q4 = q(x4, tv + dt, uv, dT, pxT, xsT, usT, pyT)
+            k4 = f(x4, tv + dt, uv, dd, px, xss, uss, py)
+            q4 = q(x4, tv + dt, uv, dd, px, xss, uss, py)
             xv = xv + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
             acc = acc + dt / 6 * (q1 + 2 * q2 + 2 * q3 + q4)
             tv = tv + dt
-        return xv, acc
+        return torch.cat([xv, acc[None]])
 
-    eye = torch.eye(nz, dtype=xs.dtype, device=xs.device)
-    TX = eye[:, :nx, None].expand(nz, nx, L)
-    TU = eye[:, nx:, None].expand(nz, nu, L)
+    def with_value(z, *p):
+        out = roll(z, *p)
+        return out, out
 
-    def lin(a, b):
-        return torch.func.jvp(roll, (xT, uT), (a, b))
-
-    (xv, qv), (dX, dq) = torch.func.vmap(lin)(TX, TU)
-
-    def grad_q(xx, uu):
-        out, vjp_fn = torch.func.vjp(roll, xx, uu)
-        return vjp_fn((torch.zeros_like(out[0]), torch.ones_like(out[1])))
-
-    def hcol(a, b):
-        return torch.func.jvp(grad_q, (xT, uT), (a, b))[1]
-
-    hx, hu = torch.func.vmap(hcol)(TX, TU)
-    H = torch.cat([hx, hu], dim=1).permute(2, 1, 0).reshape(Bsz, N, nz, nz)
+    pts = (torch.cat([flat(xs), flat(us)], -1), t.repeat_interleave(N),
+           h.repeat_interleave(N), rep(d), flat(pxs), rep(x_ss), rep(u_ss), flat(pys))
+    J, val = torch.func.vmap(torch.func.jacrev(with_value, has_aux=True))(*pts)
+    H = torch.func.vmap(torch.func.jacrev(torch.func.jacrev(
+        lambda z, *p: roll(z, *p)[nx])))(*pts)
     H = 0.5 * (H + H.transpose(-1, -2))
-    J = dX.permute(2, 1, 0).reshape(Bsz, N, nx, nz)
-    return (xv[0].t().reshape(Bsz, N, nx), J[..., :nx], J[..., nx:],
-            qv[0].reshape(Bsz, N), dq.t().reshape(Bsz, N, nz), H)
+    nz = nx + nu
+    return (val[:, :nx].reshape(Bsz, N, nx), J[:, :nx, :nx].reshape(Bsz, N, nx, nx),
+            J[:, :nx, nx:].reshape(Bsz, N, nx, nu), val[:, nx].reshape(Bsz, N),
+            J[:, nx].reshape(Bsz, N, nz), H.reshape(Bsz, N, nz, nz))
 
 
 # ---------------------------------------------------------------------------

@@ -80,13 +80,82 @@ def _todo(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def batch_params(p: dict, Bsz: int, dtype, device, ndim: Optional[dict] = None) -> dict:
+    """Parameter dict with a leading batch dimension on every entry.
+
+    Each entry of ``p`` is given either for one lane, and then shared by
+    all B lanes, or with a leading B; ``ndim`` gives each key's per-lane
+    rank (default ``PARAM_NDIM``, the OCP's {x0, xs, us, d, um1, t, lam,
+    px (N,npx), py (N,npy)}, the JAX solver's parameter pytree).  Floating
+    entries are cast to ``dtype``; boolean ones (a stage mask) stay
+    boolean."""
+    ndim = PARAM_NDIM if ndim is None else ndim
+    out = {}
+    for k, v in p.items():
+        v = torch.as_tensor(v, device=device)
+        if v.dtype != torch.bool:
+            # cast from the value given: a Python float keeps its f64 digits
+            v = torch.as_tensor(p[k], dtype=dtype, device=device)
+        nd = ndim.get(k, v.dim())
+        if v.dim() == nd:
+            v = v.expand((Bsz,) + tuple(v.shape))
+        elif v.dim() != nd + 1 or v.shape[0] != Bsz:
+            raise ValueError(f"parameter {k!r} has shape {tuple(v.shape)}; "
+                             f"expected rank {nd} or ({Bsz}, ...)")
+        out[k] = v
+    return out
+
+
+def stage_params(p: dict, N: int) -> dict:
+    """One entry per (scenario, stage) point, flattened to B*N: the shared
+    per-lane data, ``px``/``py`` of that stage, ``py0`` (stage 0) and
+    ``k0``, whether the point is stage 0 (the JAX stage functions' ``k ==
+    0``)."""
+    Bsz = p["xs"].shape[0]
+
+    def rep(v):
+        return v.unsqueeze(1).expand((Bsz, N) + tuple(v.shape[1:])).reshape(
+            (Bsz * N,) + tuple(v.shape[1:]))
+
+    pk = {k: rep(p[k]) for k in ("xs", "us", "d", "um1", "t", "lam")}
+    pk["px"] = p["px"].reshape(Bsz * N, -1)
+    pk["py"] = p["py"].reshape(Bsz * N, -1)
+    pk["py0"] = rep(p["py"][:, 0])
+    pk["k0"] = (torch.arange(N, device=p["xs"].device) == 0).repeat(Bsz)
+    if "_sf" in p:
+        pk["_sf"] = rep(p["_sf"])
+    return pk
+
+
+def terminal_params(p: dict) -> dict:
+    """The terminal cost's parameters: the OCP's ``xs``."""
+    return {"xs": p["xs"]}
+
+
+class ParamHook(NamedTuple):
+    """How the solver reads an OCP's parameter dict ``p``: each key's
+    per-lane rank (``batch_params``), ``stage(p, N)`` the per-point dict
+    the stage functions see, flattened to B*N, and ``terminal(p)`` the
+    terminal cost's.  The JAX solver hands its stage functions the whole
+    pytree with the stage index ``k``; here the hook does the indexing
+    once per solve."""
+    ndim: dict
+    stage: Callable
+    terminal: Callable
+
+
+OCP_PARAMS = ParamHook(PARAM_NDIM, stage_params, terminal_params)
+
+
 @dataclass(frozen=True)
 class StructuredOCP:
     """Stagewise OCP over the (scaled) augmented state xa.
 
     ``cost`` and ``ineq`` act on one point ``(xa, u, pk)``, where
-    ``pk`` is one (scenario, stage) slice of ``stage_params(p, N)``;
-    ``cost_N`` on one ``(xa, pN)`` with ``pN = {"xs", "_sf"}``.
+    ``pk`` is one (scenario, stage) slice of ``params.stage(p, N)``;
+    ``cost_N`` on one ``(xa, pN)`` with ``pN = params.terminal(p)`` and
+    ``"_sf"``.  ``params`` defaults to the OCP's parameter dict
+    (``OCP_PARAMS``); the MHE (``ocp/mhe.py``) brings its own.
     ``stage_dyn_jac`` is batched: ``(X (B,N,nxa), U (B,N,nu), p) ->
     (dval, A, B)`` in scaled units through the CUDA sweep on the card.
     A ContForm OCP has ``stage_cf`` instead: ``(X, U, p) -> (dval, A, B,
@@ -125,6 +194,7 @@ class StructuredOCP:
     stage_cf: Optional[Callable] = None
     dyn: Optional[Callable] = None
     lowering: Optional["StageLowering"] = None
+    params: ParamHook = OCP_PARAMS
 
 
 # the per-point parameters of the lowered stage cost and rows, in order
@@ -164,46 +234,6 @@ class StructResult(NamedTuple):
     nus: torch.Tensor    # (B, N, ni) inequality multipliers
     mu: torch.Tensor     # final barrier parameter
     sf: torch.Tensor     # objective scaling the duals/mu are in
-
-
-def batch_params(p: dict, Bsz: int, dtype, device) -> dict:
-    """Parameter dict with a leading batch dimension on every entry.
-
-    Each entry of ``p`` ({x0, xs, us, d, um1, t, lam, px (N,npx),
-    py (N,npy)}, the JAX solver's parameter pytree) is given either for one
-    lane, and then shared by all B lanes, or with a leading B."""
-    out = {}
-    for k, v in p.items():
-        v = torch.as_tensor(v, dtype=dtype, device=device)
-        nd = PARAM_NDIM.get(k, v.dim())
-        if v.dim() == nd:
-            v = v.expand((Bsz,) + tuple(v.shape))
-        elif v.dim() != nd + 1 or v.shape[0] != Bsz:
-            raise ValueError(f"parameter {k!r} has shape {tuple(v.shape)}; "
-                             f"expected rank {nd} or ({Bsz}, ...)")
-        out[k] = v
-    return out
-
-
-def stage_params(p: dict, N: int) -> dict:
-    """One entry per (scenario, stage) point, flattened to B*N: the shared
-    per-lane data, ``px``/``py`` of that stage, ``py0`` (stage 0) and
-    ``k0``, whether the point is stage 0 (the JAX stage functions' ``k ==
-    0``)."""
-    Bsz = p["xs"].shape[0]
-
-    def rep(v):
-        return v.unsqueeze(1).expand((Bsz, N) + tuple(v.shape[1:])).reshape(
-            (Bsz * N,) + tuple(v.shape[1:]))
-
-    pk = {k: rep(p[k]) for k in ("xs", "us", "d", "um1", "t", "lam")}
-    pk["px"] = p["px"].reshape(Bsz * N, -1)
-    pk["py"] = p["py"].reshape(Bsz * N, -1)
-    pk["py0"] = rep(p["py"][:, 0])
-    pk["k0"] = (torch.arange(N, device=p["xs"].device) == 0).repeat(Bsz)
-    if "_sf" in p:
-        pk["_sf"] = rep(p["_sf"])
-    return pk
 
 
 def _t(a, like):
@@ -662,7 +692,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         def T(a):
             return torch.as_tensor(np.asarray(a, float), **kw)
 
-        p = batch_params(p, Bsz, dtype, dev)
+        p = batch_params(p, Bsz, dtype, dev, s.params.ndim)
         lbx, ubx, lbu, ubu, lbi, ubi = (T(s.lbx), T(s.ubx), T(s.lbu), T(s.ubu),
                                         T(s.lbi), T(s.ubi))
         INF = 1e18
@@ -697,8 +727,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         U_init = push(_nan0(U0) / su_t, lbu, ubu, hlu, huu)
 
         # gradient-based objective scaling (IPOPT gmax=100 analog)
-        pk = stage_params(p, N)
-        pN = {"xs": p["xs"]}
+        pk = s.params.stage(p, N)
+        pN = s.params.terminal(p)
         Zs0 = torch.cat([X_init[:, :N], U_init], dim=-1).reshape(L, nz)
         g0 = v_grad_c0(Zs0, pk)
         gN0 = v_grad_N0(X_init[:, N], pN)

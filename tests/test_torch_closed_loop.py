@@ -180,17 +180,23 @@ def test_dense_loop_matches_jax():
 
 
 def test_unported_features_raise():
+    """The MHE runs in the batched step since it was ported; what is still
+    unported raises with its ROADMAP item: the hand-off from the host
+    ``MHERuntime`` (item 22) and modifier adaptation (item 23)."""
+    from mpc_code_tpu_torch.estimators.mhe import make_mhe_traced
+    from mpc_code_tpu_torch.examples.enmpc import make_config as enmpc
+    from mpc_code_tpu_torch.examples.enmpc_loop_workload import make_config as enmpc_loop
     from mpc_code_tpu_torch.examples.nmpc import make_config
-    from mpc_code_tpu_torch.loop.batched import init_carry, make_mpc_step
+    from mpc_code_tpu_torch.loop.batched import make_mpc_step
+    from mpc_code_tpu_torch.models import build_model
 
     cfg = make_config().replace(N=N)
-    mhe = cfg.replace(estimator=dc.replace(cfg.estimator, kind="mhe"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_mpc_step(mhe, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        init_carry(mhe, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        init_carry(cfg, mhe=object(), device="cpu")
+    mhe = enmpc().replace(N=N)
+    _, carry_from_runtime = make_mhe_traced(mhe, build_model(mhe), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 22"):
+        carry_from_runtime(None, None)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        enmpc_loop(warm_handoff=True)
     with pytest.raises(NotImplementedError, match="item 23"):
         make_mpc_step(cfg.replace(Adaptation=True), device="cpu")
 
@@ -209,6 +215,32 @@ def test_loop_entry_points_default_to_the_card():
             init_carry(cfg)
     c = init_carry(cfg, torch.zeros((2, 3), dtype=torch.float32), device="cpu")
     assert c.x.device.type == "cpu" and c.x.dtype == torch.float32 and c.P.shape == (2, 5, 5)
+
+
+def test_mhe_entry_points_default_to_the_card():
+    """With estimator kind 'mhe': ``make_mpc_step``, ``init_carry``,
+    ``run_traced``, ``make_mhe_traced`` and ``make_mhe_cold_carry`` run on
+    the card unless ``device="cpu"`` is passed; ``init_carry`` builds the
+    cold MHE window of B lanes in the lanes' dtype."""
+    from mpc_code_tpu_torch.estimators.mhe import make_mhe_cold_carry, make_mhe_traced
+    from mpc_code_tpu_torch.examples.enmpc import make_config
+    from mpc_code_tpu_torch.loop.batched import init_carry, make_mpc_step, run_traced
+    from mpc_code_tpu_torch.models import build_model
+
+    cfg = make_config().replace(N=N)
+    calls = (lambda: make_mpc_step(cfg), lambda: init_carry(cfg),
+             lambda: run_traced(cfg, Nsim=1), lambda: make_mhe_traced(cfg, build_model(cfg)),
+             lambda: make_mhe_cold_carry(cfg))
+    if torch.cuda.is_available():
+        assert init_carry(cfg).mhe.x_bar.device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    c = init_carry(cfg, torch.zeros((3, 2), dtype=torch.float32), device="cpu")
+    assert c.mhe.x_bar.shape == (3, 4) and c.mhe.x_bar.dtype == torch.float32
+    assert c.mhe.steps.tolist() == [0, 0, 0] and c.mhe.duals["zl"].shape == (3, 11, 8)
+    assert c.mhe.sm.Pycondx_inv.shape == (3, 18, 18)
 
 
 def test_estimation_only_step_keeps_the_input():
