@@ -61,7 +61,7 @@ It never imports JAX or the JAX package.  Phases:
    — the warm batched CSTR NMPC closed loop (EKF, dense-IPM target in
    f64, structured OCP under Gauss-Newton warm-started from the shifted primal
    and dual solution, non-nominal plant, output noise), B=16384 lanes,
-   LOOP_NSIM=4 steps, f32 — with per step the wall time, the target and
+   LOOP_NSIM=2 steps, f32 — with per step the wall time, the target and
    OCP iterations, the infeasible shares, the launches of kernels 1 and 2
    (both on every step) and the share of non-finite lanes; a summary of
    the cold step 0 against the warm steps and the warm step's phase split;
@@ -74,7 +74,7 @@ It never imports JAX or the JAX package.  Phases:
    u_prev rows, nxa=5, whose only kernel is the Riccati KKT solve),
    B=16384 lanes, LOOP_NSIM steps, f32 — checked as phase 7, with the
    kernel's launches equal to the OCP solver's passes on every step, and
-   steps 0 and 3 replayed with their OCP under the profiler for its
+   steps 0 and 1 replayed with their OCP under the profiler for its
    launches per pass;
 9. the bench port (``clb``): ``examples/closed_loop_bench.py`` at its
    defaults (B=1024, 20 steps, cap 10), its two lines;
@@ -82,16 +82,32 @@ It never imports JAX or the JAX package.  Phases:
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
    economic target by the dense IPM and the ContForm OCP under
-   Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup,
-   the first full window and the MHE's dual warm start), ENMPC_NSIM steps,
+   Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup and
+   the first full window), ENMPC_NSIM steps,
    f32 throughout — checked as phase 7, with on every step kernel 2's
    launches in the MHE equal to the MHE solver's passes and in the OCP to
    the OCP solver's, kernel 4's equal to the OCP's passes, the non-finite
-   shares of the MHE's P, x_bar, Pycondx_inv and the estimate, step 12
+   shares of the MHE's P, x_bar, Pycondx_inv and the estimate, step 9
    replayed with the MHE and the OCP under the profiler, and the 64-lane
    f64 check holding every MHE, target and OCP iteration and status and the
    estimate too;
-11. one ``{"kernels": [...]}`` line, and as the last line
+11. the host loop (``host_loop``): ``loop/simulator.py::ClosedLoop`` on the
+   card in f64 on ``fixtures/enmpc.npz`` (the host MHE, its window solves
+   on kernel 2 at one lane) and ``fixtures/nmpc.npz`` (the EKF), every
+   recorded key within the fixtures'
+   1e-4, the native host core built and loaded, per step the phase times,
+   iterations and statuses, kernel 2's launches in the MHE equal to its
+   passes and no other launch, one host
+   step under the profiler (launches, device-to-host copies), kernel 2 at
+   one lane against its plain version, and the command line
+   (``examples/__main__.py``) at Ex_ENMPC's size, its history file read
+   back;
+12. the warm hand-off (``enmpc_handoff``): the ENMPC flagship's host
+   warmup (``ClosedLoop``, N_mhe + 2 = 12 steps, f32 on the card) held
+   against the CPU's f64 run, then ``carry_from_runtime`` into the batched
+   step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 10
+   from the handed-off carry;
+13. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -182,9 +198,10 @@ RESOLVE_MAX = 64                   # failing lanes re-solved on the CPU in f64
 # target or input) and feasible on rounding jumps its input, and the loop
 # carries that on (PERF.md, PR 7: up to 0.59 of the box by step 9, while
 # every single f32 step lies within 2.1e-2 of f64 from the same state).
-# 4 steps (the cold step and three warm ones) keep the whole smoke, with
-# enmpc_loop's 16, well inside its time limit
-LOOP_NSIM = 4
+# 2 steps (the cold step and a warm one; 6 and then 4 before) keep the
+# whole smoke, with enmpc_loop's and the host loop's phases, inside its
+# time limit
+LOOP_NSIM = 2
 LOOP_F64_TOL = 1e-6
 LOOP_STATUS_DIFF_MAX = 1
 # The LMPC loop (lmpc_loop) keeps these rules with one change: its f32 OCP
@@ -196,14 +213,26 @@ LOOP_STATUS_DIFF_MAX = 1
 # LOOP_STATUS_DIFF_MAX a step) is not held to a U tolerance.
 # The ENMPC flagship loop (enmpc_loop) keeps the closed loops' rules for
 # ENMPC_NSIM steps: the traced MHE warmup (steps 0-8), the first full
-# window with the first prior update (step 9) and six steady steps with the
-# MHE's dual warm start (10-15); the JAX tool runs N_mhe + 2 + 20 = 32.
-# Its statuses and iterations (MHE, target, OCP) and U, Xp and the
-# estimate are held as the other loops' U and Xp; ENMPC_PROFILE_STEPS (a
-# steady step: the MHE warm-started, ~50 s under the profiler) are replayed
-# under the profiler.
-ENMPC_NSIM = 16
-ENMPC_PROFILE_STEPS = (12,)
+# window with the first prior update (step 9); the JAX tool runs N_mhe + 2
+# + 20 = 32 (16 steps until the host loop's phases came: enmpc_handoff
+# runs eight steady steps with the MHE's dual warm start).  Its statuses
+# and iterations (MHE, target, OCP) and U, Xp and the estimate are held as
+# the other loops' U and Xp; ENMPC_PROFILE_STEPS (the first full window,
+# ~30 s under the profiler) are replayed under the profiler.
+ENMPC_NSIM = 10
+ENMPC_PROFILE_STEPS = (9,)
+# The host loop (host_loop): the fixtures of tools/record_fixtures.py:28-36
+# through ClosedLoop on the card in f64, every recorded key within the
+# fixtures' bar (tests/test_fixtures.py:37); step HOST_PROFILE_STEP of
+# the ENMPC fixture (a full window) under the profiler.  The hand-off
+# (enmpc_handoff): the host warmup of N_mhe + 2 steps in f32 on the card,
+# then HANDOFF_T steady steps of B lanes.
+HOST_FIXTURES = (("enmpc", 8, 8, 5), ("nmpc", 10, 10, None))
+FIXTURE_BAR = 1e-4
+FIXTURE_KEYS = ("Xp", "Yp", "U", "XS", "US", "YS", "X_HAT", "D_HAT")
+HOST_PROFILE_STEP = 6
+HANDOFF_T = 8
+HANDOFF_REF_THREADS = 4            # the continuation's CPU run, alone by then
 CLB_BATCH, CLB_STEPS = 1024, 20    # the bench port's defaults
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FLOPS = {"float32": 67e12, "float64": 34e12}   # without tensor cores
@@ -306,8 +335,11 @@ def riccati_inputs(dtype, device, nxa=3, nu=2, N=50, seed=2, batch=B):
     PN = MP @ np.swapaxes(MP, -1, -2) + np.eye(nxa)
     pN = rng.normal(size=(batch, nxa))
     delta = np.zeros(batch)
-    bad_lane = 7
-    Hs[bad_lane, N - 1, nxa:, nxa:] = -1e3 * np.eye(nu)   # indefinite Quu
+    # one lane with an indefinite Quu (none at one lane, the host MHE's
+    # call, which is timed on a lane that factors)
+    bad_lane = 7 if batch > 7 else None
+    if bad_lane is not None:
+        Hs[bad_lane, N - 1, nxa:, nxa:] = -1e3 * np.eye(nu)
     kw = dict(dtype=dtype, device=device)
     return ([torch.as_tensor(a, **kw) for a in (Hs, q, A, Bm, rd, PN, pN, delta)],
             bad_lane)
@@ -406,7 +438,8 @@ def riccati_check(dev, dtype, N, nxa, nu, out, batch=B):
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32["riccati_kkt"]
     log(f"# kernel riccati_kkt ({N}, {nxa}, {nu}) B={batch} {tname}: max_norm_err={err:.3e} "
         f"max_abs_err={abs_err:.3e} (tol {tol:g}) ok_flags_equal={flags_equal} "
-        f"bad_lane_ok={bool(ok_g[bad_lane])} n_not_ok={int((~ok_r).sum())} "
+        f"bad_lane_ok={bad_lane is not None and bool(ok_g[bad_lane])} "
+        f"n_not_ok={int((~ok_r).sum())} "
         f"kernel_ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}) "
         f"{geo.group} threads a lane, {geo.lanes} lanes a block, ring depth "
@@ -414,7 +447,8 @@ def riccati_check(dev, dtype, N, nxa, nu, out, batch=B):
     out[tname] = dict(max_norm_err=err, max_abs_err=abs_err, ms=ms,
                       wrapper_ms=call_ms, plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o,
                       depth=geo.depth, smem=geo.smem)
-    if not (err <= tol and flags_equal and not bool(ok_g[bad_lane])):
+    if not (err <= tol and flags_equal
+            and (bad_lane is None or not bool(ok_g[bad_lane]))):
         return [f"riccati_kkt ({N}, {nxa}, {nu}) {tname}: err {err:.3e} "
                 f"(tol {tol:g}), ok flags equal {flags_equal}"]
     return []
@@ -964,13 +998,16 @@ def record_ok_flags(runs):
     return lambda: setattr(riccati, "riccati_kkt", inner)
 
 
-def cpu_reference(path, dtype_name):
+def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
-    "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop" or
-    "enmpc_loop") in one
+    "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop",
+    "enmpc_loop", "enmpc_handoff") in one
     dtype, with the Riccati ``ok`` flags of every call (for the loops: the
-    closed loop's history).  Returns (per-lane results, flags).  It runs
+    closed loop's history; "enmpc_handoff" continues from ``carry``, numpy
+    arrays, at time ``t0`` and step ``k0``).  "enmpc_handoff_warmup" is the
+    hand-off's host warmup through ``ClosedLoop`` on the CPU: (history,
+    per-step stats).  Returns (results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -983,6 +1020,21 @@ def cpu_reference(path, dtype_name):
     flags = []
     undo = record_ok_flags([flags])
     try:
+        if path.startswith("enmpc_handoff"):
+            from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
+            from mpc_code_tpu_torch.loop import ClosedLoop
+            from mpc_code_tpu_torch.loop.batched import cast_carry, map_carry
+
+            cfg = mw.make_config(warm_handoff=True)
+            if path == "enmpc_handoff_warmup":
+                loop = ClosedLoop(cfg.replace(Nsim=mw.handoff_steps(cfg)), device=cpu,
+                                  dtype=dtype)
+                return (loop.run(), loop.step_stats), flags
+            torch.set_num_threads(HANDOFF_REF_THREADS)
+            c = cast_carry(map_carry(torch.as_tensor, carry), dtype)
+            H, _ = mw.run_loop(cfg, None, Nsim=HANDOFF_T, device=cpu,
+                               step=mw.make_step(cfg, cpu), carry=c, t0=t0, k0=k0)
+            return H, flags
         if path in ("cstr_loop", "lmpc_loop", "enmpc_loop"):
             from mpc_code_tpu_torch.examples import closed_loop_workload as cw
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
@@ -1195,6 +1247,9 @@ class Loop(NamedTuple):
     nsim: int = LOOP_NSIM
     mhe: bool = False      # the estimator is the MHE: its solver's passes are counted
     profile_steps: Any = None   # the steps replayed (None: every step)
+    start: Any = None      # start(dev, cfg) -> dict(carry, t0, k0, ref, failures,
+                           # report): the run starts from that carry (None: step 0)
+    warmup: bool = True    # a 2-step run of 256 lanes first (the card warmed)
 
 
 def solver_passes(iters, status):
@@ -1329,7 +1384,7 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     import torch
 
     from mpc_code_tpu_torch.loop.batched import (
-        cast_carry, history_from_outputs, init_carry, stack_outputs,
+        cast_carry, history_from_outputs, init_carry, map_carry, stack_outputs,
     )
     from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
 
@@ -1338,9 +1393,15 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     cfg = wl.make_config()
     cap = cfg.sol_opts_dyn.max_iter
     step = wl.make_step(cfg, device=dev)
-    t0 = time.perf_counter()
-    wl.run_loop(cfg, wl.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
-    log(f"# {name} warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
+    if loop.warmup:
+        t0 = time.perf_counter()
+        wl.run_loop(cfg, wl.draw_x0(256, dev), Nsim=2, step=step)     # warm-up run
+        log(f"# {name} warm-up run (256 lanes, 2 steps): {time.perf_counter() - t0:.2f} s")
+    # a phase that starts from a handed-off carry (enmpc_handoff) instead of
+    # step 0
+    begin = loop.start(dev, cfg) if loop.start is not None else {}
+    failures += begin.get("failures", [])
+    t_start, k_start = begin.get("t0", 0.0), begin.get("k0", 0)
 
     # the launch counts at the end of the estimate phase (the MHE's share)
     at_estimate = {}
@@ -1389,12 +1450,13 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
             carries[k + 1] = carry
 
     torch.cuda.reset_peak_memory_stats(dev)
-    x0s = wl.draw_x0(B, dev)
+    x0s = None if begin else wl.draw_x0(B, dev)
     if 0 in prof_steps and loop.profile:
-        carries[0] = init_carry(cfg, x0s, device=dev, dtype=x0s.dtype)
+        carries[0] = begin.get("carry") or init_carry(cfg, x0s, device=dev, dtype=x0s.dtype)
     for mod in loop.counters.values():
         mod.LAUNCHES = 0
-    H32, times = wl.run_loop(cfg, x0s, Nsim=nsim, step=counted_step, on_step=on_step)
+    H32, times = wl.run_loop(cfg, x0s, Nsim=nsim, step=counted_step, on_step=on_step,
+                             carry=begin.get("carry"), t0=t_start, k0=k_start)
     for kname in loop.counters:
         launches[f"{kname}_{name}"] = sum(r[kname] for r in per_step)
         launches[f"{kname}_{name}_mhe"] = sum(r[f"{kname}_mhe"] for r in per_step)
@@ -1420,7 +1482,8 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
         target_ok_share=float((H32["STATUS_SS"] != 2).mean()),
         ocp_status_counts=[np.bincount(r, minlength=3).tolist() for r in H32["STATUS_DYN"]],
         launches={k: launches[f"{k}_{name}"] for k in loop.counters},
-        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        **begin.get("report", {}))
     if loop.mhe:
         report.update(
             step_ms=[1e3 * tm["wall_s"] for tm in times],
@@ -1444,7 +1507,9 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     if loop.profile:
         # the chosen steps again from their input carries, under the profiler
         t0 = time.perf_counter()
-        rows = profile_steps(step, carries, make_step_inputs(cfg, nsim), loop.profile)
+        rows = profile_steps(step, carries,
+                             make_step_inputs(cfg, nsim, t0=t_start, k0=k_start),
+                             loop.profile)
         for r in rows:
             log(f"# {name} profile, {r['phase']} " + json.dumps(r))
         for ph, key in (("ocp", "ocp"), ("estimate", "mhe")):
@@ -1460,8 +1525,12 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     # (worker process); from each of its steps' states one f32 step on the
     # card; the main run's free-running f32 lanes, reported
     t0 = time.perf_counter()
-    c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
-    inputs = make_step_inputs(cfg, nsim)
+    if begin:
+        # the handed-off carry's first lanes, cast to f64
+        c64 = cast_carry(map_carry(lambda a: a[:N_CHECK], begin["carry"]), torch.float64)
+    else:
+        c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
+    inputs = make_step_inputs(cfg, nsim, t0=t_start, k0=k_start)
     outs64, outs32 = [], []
     for k in range(nsim):
         inp = StepInput(*(a[k] for a in inputs))
@@ -1470,7 +1539,7 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
         outs64.append(out)
     H64 = history_from_outputs(stack_outputs(outs64))
     R32 = history_from_outputs(stack_outputs(outs32))
-    ref = cpu_refs[(name, "float64")].result()[0]
+    ref = (begin["ref"] if begin else cpu_refs[(name, "float64")]).result()[0]
     equal_keys = ("STATUS_SS", "STATUS_DYN", "OCP_ITERS")
     err_keys = ("U", "Xp")
     if loop.mhe:
@@ -1526,6 +1595,239 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     return failures, report
 
 
+def kernel_counters():
+    """Every kernel's launch counter: name -> the module whose LAUNCHES
+    counts it."""
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    return {"rk4_stage_jac": sweep_cuda, "riccati_kkt": rk,
+            "rk4_quad_stage_hess": sweep_cf_cuda, "map_stage_jac": sweep_map_cuda,
+            "stage_sweep": sk}
+
+
+class HostWindow:
+    """Device launches and host synchronisations of one stretch of host
+    code under torch.profiler (CUDA activity only): the kernels, and the
+    device-to-host copies, each of which the host waits for (every
+    ``np.asarray`` of a result, every ``bool()`` of a solver's loop test)."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.result = None
+
+    def start(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.stop()
+        # the raw device events: a host step has ~380,000 kernels, and the
+        # profiler's own aggregation (key_averages) of them takes ~70 s
+        launches = syncs = busy_ns = 0
+        for e in self.prof.profiler.kineto_results.events():
+            if not str(e.device_type()).endswith("CUDA"):
+                continue
+            name = e.name()
+            busy_ns += e.duration_ns()
+            if name.startswith("Memcpy DtoH"):
+                syncs += 1
+            elif not name.startswith(("Memcpy", "Memset")):
+                launches += 1
+        self.result = dict(wall_ms=1e3 * wall, launches=launches, host_syncs=syncs,
+                           busy_share=busy_ns / 1e9 / wall)
+
+
+def host_fixture(name, nsim, n, n_mhe, profile_step, device):
+    """One reduced fixture through ``ClosedLoop`` on ``device`` in f64: (the
+    history, the per-step stats, the launches of every kernel, the MHE's
+    kernel-2 launches and passes per step, the profiled step, the wall
+    seconds)."""
+    import dataclasses
+
+    from mpc_code_tpu_torch.loop import ClosedLoop
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    mod = __import__(f"mpc_code_tpu_torch.examples.{name}", fromlist=["make_config"])
+    cfg = mod.make_config(Nsim=nsim).replace(N=n)
+    if n_mhe is not None:
+        cfg.estimator = dataclasses.replace(cfg.estimator, N_mhe=n_mhe)
+    loop = ClosedLoop(cfg, device=device)
+    mhe_rows, window = [], HostWindow()
+    if cfg.estimator.kind == "mhe":
+        rt, inner = loop.mhe_rt, loop.mhe_rt.step
+
+        def counted(ksim, *a):
+            # the profiled window: from this step's MHE to the next one's
+            if ksim == profile_step:
+                window.start()
+            elif profile_step is not None and ksim == profile_step + 1:
+                window.stop()
+            before = rk.LAUNCHES
+            out = inner(ksim, *a)
+            mhe_rows.append(dict(launches=rk.LAUNCHES - before,
+                                 passes=rt.last_iters + int(rt.last_status == 0)))
+            return out
+
+        rt.step = counted
+    mods = kernel_counters()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    H = loop.run()
+    wall = time.perf_counter() - t0
+    return (H, loop.step_stats, {k: m.LAUNCHES for k, m in mods.items()}, mhe_rows,
+            window.result, wall)
+
+
+def host_loop_phase(dev, launches, results):
+    """The host loop ``ClosedLoop`` on the card in f64: the reduced fixtures
+    ``fixtures/enmpc.npz`` (the MHE, 'smooth', its window by the structured
+    IPM: kernel 2 at (N_w+1, 4, 4), one lane) and ``fixtures/nmpc.npz``
+    (the EKF) within FIXTURE_BAR on every recorded key; per step the phase
+    ms, the iterations and statuses; kernel 2's launches in the MHE equal to
+    its solver's passes on every step and no other launch (the target and
+    the OCP are dense IPMs); one ENMPC step (HOST_PROFILE_STEP) under the
+    profiler for its launches and host synchronisations; kernel 2 at one
+    lane against its plain version; then the command line ``python -m
+    mpc_code_tpu_torch.examples enmpc --nsim 3 --save`` in-process at the
+    example's size (N=25, N_mhe=10), read back by ``utils/io``."""
+    import tempfile
+
+    import torch
+
+    from mpc_code_tpu_torch import native
+    from mpc_code_tpu_torch.examples import __main__ as cli
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.utils.io import load_history
+
+    failures, report = [], {}
+    # the native host core (native/hostcore.cpp by g++): the host MHE's
+    # 'smooth' update runs its backward smoother
+    report["native_available"] = native.available()
+    log(f"# host_loop native host core available: {report['native_available']} "
+        f"({native.library_path()})")
+    if not report["native_available"]:
+        failures.append("host_loop: the native host core did not build or load")
+    for name, nsim, n, n_mhe in HOST_FIXTURES:
+        H, stats, counts, mhe_rows, window, wall = host_fixture(
+            name, nsim, n, n_mhe, HOST_PROFILE_STEP if n_mhe is not None else None, dev)
+        ref = np.load(os.path.join(ROOT, "fixtures", f"{name}.npz"))
+        devs = {k: float(np.abs(H[k] - ref["H_" + k]).max())
+                for k in FIXTURE_KEYS if "H_" + k in ref.files and len(H[k])}
+        for k, st in enumerate(stats):
+            row = dict(config=name, step=k, **{f"{ph}_ms": 1e3 * st[f"{ph}_s"]
+                                       for ph in ("estimate", "target", "ocp", "plant")},
+                       **{f: st[f] for f in ("mhe_iters", "mhe_status", "ss_iters",
+                                             "status_ss", "dyn_iters", "status_dyn")
+                          if f in st})
+            if mhe_rows:
+                row.update(riccati_kkt_mhe=mhe_rows[k]["launches"],
+                           mhe_passes=mhe_rows[k]["passes"])
+            log("# host_loop step " + json.dumps(row))
+        r = dict(steps=nsim, N=n, wall_s=wall, step_ms=1e3 * wall / nsim,
+                 max_dev=devs, launches=counts, profiled_step=window)
+        report[name] = r
+        log(f"# host_loop {name} " + json.dumps(r))
+        launches["riccati_kkt_host_loop"] += counts["riccati_kkt"]
+        bad = [k for k, v in devs.items() if not v <= FIXTURE_BAR]
+        if bad or not devs:
+            failures.append(f"host_loop {name}: {bad} beyond {FIXTURE_BAR:g} of the "
+                            f"fixture ({devs})")
+        if any(row["launches"] != row["passes"] for row in mhe_rows):
+            failures.append(f"host_loop {name}: kernel 2's launches in the MHE "
+                            f"{[row['launches'] for row in mhe_rows]} differ from its "
+                            f"passes {[row['passes'] for row in mhe_rows]}")
+        others = {k: v for k, v in counts.items() if k != "riccati_kkt"}
+        if any(others.values()) or counts["riccati_kkt"] != sum(
+                row["launches"] for row in mhe_rows):
+            failures.append(f"host_loop {name}: kernels launched outside the MHE {counts}")
+    if report["enmpc"]["profiled_step"] is None:
+        failures.append("host_loop: the profiled step did not run")
+
+    # kernel 2 as the host MHE calls it: one lane at the full window's
+    # shapes (N_mhe=10 of the example: (11, 4, 4))
+    for dtype in (torch.float64, torch.float32):
+        failures += riccati_check(dev, dtype, 11, 4, 4, results["riccati_kkt_host_mhe"],
+                                  batch=1)
+
+    # the command line at the example's own size, in this process
+    path = os.path.join(tempfile.mkdtemp(), "enmpc.npz")
+    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["enmpc", "--nsim", "3", "--save", path])
+    cli_s = time.perf_counter() - t0
+    H, meta = load_history(path)
+    need = ("Xp", "Yp", "U", "XS", "US", "X_HAT", "D_HAT", "STATUS_SS", "STATUS_DYN")
+    ok = (rc == 0 and all(k in H and len(H[k]) == 3 for k in need)
+          and all(np.isfinite(H[k]).all() for k in need)
+          and not (H["STATUS_DYN"] == 2).any() and float(meta["h"]) == 2.0)
+    report["cli"] = dict(rc=rc, seconds=cli_s, keys=sorted(H), riccati_kkt=rk.LAUNCHES,
+                         status_dyn=H.get("STATUS_DYN", np.zeros(0)).tolist())
+    log("# host_loop cli " + json.dumps(report["cli"]))
+    if not ok:
+        failures.append(f"host_loop: the command line's run or its history file "
+                        f"({report['cli']})")
+    return failures, report
+
+
+def handoff_start(pool, cpu_refs):
+    """enmpc_handoff's start: the host warmup (``ClosedLoop``, K0 = N_mhe +
+    2 steps, f32 on the card, one lane) held against the CPU's f64 run of
+    the same steps (every status equal, U within U_TOL of the input box on
+    every step, every value finite), then ``carry_from_runtime`` and
+    ``init_carry`` tiled to B lanes; the CPU's f64 continuation of the
+    first N_CHECK lanes goes to a worker."""
+    def start(dev, cfg):
+        from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
+        from mpc_code_tpu_torch.loop.batched import map_carry
+        from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+        failures = []
+        k0 = mw.handoff_steps(cfg)
+        rk.LAUNCHES = 0
+        carry, loop, H32, warm_s = mw.warm_handoff(cfg, B, dev)
+        warm_launches = rk.LAUNCHES
+        H64, stats64 = cpu_refs[("enmpc_handoff_warmup", "float64")].result()[0]
+        du = (np.abs(H32["U"] - H64["U"]) / mw.U_BOX).max(axis=1)
+        st32 = [(s["mhe_status"], s["status_ss"], s["status_dyn"]) for s in loop.step_stats]
+        st64 = [(s["mhe_status"], s["status_ss"], s["status_dyn"]) for s in stats64]
+        finite = all(np.isfinite(np.asarray(v, float)).all() for v in H32.values())
+        for k, st in enumerate(loop.step_stats):
+            log("# enmpc_handoff warmup step " + json.dumps(dict(
+                step=k, **{f"{ph}_ms": 1e3 * st[f"{ph}_s"]
+                           for ph in ("estimate", "target", "ocp", "plant")},
+                mhe_iters=st["mhe_iters"], ss_iters=st["ss_iters"],
+                dyn_iters=st["dyn_iters"], statuses=st32[k], statuses_f64=st64[k],
+                iters_f64=[stats64[k][f] for f in ("mhe_iters", "ss_iters", "dyn_iters")],
+                du_box=float(du[k]))))
+        report = dict(warmup_steps=k0, warmup_s=warm_s, warmup_du_max=float(du.max()),
+                      warmup_statuses_equal=st32 == st64, warmup_finite=finite,
+                      warmup_riccati_kkt=warm_launches)
+        log("# enmpc_handoff warmup " + json.dumps(report))
+        if not (st32 == st64 and du.max() <= U_TOL and finite):
+            failures.append(f"enmpc_handoff: the f32 warmup against the CPU f64 run: "
+                            f"statuses equal {st32 == st64}, max |dU|/box {du.max():.3e} "
+                            f"(tol {U_TOL:g}), finite {finite}")
+        st = loop.final_state
+        lanes = map_carry(lambda a: a[:N_CHECK].cpu().numpy(), carry)
+        ref = pool.submit(cpu_reference, "enmpc_handoff", "float64", lanes, st["t"], k0)
+        return dict(carry=carry, t0=st["t"], k0=k0, ref=ref, failures=failures,
+                    report=report)
+
+    return start
+
+
 def clb_phase(dev, launches):
     """The port of ``tools/closed_loop_bench.py``
     (``examples/closed_loop_bench.py``) at its defaults: B=1024, 20 steps,
@@ -1556,7 +1858,8 @@ def clb_phase(dev, launches):
 
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
           "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
-          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "enmpc_loop")
+          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "enmpc_loop", "host_loop",
+          "enmpc_handoff")
 
 
 def main() -> int:
@@ -1611,12 +1914,13 @@ def main() -> int:
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
             "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
             "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
-            "riccati_kkt_enmpc_mhe")
+            "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
                                      "riccati_kkt_lmpc_loop", "riccati_kkt_enmpc_loop",
                                      "riccati_kkt_enmpc_loop_mhe",
-                                     "rk4_quad_stage_hess_enmpc_loop"), 0)
+                                     "rk4_quad_stage_hess_enmpc_loop",
+                                     "riccati_kkt_host_loop"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -1675,11 +1979,15 @@ def main() -> int:
     cstr_loop = Loop("cstr_loop", cw, U_BOX, {"rk4_stage_jac": sweep_cuda, "riccati_kkt": rk},
                      profile=(), cap_apart=False)
     lmpc_loop = Loop("lmpc_loop", lw, lw.U_BOX, {"riccati_kkt": rk},
-                     profile=("ocp",), cap_apart=True, profile_steps=(0, 3))
+                     profile=("ocp",), cap_apart=True, profile_steps=(0, 1))
     enmpc_loop = Loop("enmpc_loop", mw, mw.U_BOX,
                       {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
                       profile=("estimate", "ocp"), cap_apart=False, nsim=ENMPC_NSIM,
                       mhe=True, profile_steps=ENMPC_PROFILE_STEPS)
+    enmpc_handoff = Loop("enmpc_handoff", mw, mw.U_BOX,
+                         {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
+                         profile=(), cap_apart=False, nsim=HANDOFF_T, mhe=True,
+                         start=handoff_start(pool, cpu_refs), warmup=False)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
@@ -1694,11 +2002,20 @@ def main() -> int:
               ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs)),
               ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
               ("clb", lambda: clb_phase(dev, launches)),
-              ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs)))
+              ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs)),
+              ("host_loop", lambda: host_loop_phase(dev, launches, results)),
+              ("enmpc_handoff", lambda: loop_phase(dev, enmpc_handoff, launches, cpu_refs)))
     try:
         for name, phase in phases:
             if name not in selected:
                 continue
+            if ("enmpc_handoff" in selected and name in ("host_loop", "enmpc_handoff")
+                    and ("enmpc_handoff_warmup", "float64") not in cpu_refs):
+                # the hand-off's host warmup in f64 on the CPU, submitted late so
+                # that it does not slow the earlier phases (its continuation's
+                # reference is submitted by the phase, from the handed-off carry)
+                cpu_refs[("enmpc_handoff_warmup", "float64")] = pool.submit(
+                    cpu_reference, "enmpc_handoff_warmup", "float64")
             t0 = time.perf_counter()
             try:
                 out = phase()
@@ -1751,7 +2068,10 @@ def main() -> int:
                                      "cstr_loop": launches["riccati_kkt_cstr_loop"],
                                      "lmpc_loop": launches["riccati_kkt_lmpc_loop"],
                                      "clb": launches["riccati_kkt_clb"],
-                                     "enmpc_loop": launches["riccati_kkt_enmpc_loop"]}
+                                     "enmpc_loop": launches["riccati_kkt_enmpc_loop"],
+                                     "host_loop": launches["riccati_kkt_host_loop"],
+                                     "enmpc_handoff": launches.get(
+                                         "riccati_kkt_enmpc_handoff", 0)}
             k["at_enmpc_shapes"] = entry(name, results["riccati_kkt_enmpc"],
                                          launches["riccati_kkt_enmpc"])
             k["at_nmpc_dis_shapes"] = entry(name, results["riccati_kkt_nmpc_dis"],
@@ -1767,6 +2087,13 @@ def main() -> int:
             # OCP's, at the ENMPC path's shapes)
             k["at_enmpc_mhe_shapes"] = entry(name, results["riccati_kkt_enmpc_mhe"],
                                              launches["riccati_kkt_enmpc_loop_mhe"])
+            # the host MHE's window solves (ClosedLoop, host_loop): one lane;
+            # the launches are the ENMPC fixture's MHE (the nmpc fixture has
+            # no kernel)
+            k["at_host_mhe_shapes"] = entry(name, results["riccati_kkt_host_mhe"],
+                                            launches["riccati_kkt_host_loop"])
+            k["launches_in_mhe"] = {p: launches.get(f"riccati_kkt_{p}_mhe", 0)
+                                    for p in ("enmpc_loop", "enmpc_handoff")}
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
@@ -1774,7 +2101,9 @@ def main() -> int:
         if name == "rk4_quad_stage_hess":
             # kernel 4 on the ENMPC flagship loop's OCP solves too
             k["launches_by_path"] = {"enmpc": launches["rk4_quad_stage_hess"],
-                                     "enmpc_loop": launches["rk4_quad_stage_hess_enmpc_loop"]}
+                                     "enmpc_loop": launches["rk4_quad_stage_hess_enmpc_loop"],
+                                     "enmpc_handoff": launches.get(
+                                         "rk4_quad_stage_hess_enmpc_handoff", 0)}
         if name == "stage_sweep":
             # the Gauss-Newton build, checked against its plain version; no
             # path of the smoke launches it

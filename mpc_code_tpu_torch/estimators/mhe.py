@@ -1,36 +1,47 @@
-"""The traced moving-horizon estimator (port of the traced part of
-``mpc_code_tpu/estimators/mhe.py``).
+"""The moving-horizon estimator (port of ``mpc_code_tpu/estimators/mhe.py``).
 
 The reference's `mhe` (Estimator.py:388-768) with its wiring in the main
-loop (MPC_code.py:367-440, 583-641) as one fixed-shape step for a batch of B
-lanes: the sliding-window shift with the fictitious-input doubling, the
-forward-simulated initial guess, the window NLP solve (the structured
-Riccati engine, ``ocp/mhe.py``, or the dense IPM), and the 'filter' or
-'smooth' arrival-cost update.  The growing-horizon warmup runs in the same
-step from a cold carry (``make_mhe_cold_carry``): a per-stage validity
-mask deactivates the window's pad stages while fewer than N_mhe
-measurements have arrived.
+loop (MPC_code.py:367-440, 583-641), in two forms:
 
-Layout.  Every field of :class:`MHECarry` (and of its ``sm`` and
-``duals``) has a leading batch dimension B; ``steps`` is (B,).  Where the
-JAX step selects with ``jnp.where(cond, a, b)`` on one lane (the warmup
-mask, the ``full`` gate of the prior update, the dual warm start's
+- ``MHERuntime``, the host runtime the per-sample loop ``ClosedLoop``
+  drives: flat numpy f64 window buffers with the fictitious-input
+  doubling, a forward-simulated guess, one window NLP per horizon length
+  through the growing-horizon warmup (``_solvers[N]``, built once each;
+  the structured Riccati engine of ``ocp/mhe.py`` or the dense IPM), the
+  dual warm start across full-window structured solves, the bookkeeping
+  Kalman filter with the Feng cross-covariance term, and the 'filter' /
+  'smooth' arrival-cost updates in numpy/scipy between solves ('smooth'
+  through the native backward Riccati smoother of ``native.py`` when it
+  is built, else the same recursion in numpy).  The model maps, their
+  derivatives and the solves run in torch on the runtime's device and
+  dtype; what they return comes back to the host as f64.
+- ``make_mhe_traced``, one fixed-shape step for a batch of B lanes, which
+  the batched loop runs: the window shift, the guess, the window solve
+  and the 'filter' or 'smooth' update as (B, ...) tensor algebra.  The
+  growing-horizon warmup runs in the same step from a cold carry
+  (``make_mhe_cold_carry``): a per-stage validity mask deactivates the
+  window's pad stages while fewer than N_mhe measurements have arrived.
+  ``carry_from_runtime`` hands a warmed ``MHERuntime`` over to it.
+
+Layout of the traced step.  Every field of :class:`MHECarry` (and of its
+``sm`` and ``duals``) has a leading batch dimension B; ``steps`` is (B,),
+or None for the always-full window that only the hand-off produces.
+Where the JAX step selects with ``jnp.where(cond, a, b)`` on one lane (the
+warmup mask, the ``full`` gate of the prior update, the dual warm start's
 ``full_prev`` gate), this one selects per lane.  The model Jacobians of
 the prior update are taken by ``jacrev`` (C by ``jacfwd``), as the EKF
-does: forward mode through the RK4 sub-steps turns f32 into f64 (ROADMAP
-Queue 3, F9).  The 'smooth' update's loops over the window run unrolled
-on (B, ., .) tensors, with ``ops/smalllin.py::inv`` (a singular lane gives
-NaN for that lane only).
-
-The host ``MHERuntime`` and the hand-off from it (``carry_from_runtime``)
-are ROADMAP Queue 1 item 22.
+does, in both forms: forward mode through the RK4 sub-steps turns f32 into
+f64 (ROADMAP Queue 3, F9).  The 'smooth' update's loops over the window
+run unrolled on (B, ., .) tensors, with ``ops/smalllin.py::inv`` (a
+singular lane gives NaN for that lane only).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
+import scipy.linalg as scla
 import torch
 from torch.func import jacfwd, jacrev, vmap
 
@@ -44,6 +55,333 @@ from mpc_code_tpu_torch.ocp.mhe import (
 )
 from mpc_code_tpu_torch.ops.smalllin import inv
 from mpc_code_tpu_torch.solver.ipm import make_solver
+
+
+class MHERuntime:
+    """The host MHE (JAX ``estimators/mhe.py:35-377``), driven by
+    ``ClosedLoop`` one sample at a time: ``step(ksim, y_k, u_k, xhat_min,
+    t_k, p_x, p_y, P_k) -> (x_corr, P_plus)``, numpy in and out.
+
+    Runs its torch work on ``device`` (default ``cuda``) in ``dtype``.
+    ``last_nlp`` keeps the latest window NLP's inputs, and (the port's
+    own) ``last_status`` and ``last_iters`` the latest window solve's
+    status and iterations."""
+
+    def __init__(self, cfg: MPCConfig, model: ModelFns, device=None,
+                 dtype=torch.float64):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        est = cfg.estimator
+        self.cfg = cfg
+        self.N_mhe = est.N_mhe
+        self.up = est.mhe_up
+        self.h = cfg.h
+
+        self.fy_es = build_augmented(cfg, model).fy
+        self.fx_mhe = build_mhe_model(cfg, model)     # (csi, u, k, t, w, px)
+        self.f_obj_mhe = build_mhe_cost(est.mhe_cost)
+
+        nx, nd = cfg.nx, cfg.nd
+        self.n = nx + nd if cfg.dist.offree != "no" else nx
+        n = self.n
+        self.n_w = n
+        self.m = cfg.nu
+        self.p = cfg.ny
+        self.npx, self.npy = cfg.npx, cfg.npy
+        self.nxvw = n + self.p + self.n_w
+        self.idx = self.N_mhe if self.N_mhe == 1 else self.N_mhe - 1
+
+        # derivatives (reference: CasADi jacobians, Estimator.py:446-472):
+        # A, B, G and the stage Hessian by reverse mode (F9), C forward
+        n_w = self.n_w
+        self._jac_x = jacrev(self.fx_mhe, argnums=(0, 1, 4))
+        self._C = jacfwd(self.fy_es)
+        self._hess = jacrev(jacrev(lambda wv, t: self.f_obj_mhe(wv[:n_w], wv[n_w:], t)))
+
+        # persistent buffers (flat, reference layout)
+        self.U = np.zeros(0)
+        self.Y = np.zeros(0)
+        self.T = np.zeros(0)
+        self.Xmin = np.zeros(0)
+        self.X = np.zeros(0)
+        self.V = np.zeros(0)
+        self.W = np.zeros(0)
+        self.PX = np.zeros(0)
+        self.PY = np.zeros(0)
+        self.w_k = np.zeros(self.n_w)
+        self.v_k = np.zeros(self.p)
+
+        x_bar0 = est.x_bar0
+        if x_bar0 is None:
+            dh = np.zeros(nd) if cfg.dhat0 is None else np.asarray(cfg.dhat0, float).reshape(-1)
+            x_bar0 = np.concatenate([np.asarray(cfg.x0_m, float).reshape(-1), dh])[:n]
+        self.x_bar = np.asarray(x_bar0, float).reshape(n)
+
+        P0 = np.asarray(est.P0, float) if est.P0 is not None else np.eye(n)
+        self.P_k_kal = P0.copy()
+        self.P_corr_kal = P0.copy()
+        self.xm_kal = self.x_bar.copy()
+        self._xm_init = False
+
+        # smoothing big-matrix state (MPC_code.py:417-438)
+        self.bigC, self.bigG, self.bigA, self.bigB = [], [], [], []
+        self.bigf, self.bigh, self.bigQk, self.bigRk, self.bigSk = [], [], [], [], []
+        self.bigQ, self.bigU, self.bigP, self.bigPc = [], [], [], []
+        pidx = self.p * self.idx
+        self.Hbig = np.zeros(pidx)
+        self.Obig = np.zeros((pidx, n))
+        self.Pycondx_inv = np.zeros((pidx, pidx))
+
+        self._solvers: Dict[int, tuple] = {}
+        # dual/barrier warm start across full-window structured solves (one
+        # lane on the device; None until the first full-window solve)
+        self._duals = None
+        self.last_nlp: dict = {}
+        self.last_status = self.last_iters = None
+
+    # ------------------------------------------------------------------
+    def _T(self, a):
+        return torch.as_tensor(np.asarray(a, float), dtype=self.dtype, device=self.device)
+
+    @staticmethod
+    def _np(t):
+        return t.detach().to("cpu", torch.float64).numpy()
+
+    def _solver(self, N: int):
+        """The window NLP and its solve at horizon ``N``, built once."""
+        if N not in self._solvers:
+            cfg = self.cfg
+            spec = build_mhe_nlp(cfg, self.fx_mhe, self.fy_es, self.f_obj_mhe, N, self.N_mhe)
+            if cfg.estimator.structured_mhe:
+                solve = make_structured_mhe_solver(
+                    cfg, self.fx_mhe, self.fy_es, self.f_obj_mhe, N, self.N_mhe,
+                    return_duals=N == self.N_mhe, device=self.device)
+            else:
+                solve = make_solver(spec.nlp, cfg.sol_opts_mhe)
+            self._solvers[N] = (spec, solve)
+        return self._solvers[N]
+
+    # ------------------------------------------------------------------
+    def step(self, ksim: int, y_k, u_k, xhat_min, t_k, p_x, p_y, P_k):
+        """One MHE estimation step; returns (x_corr, P_plus) as numpy."""
+        n, n_w, m, p = self.n, self.n_w, self.m, self.p
+        npx, npy = self.npx, self.npy
+        N_mhe, nxvw = self.N_mhe, self.nxvw
+        ts = self.h
+        T_ = self._T
+        y_k = np.asarray(y_k, float).reshape(p)
+        u_k = np.asarray(u_k, float).reshape(m)
+        xhat_min = np.asarray(xhat_min, float).reshape(n)
+        p_x = np.asarray(p_x, float).reshape(npx)
+        p_y = np.asarray(p_y, float).reshape(npy)
+        P_k = np.asarray(P_k, float).reshape(n, n)
+        if not self._xm_init:
+            self.xm_kal = xhat_min.copy()            # MPC_code.py:586-587
+            self._xm_init = True
+
+        N = min(ksim + 1, N_mhe)
+
+        # -- data stacking (Estimator.py:475-501)
+        if ksim < N_mhe:
+            if ksim == 0:
+                self.U = np.concatenate([self.U, u_k])
+            else:
+                self.U = np.concatenate([self.U, u_k, u_k])  # fictitious double
+            self.Y = np.concatenate([self.Y, y_k])
+            self.T = np.concatenate([self.T, [t_k]])
+            self.Xmin = np.concatenate([self.Xmin, xhat_min])
+            self.PX = np.concatenate([self.PX, p_x])
+            self.PY = np.concatenate([self.PY, p_y])
+        else:
+            if N_mhe == 1:
+                self.U, self.Y, self.T = u_k.copy(), y_k.copy(), np.array([t_k])
+                self.Xmin, self.PX, self.PY = xhat_min.copy(), p_x.copy(), p_y.copy()
+            else:
+                self.U = np.concatenate([self.U[m:], u_k, u_k])
+                self.Y = np.concatenate([self.Y[p:], y_k])
+                self.T = np.concatenate([self.T[1:], [t_k]])
+                self.Xmin = np.concatenate([self.Xmin[n:], xhat_min])
+                self.PX = np.concatenate([self.PX[npx:], p_x])
+                self.PY = np.concatenate([self.PY[npy:], p_y])
+
+        # -- forward-simulated initial guess (Estimator.py:503-512), chained
+        # on the device and read back once
+        Ut, Tt, PXt = T_(self.U), T_(self.T), T_(self.PX)
+        w0 = torch.zeros(n_w, dtype=self.dtype, device=self.device)
+        xg = T_(self.x_bar)
+        Xg = [xg]
+        for key in range(N):
+            xg = self.fx_mhe(xg, Ut[key * m:(key + 1) * m], ts, Tt[key], w0,
+                             PXt[key * npx:(key + 1) * npx])
+            Xg.append(xg)
+        Xg = self._np(torch.stack(Xg))
+        w_guess = np.zeros(N * nxvw + n)
+        for key in range(N):
+            w_guess[key * nxvw:key * nxvw + n] = Xg[key]
+        w_guess[N * nxvw:] = Xg[N]
+
+        # -- solve (Estimator.py:516-530)
+        P_k_inv = scla.inv(P_k)
+        spec, solve = self._solver(N)
+        par = dict(U=self.U[:N * m].reshape(N, m), Y=self.Y.reshape(N, p),
+                   x_bar=self.x_bar, P_inv=P_k_inv, T=self.T,
+                   PX=self.PX.reshape(N, npx), PY=self.PY.reshape(N, npy),
+                   Pycondx_inv=self.Pycondx_inv, Hbig=self.Hbig, Obig=self.Obig)
+        # keep the latest NLP inputs for independent solver-parity tests
+        self.last_nlp = dict(w0=w_guess.copy(), N=N,
+                             par={k: np.array(v) for k, v in par.items()})
+        par_t = {k: T_(v)[None] for k, v in par.items()}
+        if self.cfg.estimator.structured_mhe and N == N_mhe:
+            # full-window structured solve: dual/barrier warm start carried
+            # across steps (shifted one window stage), cold while any
+            # previous solve was a warmup horizon; the traced step's gate
+            # (steps >= N_mhe) mirrors this
+            res, duals = solve(T_(w_guess)[None], par_t, ws=self._duals)
+            self._duals = shift_mhe_duals(duals)
+        else:
+            res = solve(T_(w_guess)[None], par_t, spec.lbw, spec.ubw, spec.lbg, spec.ubg)
+        w_opt = self._np(res.w[0])
+        self.last_status, self.last_iters = int(res.status[0]), int(res.iters[0])
+
+        xkp1k = w_opt[-n:]
+        xhat_corr = w_opt[-n - nxvw:-nxvw]                  # Estimator.py:532-534
+        self.v_k = w_opt[-nxvw:-n - n_w]
+        if ksim != 0 and N_mhe != 1:
+            self.w_k = w_opt[-n - n_w:-n]                   # Estimator.py:537-538
+
+        # -- stack solution data (Estimator.py:541-555)
+        if ksim < N_mhe:
+            self.X = np.concatenate([self.X, xkp1k])
+            self.V = np.concatenate([self.V, self.v_k])
+            self.W = np.concatenate([self.W, self.w_k])
+        else:
+            if N_mhe == 1:
+                self.X, self.V, self.W = xkp1k.copy(), self.v_k.copy(), self.w_k.copy()
+            else:
+                self.X = np.concatenate([self.X[n:], xkp1k])
+                self.V = np.concatenate([self.V[p:], self.v_k])
+                self.W = np.concatenate([self.W[n_w:], self.w_k])
+
+        # -- per-step KF bookkeeping with cross-covariance (Estimator.py:558-622)
+        tk, uk, wk = T_(t_k), T_(u_k), T_(self.w_k)
+        Hd = self._np(self._hess(T_(np.concatenate([self.w_k, self.v_k])), tk))
+        H_k = scla.inv(Hd)
+        Q_k = H_k[:n_w, :n_w]
+        R_k = H_k[-p:, -p:]
+        S_k = H_k[:n_w, -p:]
+        R_kk = scla.inv(Hd[-p:, -p:])                        # Estimator.py:565-566
+
+        xc_t, px_t, py_t = T_(xhat_corr), T_(p_x), T_(p_y)
+        C_k = self._np(self._C(xc_t, uk, tk, py_t))
+        h_k = self.Y[-p:] - C_k @ xhat_corr - self.v_k
+        A_k, B_k, G_k = (self._np(a) for a in self._jac_x(xc_t, uk, ts, tk, wk, px_t))
+        f_k = xkp1k - A_k @ xhat_corr - B_k @ u_k - G_k @ self.w_k
+
+        inbr = scla.inv(C_k @ self.P_k_kal @ C_k.T + R_k)
+        K_k = self.P_k_kal @ C_k.T @ inbr
+        self.P_corr_kal = self.P_k_kal - K_k @ C_k @ self.P_k_kal
+        Pi = self.P_k_kal.copy()
+        yhat = self._np(self.fy_es(T_(self.xm_kal), uk, tk, py_t))
+        xc_kal = self.xm_kal + K_k @ (y_k - yhat)
+        self.xm_kal = self._np(self.fx_mhe(T_(xc_kal), uk, ts, tk, wk, px_t))
+        M_k = -K_k @ S_k.T
+        self.P_k_kal = (A_k @ self.P_corr_kal @ A_k.T + G_k @ Q_k @ G_k.T
+                        + A_k @ M_k @ G_k.T + G_k @ M_k @ A_k.T)  # Estimator.py:604-607
+
+        self.bigC.append(C_k); self.bigG.append(G_k); self.bigA.append(A_k)  # noqa: E702
+        self.bigB.append(B_k); self.bigf.append(f_k); self.bigh.append(h_k)  # noqa: E702
+        self.bigQk.append(Q_k); self.bigRk.append(R_k); self.bigSk.append(S_k)  # noqa: E702
+        self.bigQ.append(H_k); self.bigU.append(u_k)  # noqa: E702
+        self.bigP.append(Pi); self.bigPc.append(self.P_corr_kal.copy())  # noqa: E702
+
+        # -- prior weight update (Estimator.py:626-735)
+        if ksim >= N_mhe - 1:
+            if self.up == "filter":
+                Hd0 = self._np(self._hess(T_(np.concatenate([self.W[:n_w], self.V[:p]])),
+                                          T_(self.T[0])))
+                H0 = scla.inv(Hd0)
+                Q0, R0, S0 = H0[:n_w, :n_w], H0[-p:, -p:], H0[:n_w, -p:]
+                C0 = self._np(self._C(T_(self.Xmin[:n]), T_(self.U[:m]), T_(self.T[0]),
+                                      T_(self.PY[:npy])))
+                inbr0 = scla.inv(C0 @ P_k @ C0.T + R0)
+                K0 = P_k @ C0.T @ inbr0
+                P_corr = P_k - K0 @ C0 @ P_k
+                A0, _, G0 = (self._np(a) for a in self._jac_x(
+                    T_(self.X[:n]), T_(self.U[:m]), ts, T_(self.T[0]), T_(self.W[:n_w]),
+                    T_(self.PX[:npx])))
+                M0 = -K0 @ S0.T
+                P_k = (A0 @ P_corr @ A0.T + G0 @ Q0 @ G0.T
+                       + A0 @ M0 @ G0.T + G0 @ M0 @ A0.T)     # Estimator.py:647-650
+            else:  # smooth
+                # backward Riccati smoother (Estimator.py:654-664); the
+                # native host-core path when its library is built
+                from mpc_code_tpu_torch import native as hostcore
+
+                if hostcore.available() and N_mhe > 1:
+                    Pis = list(hostcore.riccati_smoother(
+                        self.bigP[:N_mhe], self.bigPc[:N_mhe], self.bigA[:N_mhe]))
+                else:
+                    Pis = [None] * N_mhe
+                    Pis[N_mhe - 1] = self.bigPc[N_mhe - 1]
+                    for i in range(N_mhe - 2, -1, -1):
+                        Pim = scla.inv(self.bigP[i + 1])
+                        Pis[i] = self.bigPc[i] + self.bigPc[i] @ self.bigA[i].T @ Pim @ (
+                            Pis[i + 1] - self.bigP[i + 1]) @ Pim @ self.bigA[i] @ self.bigPc[i]
+                P_k = Pis[1] if N_mhe > 1 else Pis[0]
+
+                # shift one step forward (Estimator.py:671-684)
+                for name in ("bigC", "bigG", "bigA", "bigB", "bigf", "bigh",
+                             "bigQk", "bigRk", "bigSk", "bigQ", "bigU", "bigP", "bigPc"):
+                    setattr(self, name, getattr(self, name)[1:])
+
+                if N_mhe > 1:
+                    self._smoothing_matrices(P_k, R_kk)
+
+            # -- x_bar update (Estimator.py:738-757)
+            if self.up == "filter":
+                self.x_bar = self.X[:n].copy()
+            elif N_mhe == 1:
+                self.x_bar = w_opt[:n].copy()
+            else:
+                self.x_bar = w_opt[nxvw:nxvw + n].copy()
+
+        # -- strip the fictitious input component (Estimator.py:760-764)
+        self.U = np.zeros(0) if ksim == 0 else self.U[:-m]
+        return xhat_corr, P_k
+
+    def _smoothing_matrices(self, P_k, R_kk):
+        """The stacked matrices of the (parametric) smoothing correction
+        over the shifted window (Estimator.py:686-735): Obig, Hbig and
+        Pycondx_inv."""
+        n, n_w, p, N_mhe = self.n, self.n_w, self.p, self.N_mhe
+        idx = N_mhe - 1
+        nvars = n + (N_mhe - 2) * n_w + (N_mhe - 1) * p
+        Qbig = P_k
+        Hbig = np.zeros((p * idx, 1))
+        Arow = np.eye(n)
+        Cbig = np.zeros((p * idx, nvars))
+        Cbig[0:p, 0:n + n_w + p] = np.column_stack(
+            [self.bigC[0], np.zeros((p, n_w)), np.eye(p)])
+        Hbig[:p, 0] = self.bigh[0]
+        Hrow = None
+        for i in range(N_mhe - 2):
+            Apad = np.zeros((n, 0)) if i == 0 else np.zeros((n, p))
+            Arow = np.column_stack([self.bigA[i] @ Arow, Apad, self.bigG[i]])
+            Cpad = np.zeros((p, p)) if i == N_mhe - 3 else np.zeros((p, n_w + p))
+            Crow = np.column_stack([self.bigC[i + 1] @ Arow, Cpad, np.eye(p)])
+            Cbig[(i + 1) * p:(i + 2) * p, :Crow.shape[1]] = Crow
+            Qbig = scla.block_diag(Qbig, self.bigQ[i])
+            if i == 0:
+                Hrow = self.bigB[i] @ self.bigU[i] + self.bigf[i]
+            else:
+                Hrow = self.bigA[i] @ Hrow + self.bigB[i] @ self.bigU[i] + self.bigf[i]
+            Hbig[(i + 1) * p:(i + 2) * p, 0] = self.bigC[i + 1] @ Hrow + self.bigh[i + 1]
+        Qbig = scla.block_diag(Qbig, R_kk)
+        Gbig = Cbig[:, n:]
+        QRbig = Qbig[n:, n:]
+        self.Obig = Cbig[:, :n]
+        self.Hbig = Hbig[:, 0]
+        self.Pycondx_inv = scla.inv(Gbig @ QRbig @ Gbig.T)
 
 
 class MHESmoothState(NamedTuple):
@@ -90,8 +428,8 @@ class MHECarry(NamedTuple):
     x_bar: torch.Tensor  # (B,n)     arrival-cost centre
     P: torch.Tensor      # (B,n,n)   arrival-cost covariance
     sm: Any = None       # MHESmoothState (mhe_up='smooth' only)
-    steps: Any = None    # (B,) int32 (JAX's None, an always-full window, comes from
-                         # the host hand-off, ROADMAP Queue 1 item 22)
+    steps: Any = None    # (B,) int32; None: an always-full window (the host
+                         # hand-off, carry_from_runtime)
     duals: Any = None    # dict zl/zu (B,N+1,nzs), lam (B,N+1,n), nus, mu/sf/ok (B,)
 
 
@@ -120,8 +458,9 @@ def make_mhe_traced(cfg: MPCConfig, model: ModelFns, device=None):
       once its window is full.  A dict passed as ``info`` receives the
       window solve's per-lane ``status`` and ``iters`` (the port's own
       addition, for counting the solver's passes).
-    - ``carry_from_runtime``: the hand-off from the host ``MHERuntime``,
-      not ported (raises, ROADMAP Queue 1 item 22).
+    - ``carry_from_runtime(rt, P_k) -> MHECarry``: the hand-off from a
+      warmed host ``MHERuntime`` (one lane, ``steps`` None: the window is
+      always full from there on).
 
     The window solve runs on ``device`` (default ``cuda``), in the carry's
     dtype."""
@@ -174,10 +513,16 @@ def make_mhe_traced(cfg: MPCConfig, model: ModelFns, device=None):
         t_k = torch.as_tensor(t_k, **kw).reshape(Bsz)
 
         # growing-horizon warmup (MPC_code.py:591-598): the first N-1 steps
-        # mask off the window's leading pad stages
-        valid = torch.clamp(c.steps + 1, max=N)                # entries after this shift
-        mask = torch.arange(N, device=kw["device"])[None] >= (N - valid)[:, None]
-        full = c.steps >= N - 1                                # ksim >= N_mhe-1
+        # mask off the window's leading pad stages; a carry without a step
+        # counter (the hand-off's) has an always-full window
+        warm = c.steps is not None
+        if warm:
+            valid = torch.clamp(c.steps + 1, max=N)            # entries after this shift
+            mask = torch.arange(N, device=kw["device"])[None] >= (N - valid)[:, None]
+            full = c.steps >= N - 1                            # ksim >= N_mhe-1
+        else:
+            mask = torch.ones((Bsz, N), dtype=torch.bool, device=kw["device"])
+            full = torch.ones(Bsz, dtype=torch.bool, device=kw["device"])
 
         # window shift; the input window ends with the fictitious doubled
         # input [..., u_k, u_k] (Estimator.py:475-501), stripped at the end
@@ -212,7 +557,8 @@ def make_mhe_traced(cfg: MPCConfig, model: ModelFns, device=None):
                 # the dual warm start engages once the PREVIOUS solve had a
                 # full window (the host runtime solves cold through its
                 # per-horizon warmup)
-                ws_in = {**c.duals, "ok": c.duals["ok"] & (c.steps >= N)}
+                ws_in = ({**c.duals, "ok": c.duals["ok"] & (c.steps >= N)} if warm
+                         else c.duals)
             res, duals_raw = solve(w_guess, par, ws=ws_in)
             duals_out = shift_mhe_duals(duals_raw) if c.duals is not None else None
         else:
@@ -252,7 +598,7 @@ def make_mhe_traced(cfg: MPCConfig, model: ModelFns, device=None):
 
         c_out = MHECarry(U=U_s[:, :-m], Y=Y_n, T=T_n, Xmin=Xmin_n, PX=PX_n, PY=PY_n,
                          X=X_n, V=V_n, W=W_n, x_bar=x_bar_n, P=P_new, sm=sm_n,
-                         steps=c.steps + 1, duals=duals_out)
+                         steps=c.steps + 1 if warm else None, duals=duals_out)
         return c_out, xhat_corr
 
     def _smooth_update(c, full, w_opt, xhat_corr, xkp1k, v_k, w_k, y_k, u_k, t_k,
@@ -345,10 +691,48 @@ def make_mhe_traced(cfg: MPCConfig, model: ModelFns, device=None):
             Pycondx_inv=_sel(full, Pycondx_inv, sm.Pycondx_inv))
         return P_new, x_bar_n, sm_n
 
-    def carry_from_runtime(rt, P_k) -> MHECarry:
-        raise NotImplementedError(
-            "carry_from_runtime needs the host MHERuntime, which is not ported "
-            "yet (ROADMAP Queue 1 item 22); start from make_mhe_cold_carry")
+    def carry_from_runtime(rt: MHERuntime, P_k) -> MHECarry:
+        """The carry of one lane from a warmed ``MHERuntime`` whose last
+        step had a full window (JAX ``estimators/mhe.py:747-787``), on the
+        step's device in the runtime's dtype: the window buffers, the
+        smoothing state, ``steps`` None (an always-full window) and the
+        runtime's dual warm start (cold zeros when it has none yet)."""
+        if rt.N_mhe != N:
+            raise ValueError("runtime/config N_mhe mismatch")
+        if rt.up != est.mhe_up:
+            raise ValueError("runtime/config mhe_up mismatch")
+        if rt.U.shape[0] != (N - 1) * m:
+            raise ValueError(
+                "runtime window not full yet: hand off after the step with "
+                f"ksim >= N_mhe - 1 completed (len(U)={rt.U.shape[0]}, "
+                f"need {(N - 1) * m})")
+        kw = dict(dtype=rt.dtype, device=dev)
+
+        def lane(a):
+            return torch.as_tensor(np.asarray(a, float), **kw)[None]
+
+        sm = None
+        if smooth:
+            if len(rt.bigA) != N - 1:
+                raise ValueError("smooth buffers not in post-shift steady "
+                                 f"state (len={len(rt.bigA)}, need {N - 1})")
+            sm = MHESmoothState(
+                P_kal=lane(rt.P_k_kal),
+                **{f: lane(np.stack(getattr(rt, f))) for f in (
+                    "bigA", "bigP", "bigPc", "bigC", "bigG", "bigB", "bigf", "bigh",
+                    "bigQ", "bigU")},
+                Hbig=lane(rt.Hbig), Obig=lane(rt.Obig), Pycondx_inv=lane(rt.Pycondx_inv))
+        duals = None
+        if structured:
+            # the runtime's carried duals, so that the continuation's first
+            # solve warm-starts as the host loop's next solve would
+            duals = ({k: v.to(**kw) if v.is_floating_point() else v.to(dev)
+                      for k, v in rt._duals.items()} if rt._duals is not None
+                     else mhe_dual_zeros(cfg, N, batch=1, **kw))
+        return MHECarry(U=lane(rt.U), Y=lane(rt.Y), T=lane(rt.T), Xmin=lane(rt.Xmin),
+                        PX=lane(rt.PX), PY=lane(rt.PY), X=lane(rt.X), V=lane(rt.V),
+                        W=lane(rt.W), x_bar=lane(rt.x_bar), P=lane(P_k), sm=sm,
+                        steps=None, duals=duals)
 
     return step, carry_from_runtime
 

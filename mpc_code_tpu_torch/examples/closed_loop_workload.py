@@ -64,18 +64,23 @@ def make_step(cfg, device=None):
     return make_mpc_step(cfg, device=device, target_dtype=TARGET_DTYPE)
 
 
-def run_loop(cfg, x0s, Nsim=NSIM, device=None, step=None, on_step=None):
+def run_loop(cfg, x0s, Nsim=NSIM, device=None, step=None, on_step=None,
+             carry=None, t0=0.0, k0=0):
     """Run ``Nsim`` closed-loop steps for the lanes ``x0s`` (B, nx), in
     their dtype on ``device`` (default: theirs).  ``step`` reuses a
     ``make_step(cfg, ...)``; ``on_step(k, carry, out)`` is called
-    after each step.  Returns ``(history, times)``: the history arrays (Nsim, B, ...)
-    and, per step, the wall seconds and the seconds of each phase (the
-    card synchronised at each phase's end)."""
-    dev = x0s.device if device is None else torch.device(device)
+    after each step.  ``carry`` (with ``x0s`` None) continues a run from
+    that carry, at time ``t0`` and step index ``k0`` (the schedules' and
+    the noise stream's).  Returns ``(history, times)``: the history arrays
+    (Nsim, B, ...) and, per step, the wall seconds and the seconds of each
+    phase (the card synchronised at each phase's end)."""
+    lanes = x0s if carry is None else carry.x
+    dev = lanes.device if device is None else torch.device(device)
     if step is None:
         step = make_step(cfg, device=dev)
-    carry = init_carry(cfg, x0s, device=dev, dtype=x0s.dtype)
-    inputs = make_step_inputs(cfg, Nsim)
+    if carry is None:
+        carry = init_carry(cfg, x0s, device=dev, dtype=x0s.dtype)
+    inputs = make_step_inputs(cfg, Nsim, t0=t0, k0=k0)
 
     def sync():
         if dev.type == "cuda":
@@ -85,7 +90,7 @@ def run_loop(cfg, x0s, Nsim=NSIM, device=None, step=None, on_step=None):
     for k in range(Nsim):
         marks = {}
         sync()
-        t0 = last = time.perf_counter()
+        start = last = time.perf_counter()
 
         def mark(name):
             nonlocal last
@@ -96,7 +101,7 @@ def run_loop(cfg, x0s, Nsim=NSIM, device=None, step=None, on_step=None):
 
         carry, out = step(carry, StepInput(*(a[k] for a in inputs)), mark=mark)
         sync()
-        times.append(dict(wall_s=time.perf_counter() - t0, **marks))
+        times.append(dict(wall_s=time.perf_counter() - start, **marks))
         outs.append(out)
         if on_step is not None:
             on_step(k, carry, out)

@@ -20,12 +20,25 @@ plant states perturbed by ``1e-3 * normal`` (seed 0, ``:82-90``).
     hist, times = run_loop(cfg, draw_x0(16384, device), Nsim=16,
                            step=make_step(cfg, device))
 
-The tool's ``ENMPC_WARM_HANDOFF=1`` mode (a host warmup through
-``ClosedLoop``, then the traced continuation) needs the host loop, ROADMAP
-Queue 1 item 22: ``warm_handoff`` raises.
+The tool's ``ENMPC_WARM_HANDOFF=1`` mode (``:62-71,86-89``) is
+:func:`warm_handoff`: the host loop ``ClosedLoop`` runs the growing-horizon
+warmup for K0 = N_mhe + 2 steps on one lane (on the card in f32 with the
+same solver options, as the JAX tool on its chip), then
+``carry_from_runtime`` and ``init_carry(cfg, mhe=..., state=
+loop.final_state)`` hand it to the batched step, tiled to B lanes with the
+plant states perturbed by ``1e-3 * normal`` (seed 0); the steady steps
+continue from there with ``run_loop(..., carry=carry, t0=st["t"],
+k0=K0)``.
+
+    cfg = make_config(warm_handoff=True)
+    carry, loop, _, warmup_s = warm_handoff(cfg, 16384, device)
+    hist, times = run_loop(cfg, None, Nsim=8, step=make_step(cfg, device),
+                           carry=carry, t0=loop.final_state["t"], k0=handoff_steps(cfg))
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -42,11 +55,9 @@ U_BOX = np.array([2.0])           # width of the input bounds [0, 2]
 
 def make_config(N=N, N_mhe=N_MHE, Nsim=NSIM, warm_handoff=False):
     """The flagship loop's configuration at horizon ``N`` and MHE window
-    ``N_mhe``."""
-    if warm_handoff:
-        raise NotImplementedError(
-            "the warm hand-off mode needs the host loop ClosedLoop and "
-            "MHERuntime, which are not ported yet (ROADMAP Queue 1 item 22)")
+    ``N_mhe``.  Both modes share it (the JAX tool's ``mk``): with
+    ``warm_handoff`` the run starts from :func:`warm_handoff`'s carry
+    instead of ``init_carry``'s cold window."""
     cfg = make_enmpc(Nsim=Nsim).replace(
         N=N, sol_opts_ss=SolverOptions.for_f32(),
         sol_opts_dyn=SolverOptions.for_f32(hessian="gauss_newton"),
@@ -85,3 +96,40 @@ def mhe_ocp(cfg, device=None):
                                    build_mhe_cost(cfg.estimator.mhe_cost), N, N,
                                    maskable=True, device=device)
     return socp
+
+
+def handoff_steps(cfg):
+    """K0, the host warmup's length: N_mhe + 2 steps, so that the window is
+    full and its prior updated before the hand-off."""
+    return cfg.estimator.N_mhe + 2
+
+
+def warm_handoff(cfg, batch, device=None, dtype=torch.float32, seed=0):
+    """The hand-off mode's start (``tools/enmpc_onchip_bench.py:62-71,86-89``):
+    ``ClosedLoop`` for K0 steps on ``device`` (default the card) in
+    ``dtype``, then ``carry_from_runtime`` and ``init_carry(state=...)``,
+    tiled to ``batch`` lanes whose plant states get ``1e-3 * normal``
+    (``seed``; rounded to f32 as the tool's).  Returns ``(carry, loop, H,
+    warmup_s)``: the batched carry, the warmed host loop, its history and
+    the warmup's wall seconds."""
+    from mpc_code_tpu_torch.estimators.mhe import make_mhe_traced
+    from mpc_code_tpu_torch.loop import ClosedLoop
+    from mpc_code_tpu_torch.loop.batched import init_carry, tile_carry
+
+    dev = resolve_device(device)
+    k0 = handoff_steps(cfg)
+    t0 = time.perf_counter()
+    loop = ClosedLoop(cfg.replace(Nsim=k0), device=dev, dtype=dtype)
+    H = loop.run()
+    st = loop.final_state
+    _, from_rt = make_mhe_traced(cfg, loop.model, device=dev)
+    carry = init_carry(cfg, mhe=from_rt(loop.mhe_rt, st["P"]), state=st, device=dev,
+                       dtype=dtype)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    warmup_s = time.perf_counter() - t0
+    dx = 1e-3 * np.random.default_rng(seed).standard_normal((batch, cfg.nxp))
+    carry = tile_carry(carry, batch)
+    carry = carry._replace(x=carry.x + torch.as_tensor(dx.astype(np.float32), dtype=dtype,
+                                                       device=dev))
+    return carry, loop, H, warmup_s

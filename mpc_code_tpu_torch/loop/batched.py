@@ -23,9 +23,11 @@ lane once it is done, so one diverged lane never stalls the batch.
 Estimators: kalss and lue (static gain), kal (linear models only), ekf and
 the MHE (``estimators/mhe.py``, both prior updates), whose growing-horizon
 warmup runs in the step from the cold window ``init_carry`` builds
-(MPC_code.py:591-598).  Modifier adaptation (ROADMAP Queue 1 item 23) and
-the hand-off from a host-warmed MHE (item 22) raise
-``NotImplementedError``.  There is no ``lax.scan``: :func:`run_traced` is
+(MPC_code.py:591-598), or from a host-warmed window
+(``init_carry(cfg, mhe=carry_from_runtime(loop.mhe_rt, P), state=
+loop.final_state)`` after a ``ClosedLoop`` warmup).  Modifier adaptation
+(the plant steady state, the lambda filter and the plant optimum,
+MPC_code.py:829-874) runs in the step per lane.  There is no ``lax.scan``: :func:`run_traced` is
 a host loop over the steps on device tensors, and
 :func:`run_traced_checkpointed` the same loop in segments with an NPZ
 checkpoint after each.  JAX's ``batch_hint`` picks
@@ -49,7 +51,9 @@ from mpc_code_tpu_torch.models import (
     build_model, build_plant, build_ss_cost, build_stage_cost, build_terminal_cost,
 )
 from mpc_code_tpu_torch.ocp.shooting import _user_constraint_dim, build_ocp
-from mpc_code_tpu_torch.ocp.target import build_target
+from mpc_code_tpu_torch.ocp.target import (
+    build_ssp, build_ssp2, build_target, make_lambda_update,
+)
 from mpc_code_tpu_torch.ops.linalg import sqrtm_psd
 from mpc_code_tpu_torch.solver.ipm import make_solver
 from mpc_code_tpu_torch.solver.nlp import STATUS_INFEASIBLE
@@ -67,7 +71,7 @@ class MPCCarry(NamedTuple):
     ocp_ok: torch.Tensor  # last OCP feasibility flag (B,)
     t: torch.Tensor       # time (B,)
     mhe: Any = None       # MHECarry window state (kind='mhe' only)
-    lam: Any = None       # modifier-adaptation lambda (Adaptation: item 23)
+    lam: Any = None       # modifier-adaptation lambda (B, ny, nu) (Adaptation only)
     # dual/barrier warm start of the structured OCP solver (dict with
     # zl/zu/lam/nus (B, N, .) and mu/sf/ok (B,), shifted one stage per step
     # like the primal warm start; None = dual warm start off)
@@ -87,21 +91,21 @@ class MPCStepOut(NamedTuple):
     status_ss: torch.Tensor
     status_dyn: torch.Tensor
     ocp_iters: torch.Tensor
-    lam: Any = None        # modifier adaptation only (not ported)
-    cor: Any = None
-    upopt: Any = None
-    ypopt: Any = None
+    lam: Any = None        # updated lambda (Adaptation only)
+    cor: Any = None        # lam_prev @ (us - us_prev) (Adaptation only)
+    upopt: Any = None      # plant-optimum input (Adaptation only)
+    ypopt: Any = None      # plant-optimum output (Adaptation only)
     ss_iters: Any = None   # target solver iterations (the port's own field)
     mhe_status: Any = None  # MHE window solve status and iterations (port's own)
     mhe_iters: Any = None
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _vec(v):
     return np.asarray(v, float).reshape(-1)
+
+
+def _mv(M, v):
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
 def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
@@ -136,9 +140,7 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
             "estimator kind 'kal' requires a LinearModel (reference "
             "MPC_code.py:643-646); use 'ekf' for nonlinear models")
     estimating = bool(cfg.estimating)
-    if cfg.Adaptation and not estimating:
-        raise _todo("modifier adaptation (cfg.Adaptation: build_ssp, build_ssp2, "
-                    "make_lambda_update)", "23")
+    adaptation = (not estimating) and cfg.Adaptation
 
     model = build_model(cfg)
     plant = build_plant(cfg, model)
@@ -172,6 +174,13 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
         du_aug = nup > 0
     elif not estimating:
         ocp_solve = make_solver(ospec.nlp, cfg.sol_opts_dyn)
+    if adaptation:
+        ssp_spec = build_ssp(cfg, plant)
+        ssp_solve = make_solver(ssp_spec.nlp, cfg.sol_opts_ss)
+        fss2 = cfg.ss_cost.f_obj if nx != cfg.nxp else build_ss_cost(cfg.ss_cost)
+        ssp2_spec = build_ssp2(cfg, plant, fss2)
+        ssp2_solve = make_solver(ssp2_spec.nlp, cfg.sol_opts_ss)
+        lambda_update = vmap(make_lambda_update(cfg, model, plant))
 
     K_gain = None
     if kind in ("kalss", "lue"):
@@ -193,7 +202,7 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
     GQw = None
     if cfg.Q_wn is not None and cfg.G_wn is not None:
         GQw = mat(cfg.G_wn) @ sqrtm_psd(mat(cfg.Q_wn))
-    x0_m, u0 = mat(_vec(cfg.x0_m)), mat(_vec(cfg.u0))
+    x0_m, u0, x0_p = mat(_vec(cfg.x0_m)), mat(_vec(cfg.u0)), mat(_vec(cfg.x0_p))
     if not estimating:
         t_bounds = (tspec.lbw, tspec.ubw, tspec.lbg, tspec.ubg)
         o_lbw, o_ubw = mat(ospec.lbw), mat(ospec.ubw)
@@ -220,7 +229,7 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
         px0, py0 = lanes(inp.px_h[0]), lanes(inp.py_h[0])
         pxp, pyp = lanes(inp.pxp), lanes(inp.pyp)
         pxmp, pymp = lanes(inp.pxmp), lanes(inp.pymp)
-        lam_k = torch.zeros((Bsz, cfg.ny, nu), **kw)
+        lam_k = c.lam if adaptation else torch.zeros((Bsz, cfg.ny, nu), **kw)
 
         # pre-correction model output (MPC_code.py:524)
         yhat_k = vmap(model.fy)(c.xhat, c.u, c.dhat, t_k, py0)
@@ -296,6 +305,7 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
         w_ss = rss.w.to(kw["dtype"])
         xs = torch.where(ss_ok, w_ss[:, :nx], c.xs)          # MPC_code.py:714-718
         us = torch.where(ss_ok, w_ss[:, nx:nxu], c.us)
+        cor = (_mv(lam_k, us - c.us) if adaptation else None)  # MPC_code.py:721-724
         ys = vmap(model.fy)(xs, us, dhat, t_k, py0)          # MPC_code.py:730-731
         if mark is not None:
             mark("target")
@@ -359,16 +369,38 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
 
         # plant update (MPC_code.py:813-827)
         x_next = plant_step(c.x, u_k)
+
+        # modifier adaptation (MPC_code.py:829-874): the plant's steady
+        # state, the lambda filter update and the plant's economic optimum
+        lam_new, upopt, ypopt = c.lam, None, None
+        if adaptation:
+            x0_pB = lanes(x0_p)
+            res_p = ssp_solve(x0_pB, dict(t=t_k, us=us, pxp=pxp, pxmp=pxmp, d=dhat),
+                              ssp_spec.lbw, ssp_spec.ubw, ssp_spec.lbg, ssp_spec.ubg)
+            lam_new = lambda_update(lam_k, res_p.w, xs, us, dhat, t_k, pxp, pyp,
+                                    px0, py0, pxmp, pymp)
+            par_ssp2 = dict(usp=lanes(inp.usp), ysp=lanes(inp.ysp),
+                            xsp=torch.zeros((Bsz, cfg.nxp), **kw), pyp=pyp, t=t_k,
+                            pxp=pxp, pxmp=pxmp, pymp=pymp)
+            if plant.nominal:
+                y0_p = vmap(plant.fy)(x0_pB, u0B, dhat, t_k, py0)
+            else:
+                y0_p = vmap(plant.fy)(x0_pB, u0B, pyp, t_k, pymp)
+            res_p2 = ssp2_solve(torch.cat([x0_pB, u0B, y0_p], -1), par_ssp2,
+                                ssp2_spec.lbw, ssp2_spec.ubw, ssp2_spec.lbg, ssp2_spec.ubg)
+            upopt = res_p2.w[:, cfg.nxp:cfg.nxp + nu]
+            ypopt = res_p2.w[:, cfg.nxp + nu:]
         if mark is not None:
             mark("plant")
 
         carry = MPCCarry(x=x_next, xhat=xhat_next, dhat=dhat, P=P, u=u_k,
                          xs=xs, us=us, w_prev=w_prev, ocp_ok=ok,
-                         t=t_k + h, mhe=mhe_c, lam=c.lam, duals=duals_n)
+                         t=t_k + h, mhe=mhe_c, lam=lam_new, duals=duals_n)
         out = MPCStepOut(x=c.x, y=y_k, yhat=yhat_k, u=u_k, xs=xs, us=us,
                          ys=ys, xhat=xhat, dhat=dhat, status_ss=rss.status,
                          status_dyn=status_dyn, ocp_iters=iters_dyn,
-                         ss_iters=rss.iters, **mhe_out)
+                         lam=lam_new if adaptation else None, cor=cor, upopt=upopt,
+                         ypopt=ypopt, ss_iters=rss.iters, **mhe_out)
         return carry, out
 
     return step
@@ -468,6 +500,8 @@ def init_carry(cfg: MPCConfig, x0=None, mhe=None, state=None,
             carry = carry._replace(
                 w_prev=lanes(state["w_opt"]),
                 ocp_ok=torch.full((Bsz,), bool(state["ocp_feasible"]), device=dev))
+        if state.get("lam") is not None and lam0 is not None:
+            carry = carry._replace(lam=lanes(state["lam"]))
     return carry
 
 
@@ -475,18 +509,33 @@ def _is_record(v):
     return isinstance(v, tuple) and hasattr(v, "_fields")
 
 
+def map_carry(fn, v):
+    """``fn`` on every array of a nested carry value (dicts entry by entry,
+    NamedTuples field by field; None kept)."""
+    if isinstance(v, dict):
+        return {k: map_carry(fn, x) for k, x in v.items()}
+    if _is_record(v):
+        return type(v)(*(map_carry(fn, x) for x in v))
+    return None if v is None else fn(v)
+
+
 def cast_carry(carry: MPCCarry, dtype) -> MPCCarry:
     """The carry with every floating tensor (those of the duals and of the
     MHE window too) cast to ``dtype``: to step a state of one run in
     another precision."""
-    def cast(v):
-        if isinstance(v, dict):
-            return {k: cast(x) for k, x in v.items()}
-        if _is_record(v):
-            return type(v)(*(cast(x) for x in v))
-        return v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+    return map_carry(lambda v: v.to(dtype) if v.is_floating_point() else v, carry)
 
-    return cast(carry)
+
+def tile_carry(carry: MPCCarry, batch: int) -> MPCCarry:
+    """A carry of one lane repeated over ``batch`` lanes: every tensor's
+    leading axis of 1 (those of the duals and of the MHE window too)
+    expanded and copied."""
+    def tile(v):
+        if v.shape[:1] != (1,):
+            raise ValueError(f"tile_carry needs one lane, got shape {tuple(v.shape)}")
+        return v.expand((batch,) + tuple(v.shape[1:])).clone()
+
+    return map_carry(tile, carry)
 
 
 def stack_outputs(outs: Sequence[MPCStepOut]) -> MPCStepOut:
@@ -637,6 +686,7 @@ def history_from_outputs(outs: MPCStepOut) -> Dict[str, np.ndarray]:
         "D_HAT": outs.dhat, "STATUS_SS": outs.status_ss,
         "STATUS_DYN": outs.status_dyn, "OCP_ITERS": outs.ocp_iters,
         "SS_ITERS": outs.ss_iters, "MHE_STATUS": outs.mhe_status,
-        "MHE_ITERS": outs.mhe_iters,
+        "MHE_ITERS": outs.mhe_iters, "LAMBDA": outs.lam, "COR": outs.cor,
+        "Upopt": outs.upopt, "Ypopt": outs.ypopt,
     }
     return {k: v.detach().cpu().numpy() for k, v in H.items() if v is not None}

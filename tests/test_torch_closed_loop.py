@@ -17,10 +17,10 @@
 - ``use_structured=False`` on one lane: ``run_traced`` against JAX's
   ``run_traced(..., use_structured=False)`` on nmpc (N=5, Mx=2, 3 steps),
   the same keys within 1e-8 (measured 1.1e-13).
-- ``make_mpc_step`` raises ``NotImplementedError`` naming ROADMAP item 17
-  for the MHE and item 23 for modifier adaptation, and ``init_carry`` item
-  17 for an MHE window; both run on the card unless given
-  ``device="cpu"``.
+- What is still unported raises ``NotImplementedError`` naming its
+  ROADMAP item (collocation, item 20; a structured-solver option, item 21;
+  ``SolverOptions.debug``, item 29); the batched entry points, the MHE's
+  and the host loop's run on the card unless given ``device="cpu"``.
 
 About 30 s in one process with the suite's JAX compilation cache warm,
 43 s cold (builder's CPU runs, most of it JAX tracing and compiling the
@@ -180,25 +180,44 @@ def test_dense_loop_matches_jax():
 
 
 def test_unported_features_raise():
-    """The MHE runs in the batched step since it was ported; what is still
-    unported raises with its ROADMAP item: the hand-off from the host
-    ``MHERuntime`` (item 22) and modifier adaptation (item 23)."""
-    from mpc_code_tpu_torch.estimators.mhe import make_mhe_traced
-    from mpc_code_tpu_torch.examples.enmpc import make_config as enmpc
-    from mpc_code_tpu_torch.examples.enmpc_loop_workload import make_config as enmpc_loop
+    """The host loop, the hand-off from the host ``MHERuntime`` and
+    modifier adaptation run since they were ported; what is still unported
+    raises with its ROADMAP item: collocation in ``ClosedLoop`` (item 20),
+    a structured-solver option (item 21) and ``SolverOptions.debug``
+    (item 29)."""
+    from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples.nmpc import make_config
+    from mpc_code_tpu_torch.loop import ClosedLoop
     from mpc_code_tpu_torch.loop.batched import make_mpc_step
-    from mpc_code_tpu_torch.models import build_model
 
     cfg = make_config().replace(N=N)
-    mhe = enmpc().replace(N=N)
-    _, carry_from_runtime = make_mhe_traced(mhe, build_model(mhe), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        carry_from_runtime(None, None)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        enmpc_loop(warm_handoff=True)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        make_mpc_step(cfg.replace(Adaptation=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 20"):
+        ClosedLoop(cfg.replace(Collocation=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 21"):
+        make_mpc_step(cfg.replace(sol_opts_dyn=SolverOptions(mu_strategy="adaptive")),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="item 29"):
+        ClosedLoop(cfg.replace(sol_opts_ss=SolverOptions(debug=True)), device="cpu")
+
+
+def test_host_entry_points_default_to_the_card():
+    """``ClosedLoop``, ``MHERuntime`` and the command line without ``--cpu``
+    run on the card: without one they raise."""
+    from mpc_code_tpu_torch.estimators.mhe import MHERuntime
+    from mpc_code_tpu_torch.examples.__main__ import main
+    from mpc_code_tpu_torch.examples.enmpc import make_config
+    from mpc_code_tpu_torch.loop import ClosedLoop
+    from mpc_code_tpu_torch.models import build_model
+
+    cfg = make_config(Nsim=1).replace(N=N)
+    if torch.cuda.is_available():
+        assert ClosedLoop(cfg).device.type == "cuda"
+        return
+    for call in (lambda: ClosedLoop(cfg), lambda: MHERuntime(cfg, build_model(cfg)),
+                 lambda: main(["enmpc", "--nsim", "1", "--n", str(N)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ClosedLoop(cfg, device="cpu").mhe_rt.device.type == "cpu"
 
 
 def test_loop_entry_points_default_to_the_card():

@@ -162,9 +162,12 @@ def test_step_from_a_jax_window_state(linear):
     jxc, jc = runs[1][N + 1]
     assert np.abs(xc[0].numpy() - jxc).max() <= 1e-8
     assert np.abs(c1.P[0].numpy() - jc.P).max() <= 1e-7
-    # the hand-off from the host MHERuntime waits for it (ROADMAP item 22)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        from_rt(None, None)
+    # the hand-off from the host MHERuntime refuses a window that is not
+    # full yet (test_torch_mhe_runtime.py holds the hand-off itself)
+    from mpc_code_tpu_torch.estimators.mhe import MHERuntime
+
+    with pytest.raises(ValueError, match="not full yet"):
+        from_rt(MHERuntime(pcfg, build_model(pcfg), device="cpu"), np.eye(4))
 
 
 def test_dense_engine_matches_structured():
