@@ -78,36 +78,53 @@ It never imports JAX or the JAX package.  Phases:
    launches per pass;
 9. the bench port (``clb``): ``examples/closed_loop_bench.py`` at its
    defaults (B=1024, 20 steps, cap 10), its two lines;
-10. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
+10. the constrained phase (``constrained``): the bench workload of phase 3
+   through three other transcriptions of the CSTR OCP, CONSTRAINED_B lanes, f32:
+   Gauss-Legendre collocation condensed within each stage (kernel 2 at
+   (50, 3, 2), kernels 1 and 5 idle), soft output bounds by the shared
+   slacks (kernels 1 and 2, kernel 2 at (50, 7, 6), first held against its
+   plain version) and the terminal equality with a stage equality (kernel
+   1 and the plain constrained recursions, kernel 2 idle), with the
+   solves/s, statuses, iterations and launches against the solver's
+   passes; 8 lanes in f64 on the card held to the CPU's f64 run, the
+   first 4 to the dense transcription on the CPU, and x_N = xs under
+   TermCons; and the bordered recursion on the card against the CPU with
+   and without each kind of row;
+11. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
    economic target by the dense IPM and the ContForm OCP under
-   Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup and
-   the first full window), ENMPC_NSIM steps,
+   Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup),
+   ENMPC_NSIM steps,
    f32 throughout — checked as phase 7, with on every step kernel 2's
    launches in the MHE equal to the MHE solver's passes and in the OCP to
    the OCP solver's, kernel 4's equal to the OCP's passes, the non-finite
-   shares of the MHE's P, x_bar, Pycondx_inv and the estimate, step 9
-   replayed with the MHE and the OCP under the profiler, and the 64-lane
+   shares of the MHE's P, x_bar, Pycondx_inv and the estimate, the last
+   step (the first with the MHE's dual warm start) replayed with the MHE
+   and the OCP under the profiler, and the 64-lane
    f64 check holding every MHE, target and OCP iteration and status and the
    estimate too;
-11. the host loop (``host_loop``): ``loop/simulator.py::ClosedLoop`` on the
+12. the host loop (``host_loop``, run before phase 11 so that phase 11's
+   CPU reference finishes beside it): ``loop/simulator.py::ClosedLoop`` on the
    card in f64 on ``fixtures/enmpc.npz`` (the host MHE, its window solves
    on kernel 2 at one lane) and ``fixtures/nmpc.npz`` (the EKF), every
    recorded key within the fixtures'
    1e-4, the native host core built and loaded, per step the phase times,
    iterations and statuses, kernel 2's launches in the MHE equal to its
    passes and no other launch, one host
-   step under the profiler (launches, device-to-host copies), kernel 2 at
-   one lane against its plain version, and the command line
-   (``examples/__main__.py``) at Ex_ENMPC's size, its history file read
-   back;
-12. the warm hand-off (``enmpc_handoff``): the ENMPC flagship's host
-   warmup (``ClosedLoop``, N_mhe + 2 = 12 steps, f32 on the card) held
+   step under the profiler (launches, device-to-host copies), and the
+   command line (``examples/__main__.py``) at Ex_ENMPC's size, its history
+   file read back; the nmpc fixture and the command line each in a
+   process of its own on the card, beside the ENMPC fixture (kernel 2 at
+   one lane is held against its plain version in the enmpc_mhe kernel
+   phase);
+13. the warm hand-off (``enmpc_handoff``): the ENMPC flagship's host
+   warmup (``ClosedLoop``, N_mhe + 2 = 12 steps, f32 on the card, in a
+   process of its own started with phase 12) held
    against the CPU's f64 run, then ``carry_from_runtime`` into the batched
-   step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 10
+   step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 11
    from the handed-off carry;
-13. one ``{"kernels": [...]}`` line, and as the last line
+14. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -212,26 +229,34 @@ LOOP_STATUS_DIFF_MAX = 1
 # and a lane-step that differs in infeasibility (at most
 # LOOP_STATUS_DIFF_MAX a step) is not held to a U tolerance.
 # The ENMPC flagship loop (enmpc_loop) keeps the closed loops' rules for
-# ENMPC_NSIM steps: the traced MHE warmup (steps 0-8), the first full
-# window with the first prior update (step 9); the JAX tool runs N_mhe + 2
-# + 20 = 32 (16 steps until the host loop's phases came: enmpc_handoff
-# runs eight steady steps with the MHE's dual warm start).  Its statuses
-# and iterations (MHE, target, OCP) and U, Xp and the estimate are held as
-# the other loops' U and Xp; ENMPC_PROFILE_STEPS (the first full window,
-# ~30 s under the profiler) are replayed under the profiler.
-ENMPC_NSIM = 10
-ENMPC_PROFILE_STEPS = (9,)
+# ENMPC_NSIM steps: the traced MHE's growing-horizon warmup (steps 0-8),
+# its first full window and prior update (step 9, steps >= N_mhe - 1) and
+# its first dual warm start (step 10, steps >= N_mhe); the JAX tool runs
+# N_mhe + 2 + 20 = 32.  Its statuses and
+# iterations (MHE, target, OCP) and U, Xp and the estimate are held as
+# the other loops' U and Xp; ENMPC_PROFILE_STEPS are replayed under the
+# profiler.
+ENMPC_NSIM = 11
+ENMPC_PROFILE_STEPS = (10,)
 # The host loop (host_loop): the fixtures of tools/record_fixtures.py:28-36
 # through ClosedLoop on the card in f64, every recorded key within the
 # fixtures' bar (tests/test_fixtures.py:37); step HOST_PROFILE_STEP of
 # the ENMPC fixture (a full window) under the profiler.  The hand-off
 # (enmpc_handoff): the host warmup of N_mhe + 2 steps in f32 on the card,
-# then HANDOFF_T steady steps of B lanes.
+# then HANDOFF_T steady steps of B lanes (the JAX tool runs 20).  The
+# command line's run takes CLI_NSIM steps: both cut to keep the whole
+# smoke, with the constrained phase, under 1,100 s.  The
+# one-lane host runs (the nmpc fixture, the command line, the hand-off's
+# host warmup) each run in a process of their own on the card beside the
+# main process's phases from host_loop on (CARD_WORKERS): each keeps the
+# card busy a few per cent of the time (PERF.md section 5).
 HOST_FIXTURES = (("enmpc", 8, 8, 5), ("nmpc", 10, 10, None))
 FIXTURE_BAR = 1e-4
 FIXTURE_KEYS = ("Xp", "Yp", "U", "XS", "US", "YS", "X_HAT", "D_HAT")
 HOST_PROFILE_STEP = 6
-HANDOFF_T = 8
+HANDOFF_T = 6
+CLI_NSIM = 1
+CARD_WORKERS = 3
 HANDOFF_REF_THREADS = 4            # the continuation's CPU run, alone by then
 CLB_BATCH, CLB_STEPS = 1024, 20    # the bench port's defaults
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -631,13 +656,17 @@ def lmpc_kernel_phase(dev, lsocp, csocp, results):
 
 def enmpc_mhe_kernel_phase(dev, msocp, results):
     """Kernel 2 at the structured MHE's shapes, (N, nxa, nu) = (11, 4, 4)
-    on B lanes, against its plain version."""
+    on B lanes and on one lane (as the host MHE of host_loop calls it, at
+    the example's full window, N_mhe=10), against its plain version."""
     import torch
 
     failures = []
     for dtype in (torch.float64, torch.float32):
         failures += riccati_check(dev, dtype, msocp.N, msocp.nxa, msocp.nu,
                                   results["riccati_kkt_enmpc_mhe"])
+    for dtype in (torch.float64, torch.float32):
+        failures += riccati_check(dev, dtype, msocp.N, msocp.nxa, msocp.nu,
+                                  results["riccati_kkt_host_mhe"], batch=1)
     return failures
 
 
@@ -768,35 +797,35 @@ def profile_pass1(cfg, model, solve, x0s):
 
 
 def profile_solve(run):
-    """``run()`` (a structured solve) under torch.profiler: device busy
-    share (summed kernel time over the profiled wall time), kernel launches
-    per IPM iteration and the kernels that take the most time.  Raises when
-    the profiler sees no device time."""
+    """``run()`` (a structured solve) under torch.profiler (CUDA activity
+    only, its raw device events read as ``HostWindow`` reads them): device
+    busy share (summed device time over the profiled wall time), device
+    launches (kernels, copies and fills) per IPM iteration and the kernels
+    that take the most time.  Raises when the profiler sees no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n_it = int(r.iters.max())
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in kern) / 1e6
+    by_name, n_launch = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            n_launch += 1
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    busy = sum(by_name.values()) / 1e9
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    top = sorted(kern, key=dev_us, reverse=True)[:6]
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
     return {"wall_s": wall, "iterations": n_it, "device_busy_s": busy,
             "device_busy_share": busy / wall,
-            "kernel_launches_per_iteration": sum(e.count for e in kern) / max(n_it, 1),
-            "top_kernels_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
+            "kernel_launches_per_iteration": n_launch / max(n_it, 1),
+            "top_kernels_ms": {k[:60]: ns / 1e6 for k, ns in top}}
 
 
 def cross_check(name, run, ref, f32, u_box, tol, tol_moved):
@@ -1002,12 +1031,14 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
     "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop",
-    "enmpc_loop", "enmpc_handoff") in one
+    "enmpc_loop", "enmpc_handoff", "constrained") in one
     dtype, with the Riccati ``ok`` flags of every call (for the loops: the
     closed loop's history; "enmpc_handoff" continues from ``carry``, numpy
     arrays, at time ``t0`` and step ``k0``).  "enmpc_handoff_warmup" is the
     hand-off's host warmup through ``ClosedLoop`` on the CPU: (history,
-    per-step stats).  Returns (results, flags).  It runs
+    per-step stats).  "constrained" gives, per run of the constrained
+    phase, the check lanes' structured solve and their dense
+    transcription's.  Returns (results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -1020,6 +1051,13 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
     flags = []
     undo = record_ok_flags([flags])
     try:
+        if path == "constrained":
+            # small one-lane solves: one thread does as well and leaves the
+            # cores to the card's host-bound phases and the other workers
+            torch.set_num_threads(1)
+            return {name: dict(struct=constrained_check_solve(name, cpu),
+                               dense=constrained_dense(name))
+                    for name in constrained_runs()}, flags
         if path.startswith("enmpc_handoff"):
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.loop import ClosedLoop
@@ -1275,9 +1313,11 @@ PROFILE_WINDOWS = {"estimate": (None, "estimate"), "ocp": ("target", "ocp")}
 
 def profile_steps(step, carries, inputs, phases):
     """Replay each step ``k`` from its input carry ``carries[k]`` with the
-    ``phases`` (the MHE's "estimate", the "ocp") under torch.profiler: per
-    step and phase the solver's passes, its kernel launches per pass, its
-    device busy share and its wall ms."""
+    ``phases`` (the MHE's "estimate", the "ocp") under torch.profiler (CUDA
+    activity only, its raw device events read as ``HostWindow`` reads them:
+    the host-side op records and ``key_averages`` took ~50 s a step): per
+    step and phase the solver's passes, its device launches (kernels,
+    copies and fills) per pass, its device busy share and its wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1285,8 +1325,7 @@ def profile_steps(step, carries, inputs, phases):
 
     rows = []
     for k, c in carries.items():
-        profs = {ph: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                 for ph in phases}
+        profs = {ph: profile(activities=[ProfilerActivity.CUDA]) for ph in phases}
         clock = {}
 
         def begin(ph):
@@ -1309,15 +1348,14 @@ def profile_steps(step, carries, inputs, phases):
                 begin(ph)
         _, out = step(c, StepInput(*(a[k] for a in inputs)), mark=mark)
         for ph in phases:
-            kern = [e for e in profs[ph].key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
-            busy = sum(getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0)) for e in kern) / 1e6
+            kern = [e for e in profs[ph].profiler.kineto_results.events()
+                    if str(e.device_type()).endswith("CUDA")]
+            busy = sum(e.duration_ns() for e in kern) / 1e9
             if busy <= 0:
                 raise RuntimeError("torch.profiler recorded no device time")
             n = mhe_passes(out) if ph == "estimate" else ocp_passes(out)
             rows.append(dict(step=k, phase=ph, passes=n,
-                             launches_per_pass=sum(e.count for e in kern) / max(n, 1),
+                             launches_per_pass=len(kern) / max(n, 1),
                              busy_share=busy / clock[ph], ms=1e3 * clock[ph],
                              ms_per_pass=1e3 * clock[ph] / max(n, 1)))
     return rows
@@ -1690,7 +1728,45 @@ def host_fixture(name, nsim, n, n_mhe, profile_step, device):
             window.result, wall)
 
 
-def host_loop_phase(dev, launches, results):
+def card_job(job, *args):
+    """A one-lane host run on the card in a process of its own (spawned, so
+    it imports what it needs itself), beside the main process's phases:
+    "fixture" (``host_fixture``'s tuple), "cli" (the command line's exit
+    code, seconds and kernel-2 launches; its prints go to stderr) or
+    "handoff_warmup" (``host_warmup``: the one-lane carry as numpy, the
+    loop's step stats and final state, its history, its seconds and
+    kernel-2 launches).  The kernels load from the builds of ``main``."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import contextlib
+
+    import torch
+
+    from mpc_code_tpu_torch.device import pin_fp32_precision
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    pin_fp32_precision()
+    dev = torch.device("cuda")
+    if job == "fixture":
+        return host_fixture(*args, dev)
+    rk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if job == "cli":
+        from mpc_code_tpu_torch.examples import __main__ as cli
+
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = cli.main(["enmpc", "--nsim", str(CLI_NSIM), "--save", args[0]])
+        return rc, time.perf_counter() - t0, rk.LAUNCHES
+    from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
+    from mpc_code_tpu_torch.loop.batched import map_carry
+
+    carry, loop, H, warm_s = mw.host_warmup(mw.make_config(warm_handoff=True), dev)
+    return (map_carry(lambda a: a.cpu().numpy(), carry), loop.step_stats,
+            loop.final_state, H, warm_s, rk.LAUNCHES)
+
+
+def host_loop_phase(dev, launches, card_pool):
     """The host loop ``ClosedLoop`` on the card in f64: the reduced fixtures
     ``fixtures/enmpc.npz`` (the MHE, 'smooth', its window by the structured
     IPM: kernel 2 at (N_w+1, 4, 4), one lane) and ``fixtures/nmpc.npz``
@@ -1698,20 +1774,21 @@ def host_loop_phase(dev, launches, results):
     ms, the iterations and statuses; kernel 2's launches in the MHE equal to
     its solver's passes on every step and no other launch (the target and
     the OCP are dense IPMs); one ENMPC step (HOST_PROFILE_STEP) under the
-    profiler for its launches and host synchronisations; kernel 2 at one
-    lane against its plain version; then the command line ``python -m
-    mpc_code_tpu_torch.examples enmpc --nsim 3 --save`` in-process at the
-    example's size (N=25, N_mhe=10), read back by ``utils/io``."""
+    profiler for its launches and host synchronisations; the command line
+    ``python -m mpc_code_tpu_torch.examples enmpc --nsim CLI_NSIM --save``
+    at the example's size (N=25, N_mhe=10), read back by ``utils/io``.
+    The nmpc fixture and the command line run in ``card_pool``'s processes
+    beside the ENMPC fixture."""
     import tempfile
 
-    import torch
-
     from mpc_code_tpu_torch import native
-    from mpc_code_tpu_torch.examples import __main__ as cli
-    from mpc_code_tpu_torch.solver import riccati_kernel as rk
     from mpc_code_tpu_torch.utils.io import load_history
 
     failures, report = [], {}
+    beside = {name: card_pool.submit(card_job, "fixture", name, nsim, n, n_mhe, None)
+              for name, nsim, n, n_mhe in HOST_FIXTURES if n_mhe is None}
+    path = os.path.join(tempfile.mkdtemp(), "enmpc.npz")
+    cli_job = card_pool.submit(card_job, "cli", path)
     # the native host core (native/hostcore.cpp by g++): the host MHE's
     # 'smooth' update runs its backward smoother
     report["native_available"] = native.available()
@@ -1720,8 +1797,9 @@ def host_loop_phase(dev, launches, results):
     if not report["native_available"]:
         failures.append("host_loop: the native host core did not build or load")
     for name, nsim, n, n_mhe in HOST_FIXTURES:
-        H, stats, counts, mhe_rows, window, wall = host_fixture(
-            name, nsim, n, n_mhe, HOST_PROFILE_STEP if n_mhe is not None else None, dev)
+        H, stats, counts, mhe_rows, window, wall = (
+            beside[name].result() if name in beside else
+            host_fixture(name, nsim, n, n_mhe, HOST_PROFILE_STEP, dev))
         ref = np.load(os.path.join(ROOT, "fixtures", f"{name}.npz"))
         devs = {k: float(np.abs(H[k] - ref["H_" + k]).max())
                 for k in FIXTURE_KEYS if "H_" + k in ref.files and len(H[k])}
@@ -1755,24 +1833,14 @@ def host_loop_phase(dev, launches, results):
     if report["enmpc"]["profiled_step"] is None:
         failures.append("host_loop: the profiled step did not run")
 
-    # kernel 2 as the host MHE calls it: one lane at the full window's
-    # shapes (N_mhe=10 of the example: (11, 4, 4))
-    for dtype in (torch.float64, torch.float32):
-        failures += riccati_check(dev, dtype, 11, 4, 4, results["riccati_kkt_host_mhe"],
-                                  batch=1)
-
-    # the command line at the example's own size, in this process
-    path = os.path.join(tempfile.mkdtemp(), "enmpc.npz")
-    rk.LAUNCHES = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["enmpc", "--nsim", "3", "--save", path])
-    cli_s = time.perf_counter() - t0
+    # the command line at the example's own size
+    rc, cli_s, cli_launches = cli_job.result()
     H, meta = load_history(path)
     need = ("Xp", "Yp", "U", "XS", "US", "X_HAT", "D_HAT", "STATUS_SS", "STATUS_DYN")
-    ok = (rc == 0 and all(k in H and len(H[k]) == 3 for k in need)
+    ok = (rc == 0 and all(k in H and len(H[k]) == CLI_NSIM for k in need)
           and all(np.isfinite(H[k]).all() for k in need)
           and not (H["STATUS_DYN"] == 2).any() and float(meta["h"]) == 2.0)
-    report["cli"] = dict(rc=rc, seconds=cli_s, keys=sorted(H), riccati_kkt=rk.LAUNCHES,
+    report["cli"] = dict(rc=rc, seconds=cli_s, keys=sorted(H), riccati_kkt=cli_launches,
                          status_dyn=H.get("STATUS_DYN", np.zeros(0)).tolist())
     log("# host_loop cli " + json.dumps(report["cli"]))
     if not ok:
@@ -1781,29 +1849,32 @@ def host_loop_phase(dev, launches, results):
     return failures, report
 
 
-def handoff_start(pool, cpu_refs):
+def handoff_start(pool, cpu_refs, card_jobs):
     """enmpc_handoff's start: the host warmup (``ClosedLoop``, K0 = N_mhe +
-    2 steps, f32 on the card, one lane) held against the CPU's f64 run of
+    2 steps, f32 on the card, one lane; ``card_jobs["handoff_warmup"]``, a
+    ``card_job`` started with host_loop) held against the CPU's f64 run of
     the same steps (every status equal, U within U_TOL of the input box on
     every step, every value finite), then ``carry_from_runtime`` and
     ``init_carry`` tiled to B lanes; the CPU's f64 continuation of the
     first N_CHECK lanes goes to a worker."""
     def start(dev, cfg):
+        import torch
+
         from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
         from mpc_code_tpu_torch.loop.batched import map_carry
-        from mpc_code_tpu_torch.solver import riccati_kernel as rk
 
         failures = []
         k0 = mw.handoff_steps(cfg)
-        rk.LAUNCHES = 0
-        carry, loop, H32, warm_s = mw.warm_handoff(cfg, B, dev)
-        warm_launches = rk.LAUNCHES
+        carry1, stats32, final, H32, warm_s, warm_launches = card_jobs[
+            "handoff_warmup"].result()
+        carry = mw.tile_handoff(cfg, map_carry(lambda a: torch.as_tensor(a, device=dev),
+                                               carry1), B)
         H64, stats64 = cpu_refs[("enmpc_handoff_warmup", "float64")].result()[0]
         du = (np.abs(H32["U"] - H64["U"]) / mw.U_BOX).max(axis=1)
-        st32 = [(s["mhe_status"], s["status_ss"], s["status_dyn"]) for s in loop.step_stats]
+        st32 = [(s["mhe_status"], s["status_ss"], s["status_dyn"]) for s in stats32]
         st64 = [(s["mhe_status"], s["status_ss"], s["status_dyn"]) for s in stats64]
         finite = all(np.isfinite(np.asarray(v, float)).all() for v in H32.values())
-        for k, st in enumerate(loop.step_stats):
+        for k, st in enumerate(stats32):
             log("# enmpc_handoff warmup step " + json.dumps(dict(
                 step=k, **{f"{ph}_ms": 1e3 * st[f"{ph}_s"]
                            for ph in ("estimate", "target", "ocp", "plant")},
@@ -1819,10 +1890,9 @@ def handoff_start(pool, cpu_refs):
             failures.append(f"enmpc_handoff: the f32 warmup against the CPU f64 run: "
                             f"statuses equal {st32 == st64}, max |dU|/box {du.max():.3e} "
                             f"(tol {U_TOL:g}), finite {finite}")
-        st = loop.final_state
         lanes = map_carry(lambda a: a[:N_CHECK].cpu().numpy(), carry)
-        ref = pool.submit(cpu_reference, "enmpc_handoff", "float64", lanes, st["t"], k0)
-        return dict(carry=carry, t0=st["t"], k0=k0, ref=ref, failures=failures,
+        ref = pool.submit(cpu_reference, "enmpc_handoff", "float64", lanes, final["t"], k0)
+        return dict(carry=carry, t0=final["t"], k0=k0, ref=ref, failures=failures,
                     report=report)
 
     return start
@@ -1856,10 +1926,296 @@ def clb_phase(dev, launches):
     return failures, report
 
 
+# ---------------------------------------------------------------------------
+# constrained phase: collocation, soft output bounds, TermCons with H_eq
+# ---------------------------------------------------------------------------
+
+# The bench workload (B lanes in f32, pass-1 cap 12, the rescue at cap 40)
+# through three transcriptions of the CSTR OCP: "colloc" (Gauss-Legendre
+# collocation condensed within each stage; kernel 2 at (50, 3, 2), kernels
+# 1 and 5 bypassed), "soft" (the shared output slacks, Ws = 10 I: kernels 1
+# and 2, kernel 2 at (50, 7, 6)) and "tc_heq" (the terminal equality and
+# the stage equality of tests/test_riccati.py:425-430: kernel 1 and the
+# plain bordered recursion, no kernel 2).  CONSTRAINED_CHECK lanes (the
+# first of the same draws) are solved again in f64 to CONSTRAINED_TOL by
+# the same structured solver on the card and on the CPU: equal statuses
+# and iterations, X and U within CONSTRAINED_F64_TOL; and by the dense
+# transcription (build_ocp_collocation or build_ocp through the dense IPM,
+# lane by lane, on the CPU) to the same tolerance: U within
+# CONSTRAINED_DENSE_TOL where both converged (normalised |a-b|/(1+|b|)).
+# The two transcriptions' answers part by ~6e3 times the KKT tolerance on
+# these lanes (a flat valley of the cost along the coolant temperature):
+# 6.3e-5 of the box at 1e-8, 1.0e-6 at 1e-10 (CPU runs of these lanes), so the
+# check solves to 1e-10.  Under TermCons, x_N = xs within
+# CONSTRAINED_TC_TOL on every converged lane.  The check solves stop at
+# CONSTRAINED_CHECK_CAP iterations (every converging check lane takes 37
+# or fewer; the tc_heq draws that do not converge ran to 100 before, 28 s
+# of the card's time) and the dense ones at CONSTRAINED_DENSE_CAP.  The
+# runs take CONSTRAINED_B lanes, and the dense transcription the first
+# CONSTRAINED_DENSE_LANES check lanes: at 16,384 lanes and 8 dense lanes
+# (the dense IPM, ~7-15 s a lane on one core; a batch of lanes costs as
+# much a lane-iteration on the CPU and runs to its slowest lane's count)
+# the phase took 212 s on the H100 and the whole smoke ran past its
+# limit; at 4,096 lanes and 4 dense lanes, 116 s of 1,331 s, within the
+# phase's ~150 s.  The iterations of the tc_heq run are reported, not held
+# equal: there the merit test that quarters the step compares values that
+# differ by less than the residuals' rounding near the optimum (c_norm
+# weighted by a penalty of ~330), and a relative change of 1e-15 in x0
+# moves a lane's count by one on the CPU, in the JAX solver as in the
+# port's (tests/test_torch_structured_constrained.py::
+# test_termcons_heq_iterations_follow_rounding).  Its statuses, X and U
+# are held as the others'.  The bordered recursion itself is held on the
+# card against its CPU run, with and without each kind of row
+# (BORDERED_CASES), to CONSTRAINED_TOL in f64.
+CONSTRAINED_ITERS_BY_ROUNDING = ("tc_heq",)
+CONSTRAINED_B = 4096
+CONSTRAINED_CHECK = 8
+CONSTRAINED_DENSE_LANES = 4
+CONSTRAINED_TOL = 1e-10
+CONSTRAINED_CHECK_CAP = 50
+CONSTRAINED_DENSE_CAP = 100
+CONSTRAINED_OPTS = dict(max_iter=CONSTRAINED_CHECK_CAP, tol=CONSTRAINED_TOL,
+                        constr_viol_tol=1e-8, hessian="gauss_newton")
+BORDERED_CASES = ((1, 0), (0, 3), (1, 3), (0, 0))   # (n_eq, n_tc)
+CONSTRAINED_F64_TOL = 1e-8
+CONSTRAINED_DENSE_TOL = 1e-6
+CONSTRAINED_TC_TOL = 1e-7
+
+
+def heq_line(x, u, y, d, t, px, py):
+    """The stage equality of tests/test_riccati.py:425-430: a control
+    allocation line through the steady pair (us, xs), coupled to the
+    temperature."""
+    import torch
+
+    return torch.atleast_1d(u[0] + 50.0 * u[1] - 305.157 - 0.1 * (x[1] - 325.0))
+
+
+def constrained_runs():
+    """name -> the bench config's overrides of one run."""
+    return {"colloc": dict(Collocation=True),
+            "soft": dict(slacks=True, Ws=10.0 * np.eye(4)),
+            "tc_heq": dict(TermCons=True, H_eq=heq_line)}
+
+
+def constrained_check_solve(name, device):
+    """The check lanes' structured solve in f64 to CONSTRAINED_TOL, from
+    the bench's warm start: status, iters, X and U of the
+    model's state and inputs, as numpy."""
+    import torch
+
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        U_SS, bench_params, draw_x0, make_problem, warm_start,
+    )
+    from mpc_code_tpu_torch.solver.riccati import make_structured_solver
+
+    cfg, model, socp, _ = make_problem(device, **constrained_runs()[name])
+    solve = make_structured_solver(socp, SolverOptions(**CONSTRAINED_OPTS))
+    kw = dict(dtype=torch.float64, device=device)
+    x0 = draw_x0(CONSTRAINED_CHECK, device, dtype=torch.float64)
+    X0, U0 = warm_start(cfg, model, x0, torch.as_tensor(U_SS, **kw).expand(len(x0), cfg.nu))
+    pad = (0, socp.ns)
+    r = solve(bench_params(cfg, x0), torch.nn.functional.pad(X0, pad),
+              torch.nn.functional.pad(U0, pad))
+    return dict(status=r.status.cpu().numpy(), iters=r.iters.cpu().numpy(),
+                X=r.X[..., :cfg.nx].cpu().numpy(), U=r.U[..., :cfg.nu].cpu().numpy())
+
+
+def constrained_dense(name):
+    """The first CONSTRAINED_DENSE_LANES check lanes through the dense
+    transcription on the CPU in f64, one lane at a time (a lane's line search does not hold up the others):
+    the collocation OCP (ocp/collocation.py) or the shooting OCP
+    (ocp/shooting.py) by the dense IPM, from the bench's warm start (s1, s2
+    at the next state).  Returns status and U, as numpy."""
+    import torch
+
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        U_SS, bench_params, draw_x0, make_problem, warm_start,
+    )
+    from mpc_code_tpu_torch.models import build_stage_cost, build_terminal_cost
+    from mpc_code_tpu_torch.ocp.collocation import build_ocp_collocation
+    from mpc_code_tpu_torch.ocp.shooting import build_ocp
+    from mpc_code_tpu_torch.solver.ipm import make_solver
+
+    cpu = torch.device("cpu")
+    cfg, model, _, _ = make_problem(cpu, **constrained_runs()[name])
+    N, nx, nu = cfg.N, cfg.nx, cfg.nu
+    build = build_ocp_collocation if cfg.Collocation else build_ocp
+    spec = build(cfg, model, build_stage_cost(cfg.stage_cost), build_terminal_cost(cfg))
+    st = 3 * nx + nu if cfg.Collocation else nx + nu
+    dense = make_solver(spec.nlp, SolverOptions(max_iter=CONSTRAINED_DENSE_CAP,
+                                                tol=CONSTRAINED_TOL))
+    x0s = draw_x0(CONSTRAINED_CHECK, cpu, dtype=torch.float64)[:CONSTRAINED_DENSE_LANES]
+    status, U = [], []
+    for i in range(len(x0s)):
+        x0 = x0s[i:i + 1]
+        X0, U0 = warm_start(cfg, model, x0, torch.as_tensor(U_SS)[None])
+        w0 = torch.zeros((1, spec.nw), dtype=torch.float64)
+        for k in range(N):
+            w0[:, k * st:k * st + nx] = X0[:, k]
+            if cfg.Collocation:
+                w0[:, k * st + nx:k * st + 3 * nx] = X0[:, k + 1].repeat(1, 2)
+            w0[:, (k + 1) * st - nu:(k + 1) * st] = U0[:, k]
+        w0[:, N * st:N * st + nx] = X0[:, N]
+        lbw = torch.as_tensor(spec.lbw)[None].clone()
+        ubw = torch.as_tensor(spec.ubw)[None].clone()
+        lbw[:, :nx] = ubw[:, :nx] = x0
+        p = {k: torch.as_tensor(np.asarray(v, float))[None] if not torch.is_tensor(v) else v
+             for k, v in bench_params(cfg, x0).items()}
+        r = dense(w0, p, lbw, ubw, spec.lbg, spec.ubg)
+        status.append(int(r.status[0]))
+        U.append(torch.stack([r.w[0, (k + 1) * st - nu:(k + 1) * st] for k in range(N)]).numpy())
+    return dict(status=np.array(status), U=np.stack(U))
+
+
+def bordered_check(dev):
+    """``riccati_bordered`` (the plain recursion for TermCons and H_eq) on
+    the card against its CPU run in f64, for each (n_eq, n_tc) of
+    BORDERED_CASES (a kind of row may be absent: its tensors are then
+    empty, as the solver passes them) on seeded inputs at N=6, nxa=3,
+    nu=2, 4 lanes: the ok flags equal and set, every output of the CPU's
+    shape and within CONSTRAINED_TOL.  Returns (failures, {case: error})."""
+    import torch
+
+    from mpc_code_tpu_torch.solver.riccati import riccati_bordered
+
+    cpu = torch.device("cpu")
+    L, N, nxa, nu = 4, 6, 3, 2
+    nz = nxa + nu
+    failures, errs = [], {}
+    for n_eq, n_tc in BORDERED_CASES:
+        rng = np.random.default_rng(7)
+        M = 0.5 * rng.normal(size=(L, N, nz, nz))
+        MP = rng.normal(size=(L, nxa, nxa))
+        arrs = (M @ np.swapaxes(M, -1, -2) + 0.5 * np.eye(nz), rng.normal(size=(L, N, nz)),
+                0.9 * np.eye(nxa) + 0.1 * rng.normal(size=(L, N, nxa, nxa)),
+                rng.normal(size=(L, N, nxa, nu)), 0.1 * rng.normal(size=(L, N, nxa)),
+                MP @ np.swapaxes(MP, -1, -2) + np.eye(nxa), rng.normal(size=(L, nxa)),
+                rng.normal(size=(L, N, n_eq, nz)), 0.1 * rng.normal(size=(L, N, n_eq)),
+                0.1 * rng.normal(size=(L, n_tc)))
+        got, ref = (riccati_bordered(*(torch.as_tensor(a, device=d) for a in arrs),
+                                     nxa=nxa, nu=nu) for d in (dev, cpu))
+        ok = bool(ref[0].all()) and bool((got[0].cpu() == ref[0]).all())
+        shapes = all(g.shape == r.shape for g, r in zip(got, ref))
+        err = max((nerr(g.cpu(), r) for g, r in zip(got[1:], ref[1:]) if r.numel()),
+                  default=0.0)
+        errs[f"{n_eq},{n_tc}"] = err
+        if not (ok and shapes and err <= CONSTRAINED_TOL):
+            failures.append(f"constrained: the bordered recursion at (n_eq, n_tc) = "
+                            f"({n_eq}, {n_tc}) on the card: ok flags equal {ok}, shapes "
+                            f"{shapes}, err {err:.3e}")
+    log("# constrained bordered recursion, card against CPU, f64, max norm err by "
+        f"(n_eq, n_tc): {json.dumps(errs)} (tol {CONSTRAINED_TOL:g})")
+    return failures, errs
+
+
+def constrained_phase(dev, launches, results, cpu_refs):
+    """The three constrained runs of the bench workload at CONSTRAINED_B
+    lanes in f32:
+    per run the solves per second, the status histogram, the iterations,
+    kernel 1's and kernel 2's launches against the solver's loop passes,
+    then the f64 check lanes against the CPU; kernel 2 at (50, 7, 6)
+    against its plain version first."""
+    import torch
+
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        X_SS, draw_x0, make_problem, run_pipeline,
+    )
+    from mpc_code_tpu_torch.ops import sweep_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    failures, bordered = bordered_check(dev)
+    report = dict(bordered_err=bordered)
+    refs = cpu_refs[("constrained", "float64")]
+    for name, overrides in constrained_runs().items():
+        cfg, model, socp, solve = make_problem(dev, **overrides)
+        if name == "soft":
+            for dtype in (torch.float64, torch.float32):
+                failures += riccati_check(dev, dtype, socp.N, socp.nxa, socp.nu,
+                                          results["riccati_kkt_soft"])
+        passes = []
+
+        def counted(*a, **k):
+            r = solve(*a, **k)
+            passes.append(solver_passes(r.iters, r.status))
+            return r
+
+        x0s = draw_x0(CONSTRAINED_B, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sweep_cuda.LAUNCHES = sk.LAUNCHES = rk.LAUNCHES = 0
+        status, iters, feas, kkt, U, times = run_pipeline(cfg, model, counted, x0s,
+                                                          ns=socp.ns)
+        k1, k2, k5 = sweep_cuda.LAUNCHES, rk.LAUNCHES, sk.LAUNCHES
+        launches[f"riccati_kkt_{name}"] = k2
+        launches[f"rk4_stage_jac_{name}"] = k1
+        n_ok = int((status != 2).sum())
+        r = dict(batch=CONSTRAINED_B, nxa=socp.nxa, nu=socp.nu, ni=socp.ni, ns=socp.ns,
+                 n_tc=socp.n_tc, n_eq=socp.n_eq, ok=n_ok, ok_fraction=n_ok / CONSTRAINED_B,
+                 solves_per_s=n_ok / times["total_s"],
+                 status_counts=np.bincount(status, minlength=3).tolist(),
+                 median_iters=float(np.median(iters)), max_iters=int(iters.max()),
+                 passes=passes, launches=dict(rk4_stage_jac=k1, riccati_kkt=k2,
+                                              stage_sweep=k5),
+                 peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in times.items()})
+        log(f"# constrained {name} " + json.dumps(r))
+        # kernel 2 once a loop pass where the OCP has no equality rows, never
+        # where it has (the plain recursions); kernel 1 once a pass on the
+        # split route, never on the collocation route; kernel 5 never
+        want_k2 = 0 if (socp.n_tc or socp.n_eq) else sum(passes)
+        want_k1 = 0 if cfg.Collocation else sum(passes)
+        if (k2, k1, k5) != (want_k2, want_k1, 0):
+            failures.append(f"constrained {name}: launches kernel 2 {k2}, kernel 1 {k1}, "
+                            f"kernel 5 {k5}; expected {want_k2}, {want_k1}, 0 "
+                            f"over passes {passes}")
+
+        # the check lanes in f64 on the card against the CPU
+        gpu = constrained_check_solve(name, dev)
+        ref = refs.result()[0][name]
+        cpu, dense = ref["struct"], ref["dense"]
+        same_iters = bool((gpu["iters"] == cpu["iters"]).all())
+        same = bool((gpu["status"] == cpu["status"]).all()
+                    and (same_iters or name in CONSTRAINED_ITERS_BY_ROUNDING))
+        ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
+        nd = CONSTRAINED_DENSE_LANES
+        both = (gpu["status"][:nd] == 0) & (dense["status"] == 0)
+        du_dense = (nerr(torch.as_tensor(gpu["U"][:nd][both]),
+                         torch.as_tensor(dense["U"][both])) if both.any() else float("nan"))
+        r.update(check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
+                 cpu_iters=cpu["iters"].tolist(), cpu_equal=same, max_norm_err_vs_cpu=ex,
+                 dense_status=dense["status"].tolist(),
+                 max_norm_err_U_vs_dense=du_dense)
+        line = (f"# constrained {name} f64 check ({CONSTRAINED_CHECK} lanes): status "
+                f"{gpu['status'].tolist()} iters {gpu['iters'].tolist()} (cpu "
+                f"{cpu['iters'].tolist()}), cpu equal {same}, max norm err X/U vs cpu "
+                f"{ex:.3e} (tol {CONSTRAINED_F64_TOL:g}); "
+                f"dense status {dense['status'].tolist()}, max norm err U vs dense "
+                f"{du_dense:.3e} over {int(both.sum())} lanes (tol {CONSTRAINED_DENSE_TOL:g})")
+        if not (same and ex <= CONSTRAINED_F64_TOL):
+            failures.append(f"constrained {name}: f64 check lanes differ from the CPU")
+        if not (both.sum() > 0 and du_dense <= CONSTRAINED_DENSE_TOL):
+            failures.append(f"constrained {name}: U {du_dense:.3e} from the dense "
+                            "transcription")
+        if socp.n_tc:
+            ok0 = gpu["status"] == 0
+            dxn = float(np.abs(gpu["X"][ok0, -1] - X_SS).max()) if ok0.any() else float("nan")
+            r["max_abs_xN_minus_xs"] = dxn
+            line += f"; max |x_N - xs| {dxn:.3e} (tol {CONSTRAINED_TC_TOL:g})"
+            if not (ok0.any() and dxn <= CONSTRAINED_TC_TOL):
+                failures.append(f"constrained {name}: x_N - xs {dxn:.3e}")
+        log(line)
+        report[name] = r
+    return failures, report
+
+
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
           "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
-          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "enmpc_loop", "host_loop",
-          "enmpc_handoff")
+          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "constrained", "host_loop",
+          "enmpc_loop", "enmpc_handoff")
 
 
 def main() -> int:
@@ -1914,13 +2270,15 @@ def main() -> int:
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
             "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
             "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
-            "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe")
+            "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe", "riccati_kkt_soft")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
                                      "riccati_kkt_lmpc_loop", "riccati_kkt_enmpc_loop",
                                      "riccati_kkt_enmpc_loop_mhe",
                                      "rk4_quad_stage_hess_enmpc_loop",
-                                     "riccati_kkt_host_loop"), 0)
+                                     "riccati_kkt_host_loop", "riccati_kkt_colloc",
+                                     "riccati_kkt_tc_heq", "rk4_stage_jac_colloc",
+                                     "rk4_stage_jac_soft", "rk4_stage_jac_tc_heq"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -1930,9 +2288,10 @@ def main() -> int:
         ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
         lsocp, csocp = linear_ocp(lw.make_config()), linear_ocp(cb.make_config())
         msocp = mw.mhe_ocp(mw.make_config(), dev)
+        ssocp = make_problem(dev, **constrained_runs()["soft"])[2]
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(10) as ex:
+        with cf.ThreadPoolExecutor(11) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -1946,6 +2305,7 @@ def main() -> int:
                                                   dprob.socp.nu),
                 "riccati_kkt_lmpc": ex.submit(rk.build_kernel, lsocp.nxa, lsocp.nu),
                 "riccati_kkt_enmpc_mhe": ex.submit(rk.build_kernel, msocp.nxa, msocp.nu),
+                "riccati_kkt_soft": ex.submit(rk.build_kernel, ssocp.nxa, ssocp.nu),
                 **{key: ex.submit(sk.make_stage_sweep(xsocp, hessian).build,
                                   xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)
                    for key, hessian in (("stage_sweep", "exact"),
@@ -1964,14 +2324,19 @@ def main() -> int:
 
     # the CPU side of every cross-check, in worker processes beside the
     # card's phases
-    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 3, mp_context=mp.get_context("spawn"))
-    # the closed loops' CPU runs are the longest: they start first, on a
-    # third, fourth and fifth worker, and the others keep their order
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 4, mp_context=mp.get_context("spawn"))
+    # the constrained phase's and the closed loops' CPU runs are the
+    # longest: they start first, and the others keep their order
     cpu_refs = {(p, "float64"): pool.submit(cpu_reference, p, "float64")
-                for p in ("enmpc_loop", "cstr_loop", "lmpc_loop") if p in selected}
+                for p in ("constrained", "enmpc_loop", "cstr_loop", "lmpc_loop")
+                if p in selected}
     cpu_refs.update({(p, dt): pool.submit(cpu_reference, p, dt)
                      for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact") if p in selected
                      for dt in ("float64", "float32")})
+    # the one-lane host runs on the card in processes of their own
+    # (card_job), from host_loop on
+    card_pool = cf.ProcessPoolExecutor(CARD_WORKERS, mp_context=mp.get_context("spawn"))
+    card_jobs = {}
     enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
                  "riccati_kkt_enmpc", ENMPC_U_TOL)
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
@@ -1987,7 +2352,7 @@ def main() -> int:
     enmpc_handoff = Loop("enmpc_handoff", mw, mw.U_BOX,
                          {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
                          profile=(), cap_apart=False, nsim=HANDOFF_T, mhe=True,
-                         start=handoff_start(pool, cpu_refs), warmup=False)
+                         start=handoff_start(pool, cpu_refs, card_jobs), warmup=False)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
@@ -2002,8 +2367,13 @@ def main() -> int:
               ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs)),
               ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
               ("clb", lambda: clb_phase(dev, launches)),
+              ("constrained", lambda: constrained_phase(dev, launches, results, cpu_refs)),
+              # host_loop before enmpc_loop: enmpc_loop's CPU reference (64
+              # lanes) and the hand-off's warmup reference finish beside it
+              # instead of being waited for (119 s and 39 s on the H100
+              # in the other order)
+              ("host_loop", lambda: host_loop_phase(dev, launches, card_pool)),
               ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs)),
-              ("host_loop", lambda: host_loop_phase(dev, launches, results)),
               ("enmpc_handoff", lambda: loop_phase(dev, enmpc_handoff, launches, cpu_refs)))
     try:
         for name, phase in phases:
@@ -2011,9 +2381,11 @@ def main() -> int:
                 continue
             if ("enmpc_handoff" in selected and name in ("host_loop", "enmpc_handoff")
                     and ("enmpc_handoff_warmup", "float64") not in cpu_refs):
-                # the hand-off's host warmup in f64 on the CPU, submitted late so
-                # that it does not slow the earlier phases (its continuation's
+                # the hand-off's host warmup, on the card (f32, a process of
+                # its own) and in f64 on the CPU, submitted late so that it
+                # does not slow the earlier phases (its continuation's
                 # reference is submitted by the phase, from the handed-off carry)
+                card_jobs["handoff_warmup"] = card_pool.submit(card_job, "handoff_warmup")
                 cpu_refs[("enmpc_handoff_warmup", "float64")] = pool.submit(
                     cpu_reference, "enmpc_handoff_warmup", "float64")
             t0 = time.perf_counter()
@@ -2026,6 +2398,7 @@ def main() -> int:
             log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
     finally:
         pool.shutdown(cancel_futures=True)
+        card_pool.shutdown(cancel_futures=True)
 
     def entry(name, res, n_launch):
         r32, r64 = res.get("float32", {}), res.get("float64", {})
@@ -2094,10 +2467,19 @@ def main() -> int:
                                             launches["riccati_kkt_host_loop"])
             k["launches_in_mhe"] = {p: launches.get(f"riccati_kkt_{p}_mhe", 0)
                                     for p in ("enmpc_loop", "enmpc_handoff")}
+            # the constrained phase: collocation at the CSTR path's shapes,
+            # the soft output bounds at (50, 7, 6); TermCons with H_eq
+            # takes the plain recursions (0 launches)
+            for p in ("colloc", "soft", "tc_heq"):
+                k["launches_by_path"][f"constrained_{p}"] = launches[f"riccati_kkt_{p}"]
+            k["at_soft_shapes"] = entry(name, results["riccati_kkt_soft"],
+                                        launches["riccati_kkt_soft"])
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
-                                     "cstr_loop": launches["rk4_stage_jac_cstr_loop"]}
+                                     "cstr_loop": launches["rk4_stage_jac_cstr_loop"],
+                                     **{f"constrained_{p}": launches[f"rk4_stage_jac_{p}"]
+                                        for p in ("colloc", "soft", "tc_heq")}}
         if name == "rk4_quad_stage_hess":
             # kernel 4 on the ENMPC flagship loop's OCP solves too
             k["launches_by_path"] = {"enmpc": launches["rk4_quad_stage_hess"],

@@ -12,6 +12,13 @@ combined steady/coolhold rescue call at cap 40 for the lanes that failed.
     cfg, model, socp, solve = make_problem(device)
     x0s = draw_x0(16384, device)
     status, iters, feas, kkt, U, times = run_pipeline(cfg, model, solve, x0s)
+
+Config overrides drive the same workload through other transcriptions of
+the same OCP: ``make_problem(device, Collocation=True)`` (the tracking
+cost handed over as the collocation form's ``f_coll``),
+``make_problem(device, slacks=True, Ws=10 * np.eye(4))`` (soft output
+bounds; ``run_pipeline(..., ns=socp.ns)`` pads the warm start's slack
+slots) or ``TermCons=True``.
 """
 
 from __future__ import annotations
@@ -23,12 +30,13 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from mpc_code_tpu_torch.config import SolverOptions
+from mpc_code_tpu_torch.config import SolverOptions, StageCost
 from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.examples.nmpc import make_config
 from mpc_code_tpu_torch.models import (
     build_model, build_stage_cost, build_terminal_cost,
 )
+from mpc_code_tpu_torch.models.costs import xQx
 from mpc_code_tpu_torch.solver.riccati import (
     build_structured_ocp, make_structured_solver,
 )
@@ -46,13 +54,23 @@ CLIP_HI = np.array([2.0, 420.0, 1.0])
 U_BOX = np.array([305.0 - 295.0, 0.25])   # width of the input bounds
 
 
-def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton"):
+def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", **overrides):
     """``(cfg, model, socp, solve)`` for the bench configuration on
-    ``device`` (default the card), with the OCP Hessian ``hessian``."""
-    cfg = make_config().replace(N=Nh, R_wn=None)
+    ``device`` (default the card), with the OCP Hessian ``hessian`` and the
+    config fields ``overrides``.  With ``Collocation=True`` the config's
+    tracking cost 0.5 (dx'Q dx + du'R du) becomes the collocation form's
+    ``f_coll``, which leaves its stage-state argument unused."""
+    cfg = make_config().replace(N=Nh, R_wn=None, **overrides)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, Mx=Mx, clip_lo=CLIP_LO.astype(np.float32),
         clip_hi=CLIP_HI.astype(np.float32)))
+    if cfg.Collocation:
+        Q, R = cfg.stage_cost.Q, cfg.stage_cost.R
+
+        def f_coll(x, u, y, xs, us, ys, s_coll):
+            return 0.5 * (xQx(x, Q) + xQx(u, R))
+
+        cfg = cfg.replace(stage_cost=StageCost(f_coll=f_coll))
     model = build_model(cfg)
     socp = build_structured_ocp(cfg, model, build_stage_cost(cfg.stage_cost),
                                 build_terminal_cost(cfg), device=device)
@@ -97,14 +115,23 @@ def warm_start(cfg, model, x0, u_ws, Nh=N):
     return torch.stack(xs, 1), u_ws[:, None].expand(-1, Nh, -1).contiguous()
 
 
-def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N):
+def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N, ns=0):
     """Pass 1 at cap MAXIT1, then one combined steady/coolhold rescue call
     per ``rescue_cap`` failed lanes at cap MAXIT_R
-    (bench.py:236-295).  Returns numpy status, iters, feas, kkt, U and the
-    per-phase host times."""
+    (bench.py:236-295).  Returns numpy status, iters, feas, kkt, U (the
+    model's inputs) and the per-phase host times.  ``ns``: the OCP's
+    shared slacks (``socp.ns``), whose state and input slots the warm
+    start fills with 0."""
     dev, dtype = x0s.device, x0s.dtype
     kw = dict(dtype=dtype, device=dev)
     nx, nu = cfg.nx, cfg.nu
+
+    def guess(x0, u_ws):
+        X0, U0 = warm_start(cfg, model, x0, u_ws, Nh)
+        if ns:
+            X0 = torch.nn.functional.pad(X0, (0, ns))
+            U0 = torch.nn.functional.pad(U0, (0, ns))
+        return X0, U0
 
     def sync():
         if dev.type == "cuda":
@@ -113,7 +140,7 @@ def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N):
     times = {}
     t0 = time.perf_counter()
     nb = x0s.shape[0]
-    X0, U0 = warm_start(cfg, model, x0s, torch.as_tensor(U_SS, **kw).expand(nb, nu), Nh)
+    X0, U0 = guess(x0s, torch.as_tensor(U_SS, **kw).expand(nb, nu))
     sync()
     t1 = time.perf_counter()
     r = solve(bench_params(cfg, x0s, Nh), X0, U0, max_iter=MAXIT1)
@@ -123,7 +150,7 @@ def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N):
     iters = r.iters.cpu().numpy().copy()
     feas = r.feas_err.cpu().numpy().copy()
     kkt = r.kkt_err.cpu().numpy().copy()
-    U = r.U.cpu().numpy().copy()
+    U = r.U[..., :nu].cpu().numpy().copy()
     t3 = time.perf_counter()
     times.update(warm_start_s=t1 - t0, pass1_s=t2 - t1, fetch_s=t3 - t2)
     bad = np.where(status == 2)[0]
@@ -139,11 +166,11 @@ def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N):
         xr[rescue_cap:rescue_cap + n] = x0_np[sel]
         uw = np.repeat(np.stack([U_SS, U_COOL]), rescue_cap, axis=0)
         xr_t = torch.as_tensor(xr, **kw)
-        X0r, U0r = warm_start(cfg, model, xr_t, torch.as_tensor(uw, **kw), Nh)
+        X0r, U0r = guess(xr_t, torch.as_tensor(uw, **kw))
         rr = solve(bench_params(cfg, xr_t, Nh), X0r, U0r, max_iter=MAXIT_R)
         s2 = np.stack([rr.status.cpu().numpy(), rr.iters.cpu().numpy(),
                        rr.feas_err.cpu().numpy(), rr.kkt_err.cpu().numpy()], 1)
-        U2 = rr.U.cpu().numpy()
+        U2 = rr.U[..., :nu].cpu().numpy()
         st_s, st_c = s2[:n], s2[rescue_cap:rescue_cap + n]
         use_s = st_s[:, 0] != 2
         pick = np.where(use_s[:, None], st_s, st_c)

@@ -104,22 +104,19 @@ def handoff_steps(cfg):
     return cfg.estimator.N_mhe + 2
 
 
-def warm_handoff(cfg, batch, device=None, dtype=torch.float32, seed=0):
-    """The hand-off mode's start (``tools/enmpc_onchip_bench.py:62-71,86-89``):
+def host_warmup(cfg, device=None, dtype=torch.float32):
+    """The hand-off mode's host part (``tools/enmpc_onchip_bench.py:62-71``):
     ``ClosedLoop`` for K0 steps on ``device`` (default the card) in
-    ``dtype``, then ``carry_from_runtime`` and ``init_carry(state=...)``,
-    tiled to ``batch`` lanes whose plant states get ``1e-3 * normal``
-    (``seed``; rounded to f32 as the tool's).  Returns ``(carry, loop, H,
-    warmup_s)``: the batched carry, the warmed host loop, its history and
-    the warmup's wall seconds."""
+    ``dtype``, then ``carry_from_runtime`` and ``init_carry(state=...)``.
+    Returns ``(carry, loop, H, warmup_s)``: the batched carry of one lane,
+    the warmed host loop, its history and the wall seconds."""
     from mpc_code_tpu_torch.estimators.mhe import make_mhe_traced
     from mpc_code_tpu_torch.loop import ClosedLoop
-    from mpc_code_tpu_torch.loop.batched import init_carry, tile_carry
+    from mpc_code_tpu_torch.loop.batched import init_carry
 
     dev = resolve_device(device)
-    k0 = handoff_steps(cfg)
     t0 = time.perf_counter()
-    loop = ClosedLoop(cfg.replace(Nsim=k0), device=dev, dtype=dtype)
+    loop = ClosedLoop(cfg.replace(Nsim=handoff_steps(cfg)), device=dev, dtype=dtype)
     H = loop.run()
     st = loop.final_state
     _, from_rt = make_mhe_traced(cfg, loop.model, device=dev)
@@ -127,9 +124,26 @@ def warm_handoff(cfg, batch, device=None, dtype=torch.float32, seed=0):
                        dtype=dtype)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    warmup_s = time.perf_counter() - t0
+    return carry, loop, H, time.perf_counter() - t0
+
+
+def tile_handoff(cfg, carry, batch, seed=0):
+    """A host warmup's carry of one lane tiled to ``batch`` lanes whose
+    plant states get ``1e-3 * normal`` (``seed``; rounded to f32 as the
+    tool's, ``tools/enmpc_onchip_bench.py:86-89``)."""
+    from mpc_code_tpu_torch.loop.batched import tile_carry
+
     dx = 1e-3 * np.random.default_rng(seed).standard_normal((batch, cfg.nxp))
     carry = tile_carry(carry, batch)
-    carry = carry._replace(x=carry.x + torch.as_tensor(dx.astype(np.float32), dtype=dtype,
-                                                       device=dev))
-    return carry, loop, H, warmup_s
+    return carry._replace(x=carry.x + torch.as_tensor(dx.astype(np.float32),
+                                                      dtype=carry.x.dtype,
+                                                      device=carry.x.device))
+
+
+def warm_handoff(cfg, batch, device=None, dtype=torch.float32, seed=0):
+    """The hand-off mode's start: :func:`host_warmup`, then
+    :func:`tile_handoff` to ``batch`` lanes.  Returns ``(carry, loop, H,
+    warmup_s)``: the batched carry, the warmed host loop, its history and
+    the warmup's wall seconds."""
+    carry, loop, H, warmup_s = host_warmup(cfg, device, dtype)
+    return tile_handoff(cfg, carry, batch, seed), loop, H, warmup_s

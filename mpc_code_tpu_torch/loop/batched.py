@@ -168,9 +168,8 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
 
         socp = build_structured_ocp(cfg, model, f_obj, vfin, device=dev)
         struct_solve = make_structured_solver(socp, cfg.sol_opts_dyn)
-        # the port's structured OCP has no shared output slacks (ROADMAP
-        # Queue 1 item 21): the flat layout's slack tail is zero-padded
-        nup = socp.nxa - nx
+        ns_s = socp.ns
+        nup = socp.nxa - nx - ns_s
         du_aug = nup > 0
     elif not estimating:
         ocp_solve = make_solver(ospec.nlp, cfg.sol_opts_dyn)
@@ -325,6 +324,12 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
             if du_aug:
                 Uprev = torch.cat([c.u[:, None], Ug[:, :-1]], 1)
                 Xg = torch.cat([Xg, torch.cat([Uprev, Ug[:, -1:]], 1)], -1)
+            if ns_s:
+                # the shared slack's carried and input slots start from the
+                # flat layout's Sl tail
+                Sl_prev = w0[:, nw - ns : nw - ns + ns_s]
+                Xg = torch.cat([Xg, Sl_prev[:, None].expand(Bsz, N + 1, ns_s)], -1)
+                Ug = torch.cat([Ug, Sl_prev[:, None].expand(Bsz, N, ns_s)], -1)
             # dual/barrier warm start: the previous step's multipliers
             # shifted one stage (the primal's shift, MPC_code.py:740-764,
             # extended to the duals); gated off after an infeasible step
@@ -345,9 +350,12 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
             xhat_next = torch.where(okc, rs.X[:, 1, :nx],
                                     model_next(xhat, c.u, h, dhat, t_k, px0))
             body_n = torch.cat([rs.X[:, :N, :nx], rs.U[:, :, :nu]], -1).reshape(Bsz, -1)
-            # flat-layout slack tail: zero-padded where the dense layout
-            # reserves slots (slacks=True with no y bounds)
-            w_new = torch.cat([body_n, rs.X[:, N, :nx], torch.zeros((Bsz, ns), **kw)], -1)
+            # the flat layout's Sl tail: the solved slack (the carried state
+            # at stage 1), zero-padded where the dense layout reserves more
+            # slots (slacks=True with no y bounds)
+            w_new = torch.cat([body_n, rs.X[:, N, :nx],
+                               rs.X[:, 1, nx + nup : nx + nup + ns_s],
+                               torch.zeros((Bsz, ns - ns_s), **kw)], -1)
             w_prev = torch.where(okc, w_new, c.w_prev)
             status_dyn, iters_dyn = rs.status, rs.iters
         else:

@@ -75,8 +75,8 @@ class ClosedLoop:
     Runs on ``device`` (default ``cuda``; raises without a card unless
     ``device="cpu"``) in ``dtype`` (default f64: the fixtures and the host
     state are f64; JAX runs this loop in f32 on a TPU only because the TPU
-    has no f64).  ``cfg.Collocation`` without ContForm raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 20).
+    has no f64).  ``cfg.Collocation`` without ContForm solves the
+    Gauss-Legendre transcription (``ocp/collocation.py``, stride 3nx+nu).
 
     ``check_numerics`` (the config flag or ``MPC_TPU_CHECK_NUMERICS=1``)
     checks every history array written in a step for non-finite values
@@ -121,11 +121,13 @@ class ClosedLoop:
             # Control_Calc.py:428-436)
             self.colloc = bool(cfg.Collocation) and not cfg.ContForm
             if self.colloc:
-                raise NotImplementedError(
-                    "the collocation OCP (cfg.Collocation) is not ported yet "
-                    "(ROADMAP Queue 1 item 20)")
-            self.ocp_spec = build_ocp(cfg, model, f_obj, vfin)
-            self.stride = nx + nu
+                from mpc_code_tpu_torch.ocp.collocation import build_ocp_collocation
+
+                self.ocp_spec = build_ocp_collocation(cfg, model, f_obj, vfin)
+                self.stride = 3 * nx + nu   # nxuk (MPC_code.py:51)
+            else:
+                self.ocp_spec = build_ocp(cfg, model, f_obj, vfin)
+                self.stride = nx + nu
             self.target_solve = make_solver(self.target_spec.nlp, cfg.sol_opts_ss)
             self.ocp_solve = make_solver(self.ocp_spec.nlp, cfg.sol_opts_dyn)
             if cfg.Adaptation:
@@ -344,12 +346,18 @@ class ClosedLoop:
                 if ksim == 0 or w_opt is None:
                     w_guess = np.zeros(nw)                 # MPC_code.py:740-756
                     for key in range(1, N + 1):
+                        if self.colloc:                    # MPC_code.py:748-751
+                            w_guess[key * st - nu - 2 * nx:key * st - nu] = np.tile(x0_m, 2)
                         w_guess[key * st - nu:key * st] = u_k
                         w_guess[key * st:key * st + nx] = x0_m
                     w_guess[:nx] = x0_m
                 elif ocp_feasible:
-                    w_guess = np.concatenate([w_opt[st:nw - ns], us_prev, xs_prev,
-                                              w_opt[nw - ns:nw]])  # MPC_code.py:762-764
+                    if self.colloc:                        # MPC_code.py:759-761
+                        w_guess = np.concatenate([w_opt[st:nw - ns], xs_prev, xs_prev,
+                                                  us_prev, xs_prev, w_opt[nw - ns:nw]])
+                    else:
+                        w_guess = np.concatenate([w_opt[st:nw - ns], us_prev, xs_prev,
+                                                  w_opt[nw - ns:nw]])  # MPC_code.py:762-764
                 par = dict(x0=xhat_k, xs=xs_k, us=us_k, d=dhat_k, um1=u_k, t=t_k,
                            lam=lam_k, px=px_h, py=py_h)
                 if "ocp" not in self.first_nlps:

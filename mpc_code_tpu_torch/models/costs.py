@@ -1,6 +1,7 @@
 """Cost constructors (port of ``mpc_code_tpu/models/costs.py``).
 
-Plain callables over torch tensors: stage cost ``F_obj(x, u, y, xs, us,
+Plain callables over torch tensors: ``xQx`` (the helper user costs
+call), stage cost ``F_obj(x, u, y, xs, us,
 ys)`` (Utilities.defF_obj:323-381), steady-state cost (defFss_obj:267-321),
 terminal cost ``Vfin(dx, xs)`` (defVfin:383-420) and MHE stage cost
 ``F_obj_mhe(w, v, t)`` (defF_obj_mhe:675-709).  Matrix weights are
@@ -22,6 +23,12 @@ from mpc_code_tpu_torch.ops.dare import solve_dare
 
 def _w(M):
     return torch.as_tensor(np.asarray(M, float))
+
+
+def xQx(x, Q):
+    """x' Q x (reference: Utilities.xQx, Utilities.py:247-265), with the
+    weight cast to the argument's dtype and device."""
+    return x @ (_w(Q).to(x) @ x)
 
 
 def build_stage_cost(sc: StageCost) -> Callable:

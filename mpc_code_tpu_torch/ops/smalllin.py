@@ -44,6 +44,48 @@ def solve_lu(A, b):
     return x.squeeze(-1) if vec else x
 
 
+class _LUSolve(torch.autograd.Function):
+    """X = A^-1 B by ``linalg.solve_ex`` (a singular lane NaN), with its
+    derivatives written out in terms of itself: backward gB = A^-T G,
+    gA = -gB X'; forward dX = A^-1 (dB - dA X).  ``linalg.solve_ex``'s own
+    forward-mode rule comes out wrong under ``vmap(jacfwd(...))`` (F13),
+    and ``linalg.lu`` has no batching rule (``vmap`` loops over lanes)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(A, B):
+        X, info = torch.linalg.solve_ex(A, B)
+        return _nan_where(info > 0, X)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.save_for_forward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, G):
+        A, X = ctx.saved_tensors
+        gB = _LUSolve.apply(A.transpose(-1, -2), G)
+        return -gB @ X.transpose(-1, -2), gB
+
+    @staticmethod
+    def jvp(ctx, dA, dB):
+        A, X = ctx.saved_tensors
+        return _LUSolve.apply(A, dB - dA @ X)
+
+
+def solve_lu_ad(A, b):
+    """The solve of a call site whose result AD traverses (the collocation
+    Newton step, ``solver/riccati.py``): ``torch.func``'s ``jacrev``,
+    ``jacfwd`` and ``vmap`` batch and differentiate it without a loop over
+    lanes, reverse over reverse and forward over reverse included; b (...,
+    n) or (..., n, k).  A singular lane comes back as NaN, as ``solve_lu``
+    gives."""
+    vec = b.dim() == A.dim() - 1
+    x = _LUSolve.apply(A, b.unsqueeze(-1) if vec else b)
+    return x.squeeze(-1) if vec else x
+
 
 def inv(A):
     """Inverse of (..., n, n) by pivoted LU; a singular lane comes back as

@@ -1,27 +1,31 @@
-"""Structure-exploiting interior-point solver for shooting OCPs (parts 1-4).
+"""Structure-exploiting interior-point solver for the stagewise OCPs.
 
-Port of ``mpc_code_tpu/solver/riccati.py`` for four configurations: plain
-continuous shooting (the batched CSTR NMPC bench), discrete-map shooting
-(the quadruple tank, Ex_NMPC_dis), linear-model shooting (the LMPC
-examples) and the ContForm economic transcription (Ex_ENMPC), each with
-or without output bounds, the shooting forms also
-with the u_prev state augmentation that Delta-u bounds and Delta-u costs
-(``DUForm``, ``DUFormEcon``) need, with the Gauss-Newton Hessian, the
-monotone barrier, the rollout-free adaptive step controller
-(``ls_mode='adaptive'``), best-iterate bookkeeping and the closed loop's
-cross-solve dual/barrier warm start (``solve(..., ws=)``: the previous
-step's multipliers and barrier, shifted one stage and rescaled to the new
-objective scaling).  Plain continuous shooting and linear-model shooting
-also take the exact Lagrangian Hessian (the default of
-``SolverOptions``).  Every other
-configuration raises ``NotImplementedError`` naming its ROADMAP item.
+Port of ``mpc_code_tpu/solver/riccati.py`` for five transcriptions:
+plain continuous shooting (the batched CSTR NMPC bench), discrete-map
+shooting (the quadruple tank, Ex_NMPC_dis), linear-model shooting (the
+LMPC examples), the ContForm economic transcription (Ex_ENMPC) and
+Gauss-Legendre collocation, condensed exactly within each stage; each
+with or without output bounds, soft output bounds (the shared slacks,
+with ``slacksG`` and ``slacksH``), user stage inequalities (``G_ineq``)
+and equalities (``H_eq``) and the terminal equality (``TermCons``), the
+shooting forms also with the u_prev state augmentation that Delta-u
+bounds and Delta-u costs (``DUForm``, ``DUFormEcon``) need.  The solver
+has the Gauss-Newton Hessian, the monotone barrier, the rollout-free
+adaptive step controller (``ls_mode='adaptive'``), best-iterate
+bookkeeping and the closed loop's cross-solve dual/barrier warm start
+(``solve(..., ws=)``: the previous step's multipliers and barrier, shifted
+one stage and rescaled to the new objective scaling).  All but the
+discrete map, ContForm without slacks and the u_prev augmentation also
+take the exact Lagrangian Hessian (the default of ``SolverOptions``).
+Every other configuration raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
 The user's model and cost callables still act on one point, so the stage
 functions of ``StructuredOCP`` take one (state, input, stage-parameter)
 point and their derivatives come from ``torch.func`` (``grad``,
-``hessian``, ``jacfwd``, ``jacrev``) vmapped over the B*N (scenario,
+``hessian``, ``jacrev``) vmapped over the B*N (scenario,
 stage) points.
 
 Per iteration the solver runs two hand-written CUDA kernels on the card:
@@ -35,9 +39,12 @@ gradient and Hessian), or, under the exact Hessian, the fused generic
 stage-derivative sweep (``solver/sweep_kernel.py``: every output of
 ``make_stage_derivs`` in one pass), and the Riccati KKT solve
 (``solver/riccati_kernel.py``).  A linear model has no derivative
-kernel, in JAX as here: its stage derivatives come from
+kernel, in JAX as here, nor has a collocated OCP (the Newton solve
+inside each stage): their stage derivatives come from
 ``make_stage_derivs`` by ``torch.func``, and the Riccati KKT solve is
-its one kernel.  The rest is IPM algebra on whole tensors.
+their one kernel.  With TermCons or H_eq the KKT solve is the bordered
+recursion ``riccati_bordered`` in plain PyTorch, as JAX has no Pallas
+kernel for its three.  The rest is IPM algebra on whole tensors.
 
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
 freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
@@ -53,13 +60,14 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, jacrev, vmap
+from torch.func import grad, hessian, jacrev, vmap
 
 from mpc_code_tpu_torch.config import (
     DiscreteModel, LinearModel, MPCConfig, SolverOptions,
 )
 from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.models.model import ModelFns
+from mpc_code_tpu_torch.ops.smalllin import cho_solve, chol
 from mpc_code_tpu_torch.solver.nlp import (
     STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED,
 )
@@ -108,9 +116,9 @@ def batch_params(p: dict, Bsz: int, dtype, device, ndim: Optional[dict] = None) 
 
 def stage_params(p: dict, N: int) -> dict:
     """One entry per (scenario, stage) point, flattened to B*N: the shared
-    per-lane data, ``px``/``py`` of that stage, ``py0`` (stage 0) and
-    ``k0``, whether the point is stage 0 (the JAX stage functions' ``k ==
-    0``)."""
+    per-lane data, ``px``/``py`` of that stage, ``py0`` and ``px0``
+    (stage 0's) and ``k0``, whether the point is stage 0 (the JAX stage
+    functions' ``k == 0``)."""
     Bsz = p["xs"].shape[0]
 
     def rep(v):
@@ -121,6 +129,7 @@ def stage_params(p: dict, N: int) -> dict:
     pk["px"] = p["px"].reshape(Bsz * N, -1)
     pk["py"] = p["py"].reshape(Bsz * N, -1)
     pk["py0"] = rep(p["py"][:, 0])
+    pk["px0"] = rep(p["px"][:, 0])
     pk["k0"] = (torch.arange(N, device=p["xs"].device) == 0).repeat(Bsz)
     if "_sf" in p:
         pk["_sf"] = rep(p["_sf"])
@@ -164,11 +173,16 @@ class StructuredOCP:
     when ``ni = 0``.  ``dyn`` is the scaled one-interval map on one point
     ``(xa, u, pk) -> xa_next``, which the exact Lagrangian Hessian
     traverses, and ``lowering`` what the fused stage sweep's code
-    generator needs; both are None where the exact Hessian is not ported
-    (the discrete map, ContForm, the u_prev augmentation of a continuous
-    model).  A ``LinearModel`` has ``dyn`` (with the u_prev rows) and
-    neither a sweep nor a lowering: the solver differentiates ``dyn`` by
-    ``torch.func``, as JAX does.
+    generator needs; ``dyn`` is None where the exact Hessian is not ported
+    (the discrete map, ContForm without slacks, the u_prev augmentation of
+    a continuous model), ``lowering`` also with slacks or user rows.  A
+    ``LinearModel``, a collocated OCP and a ContForm OCP with slacks have
+    ``dyn`` (with the u_prev and slack rows) and neither a sweep nor a
+    lowering: the solver differentiates ``dyn`` by ``torch.func``, as JAX
+    does.  ``ns`` shared slacks ride the tails of xa and u (``nu_ctrl``
+    inputs before them); ``n_tc`` terminal equality rows hold x_N[:n_tc]
+    at ``tc_target(p)`` (B, n_tc); ``eq`` gives the ``n_eq`` stage
+    equality rows on one point.
     """
 
     N: int
@@ -195,6 +209,12 @@ class StructuredOCP:
     dyn: Optional[Callable] = None
     lowering: Optional["StageLowering"] = None
     params: ParamHook = OCP_PARAMS
+    ns: int = 0                  # shared slacks folded into the xa and u tails
+    nu_ctrl: int = 0             # the true inputs (nu less the slack slots)
+    n_tc: int = 0                # terminal equality rows (TermCons: nx)
+    tc_target: Optional[Callable] = None   # p -> (B, n_tc) scaled x_N target
+    n_eq: int = 0                # user stage equality rows (H_eq)
+    eq: Optional[Callable] = None          # (xa, u, pk) -> (n_eq,) h rows
 
 
 # the per-point parameters of the lowered stage cost and rows, in order
@@ -250,41 +270,83 @@ def _dense(op, a, b):
 
 
 def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
-                         device=None) -> StructuredOCP:
-    """Map the reference OCP (opt_dyn form) onto the stagewise structure.
+                         device=None, stagewise_px: bool = False,
+                         n_colloc_newton: int = 8) -> StructuredOCP:
+    """Map the reference OCP (opt_dyn / opt_dyn_CM form) onto the stagewise
+    structure.
 
     Uses the parameter dict {x0, xs, us, d, um1, t, lam, px (N,npx),
-    py (N,npy)}.  Runs on ``device`` (default ``cuda``)."""
+    py (N,npy)}.  Runs on ``device`` (default ``cuda``).
+
+    Collocation (opt_dyn_CM, Control_Calc.py:264-567) is condensed exactly
+    within each stage: the 2-point Gauss-Legendre stage states S = [s1; s2]
+    solve the collocation equations 1/h D (S - x) = f(S, u) by
+    ``n_colloc_newton`` Newton steps on detached values, then one
+    differentiable Newton step around that root gives the derivatives of
+    the implicit function (JAX riccati.py:335-374).  The reference's
+    stage-0 px freeze (Control_Calc.py:473-474) is kept; ``stagewise_px``
+    gives the corrected form.  The state box on s1, s2 becomes ``2 nx``
+    inequality rows on the condensed S(x, u).
+
+    Shared output slacks (Control_Calc.py:187, 217, 232-239): one slack
+    vector Sl >= 0 for the whole horizon, with the penalty N Sl' Ws Sl, is
+    folded into the stage structure as extra input slots that decide it at
+    stage 0 and extra state slots that carry it after (JAX riccati.py:
+    256-300): ``nxa = nx (+ nu) + ns``, ``nu = nu + ns``.  ``slacksG`` and
+    ``slacksH`` extend Sl over the user rows.  ``TermCons`` is the terminal
+    equality of ``n_tc`` rows at ``tc_target(p)``; ``H_eq`` the ``n_eq``
+    stage equalities ``eq``."""
+    from mpc_code_tpu_torch.ocp.shooting import _user_constraint_dim
+
     dev = resolve_device(device)
     b = cfg.bounds
     cont_form = cfg.ContForm
-    # ContForm wins over Collocation, and ignores Delta-u rows and the
-    # discrete cost forms, as in the reference (JAX riccati.py:244-249, 287-290)
-    if cfg.Collocation and not cont_form:
-        raise _todo("Collocation", "Queue 1 item 20")
+    ng_user = _user_constraint_dim(cfg.G_ineq, cfg)
+    nh_user = _user_constraint_dim(cfg.H_eq, cfg)
     ymin = b.resolved("dyn", "ymin")
     ymax = b.resolved("dyn", "ymax")
     y_free = ymin is None and ymax is None
-    if cfg.slacks and not y_free:
-        raise _todo("shared output slacks", "Queue 1 item 21")
-    if cfg.TermCons:
-        raise _todo("TermCons", "Queue 1 item 21")
-    if cfg.H_eq is not None or cfg.G_ineq is not None:
-        raise _todo("user stage constraints H_eq / G_ineq", "Queue 1 item 21")
-    nx, nu, ny = cfg.nx, cfg.nu, cfg.ny
+    nx, nu, ny, N = cfg.nx, cfg.nu, cfg.ny, cfg.N
     # the state is augmented with u_{k-1} whenever Delta-u appears in the
-    # bounds or in the cost (JAX riccati.py:238-249)
+    # bounds or in the cost; ContForm ignores Delta-u rows and the discrete
+    # cost forms, as in the reference (JAX riccati.py:238-249)
     du_bounds = not cont_form and not (b.Dumin is None and b.Dumax is None)
     du_coupled = not cont_form and (du_bounds or cfg.DUForm or cfg.DUFormEcon)
     nup = nu if du_coupled else 0
+    # one shared slack pair relaxes the output bounds; slacksG and slacksH
+    # extend it over the user rows (Control_Calc.py:133-143)
+    slacks = bool(cfg.slacks) and not y_free
+    slacks_g = slacks and bool(cfg.slacksG) and ng_user > 0
+    slacks_h = slacks and bool(cfg.slacksH) and nh_user > 0
+    ns = ((2 * ny + (ng_user if slacks_g else 0) + (nh_user if slacks_h else 0))
+          if slacks else 0)
+    if slacks and cfg.Ws is None:
+        raise ValueError("slacks=True requires Ws")
+    Ws = np.asarray(cfg.Ws, float)[:ns, :ns] if slacks else None
+    sl_h_off = 2 * ny + (ng_user if slacks_g else 0)
+    # ContForm wins over Collocation: the reference's ContForm branch never
+    # emits the collocation equations (Control_Calc.py:428-436)
+    colloc = bool(cfg.Collocation) and not cont_form
     xmin = b.resolved("dyn", "xmin")
     xmax = b.resolved("dyn", "xmax")
     umin = b.resolved("dyn", "umin")
     umax = b.resolved("dyn", "umax")
-    nxa = nx + nup
-    ni = (0 if y_free else ny) + (nu if du_bounds else 0)
+    ni_coll = 2 * nx if colloc and (xmin is not None or xmax is not None) else 0
+    nxa = nx + nup + ns
+    nu_eff = nu + ns
+    ni = ((0 if y_free else (2 * ny if slacks else ny)) + (nu if du_bounds else 0)
+          + ng_user + ni_coll)
     h = float(cfg.h)
     qform = cfg.QForm
+
+    def split(xa, ua):
+        """(x, u): the model's state and input of the augmented pair."""
+        return xa[:nx], ua[:nu]
+
+    def slack_of(xa, ua, pk):
+        """The shared slack: the input slots at stage 0, the carried state
+        slots after it."""
+        return torch.where(pk["k0"], ua[nu:], xa[nx + nup:])
 
     def y_of(x, u, pk):
         return model.fy(x, u, pk["d"], pk["t"], pk["py"]) + pk["lam"] @ (u - pk["us"])
@@ -294,7 +356,7 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         (JAX riccati.py:405, 454)."""
         if not du_coupled:
             return pk["um1"]
-        return torch.where(pk["k0"], pk["um1"], xa[nx:])
+        return torch.where(pk["k0"], pk["um1"], xa[nx:nx + nup])
 
     if cont_form:
         # integrate xdot = fx(x,u,d,t,px) + px and the continuous economic
@@ -316,12 +378,72 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
 
         integ_cont = rk4_quad(_ode, _quad, Mx_c)
 
-        def raw_cost(xa, u, pk):
-            return integ_cont(xa, pk["t"], h, u, pk["d"], pk["px"], pk["xs"],
-                              pk["us"], pk["py"])[1]
-    else:
-        def raw_cost(xa, u, pk):
-            x = xa[:nx]
+        def _cont_step(x, u, pk):
+            return integ_cont(x, pk["t"], h, u, pk["d"], pk["px"], pk["xs"],
+                              pk["us"], pk["py"])
+
+    if colloc:
+        # the tableau of ocp/collocation.py
+        from mpc_code_tpu_torch.ocp.collocation import _AD, _BT
+        from mpc_code_tpu_torch.ops.smalllin import solve_lu_ad
+
+        ad, bt = _AD.tolist(), _BT.tolist()
+        user_fx_coll = cfg.model.fx
+
+        def _coll_res(S, x, u, d, t, px):
+            s1, s2 = S[:nx], S[nx:]
+            r1 = ((ad[0][0] * (s1 - x) + ad[0][1] * (s2 - x)) / h
+                  - user_fx_coll(s1, u, d, t, px))
+            r2 = ((ad[1][0] * (s1 - x) + ad[1][1] * (s2 - x)) / h
+                  - user_fx_coll(s2, u, d, t, px))
+            return torch.cat([r1, r2])
+
+        def _newton(S, x, u, d, t, px):
+            J = jacrev(_coll_res)(S, x, u, d, t, px)
+            return S - solve_lu_ad(J, _coll_res(S, x, u, d, t, px))
+
+        def _coll_S(x, u, pk):
+            # px frozen at stage 0 per the reference quirk
+            px = pk["px"] if stagewise_px else pk["px0"]
+            d, t = pk["d"], pk["t"]
+            # the root on detached values: no derivative, of either mode,
+            # flows through these steps
+            xd, ud = x.detach(), u.detach()
+            S = torch.cat([xd, xd])
+            for _ in range(n_colloc_newton):
+                S = _newton(S, xd, ud, d, t, px).detach()
+            # one differentiable step around the root: exact first
+            # derivatives of the implicit function (residual ~ 0)
+            return _newton(S, x, u, d, t, px)
+
+        def _coll_next(x, u, pk):
+            S = _coll_S(x, u, pk)
+            s1, s2 = S[:nx], S[nx:]
+            return x + bt[0] * (s1 - x) + bt[1] * (s2 - x)   # Control_Calc.py:437
+
+    def raw_dyn(xa, ua, pk):
+        """The one-interval map of the augmented state (JAX riccati.py:
+        376-390): the model's step (or the ContForm quadrature's, or the
+        condensed collocation step), then the u_prev and slack slots."""
+        x, u = split(xa, ua)
+        if cont_form:
+            xn = _cont_step(x, u, pk)[0]
+        elif colloc:
+            xn = _coll_next(x, u, pk)
+        else:
+            xn = model.fx(x, u, h, pk["d"], pk["t"], pk["px"])
+        parts = [xn]
+        if du_coupled:
+            parts.append(u)
+        if slacks:
+            parts.append(slack_of(xa, ua, pk))
+        return torch.cat(parts) if len(parts) > 1 else xn
+
+    def raw_cost(xa, ua, pk):
+        x, u = split(xa, ua)
+        if cont_form:
+            val = _cont_step(x, u, pk)[1]
+        else:
             yk = y_of(x, u, pk)
             ys = model.fy(pk["xs"], pk["us"], pk["d"], pk["t"], pk["py0"])
             du_k = u - um1_of(xa, pk)
@@ -333,13 +455,60 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             if cfg.DUForm:
                 du = du_k
             us_obj = du_k if cfg.DUFormEcon else pk["us"]
-            return f_obj(dx, du, dy, pk["xs"], us_obj, ys)
+            if colloc:
+                # the collocation-aware objective F_obj(..., ds)
+                # (Control_Calc.py:458-464, 483)
+                dS = _coll_S(x, u, pk)
+                if qform:
+                    dS = dS - torch.cat([pk["xs"], pk["xs"]])
+                val = f_obj(dx, du, dy, pk["xs"], us_obj, ys, dS)
+            else:
+                val = f_obj(dx, du, dy, pk["xs"], us_obj, ys)
+        if slacks:
+            # the real penalty once (stage 0), a decoupled PD dummy on the
+            # unused input slots after it; sums of products, as torch.func's
+            # Hessian of a dot product leaves f32 (F4)
+            s_in = ua[nu:]
+            val = val + torch.where(pk["k0"], N * (s_in * (_t(Ws, s_in) @ s_in)).sum(),
+                                    0.5 * (s_in * s_in).sum())
+        return val
 
-    def raw_ineq(xa, u, pk):
-        rows = [] if y_free else [y_of(xa[:nx], u, pk)]
+    def raw_ineq(xa, ua, pk):
+        x, u = split(xa, ua)
+        rows = []
+        if not y_free:
+            yk = y_of(x, u, pk)
+            if slacks:
+                # Sl[:ny] relaxes the upper bound, Sl[ny:2ny] the lower
+                # (Control_Calc.py:232-239)
+                s_k = slack_of(xa, ua, pk)
+                rows += [yk + s_k[ny:2 * ny], yk - s_k[:ny]]
+            else:
+                rows.append(yk)
         if du_bounds:
             rows.append(u - um1_of(xa, pk))
+        if ng_user:
+            # the user's stage inequality over the corrected output
+            gk = cfg.G_ineq(x, u, y_of(x, u, pk), pk["d"], pk["t"], pk["px"],
+                            pk["py"]).reshape(-1)
+            if slacks_g:
+                gk = gk - slack_of(xa, ua, pk)[2 * ny:2 * ny + ng_user]
+            rows.append(gk)
+        if ni_coll:
+            # the state box on the condensed stage states s1, s2
+            # (Control_Calc.py:552-556)
+            rows.append(_coll_S(x, u, pk))
         return torch.cat(rows)
+
+    def raw_eq(xa, ua, pk):
+        # the user's stage equality over the corrected output, softened by
+        # its slack entries under slacksH (Control_Calc.py:140-145)
+        x, u = split(xa, ua)
+        hk = cfg.H_eq(x, u, y_of(x, u, pk), pk["d"], pk["t"], pk["px"],
+                      pk["py"]).reshape(-1)
+        if slacks_h:
+            hk = hk - slack_of(xa, ua, pk)[sl_h_off:sl_h_off + nh_user]
+        return hk
 
     def row_bounds(lo, hi, n):
         return (np.asarray(lo, float).reshape(-1) if lo is not None else np.full(n, -np.inf),
@@ -348,18 +517,31 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     rows_lo, rows_hi = [], []
     if not y_free:
         lo, hi = row_bounds(ymin, ymax, ny)
-        rows_lo.append(lo)
-        rows_hi.append(hi)
+        if slacks:
+            rows_lo += [lo, np.full(ny, -np.inf)]
+            rows_hi += [np.full(ny, np.inf), hi]
+        else:
+            rows_lo.append(lo)
+            rows_hi.append(hi)
     if du_bounds:
         lo, hi = row_bounds(b.Dumin, b.Dumax, nu)
         rows_lo.append(lo)
         rows_hi.append(hi)
+    if ng_user:
+        rows_lo.append(np.full(ng_user, -np.inf))
+        rows_hi.append(np.zeros(ng_user))
+    if ni_coll:
+        lo, hi = row_bounds(xmin, xmax, nx)
+        rows_lo.append(np.tile(lo, 2))
+        rows_hi.append(np.tile(hi, 2))
     lbi = np.concatenate(rows_lo) if ni else np.zeros(0)
     ubi = np.concatenate(rows_hi) if ni else np.zeros(0)
     lbx, ubx = row_bounds(xmin, xmax, nx)
-    lbx = np.concatenate([lbx, np.full(nup, -np.inf)])
-    ubx = np.concatenate([ubx, np.full(nup, np.inf)])
+    lbx = np.concatenate([lbx, np.full(nup, -np.inf), np.zeros(ns)])   # carried Sl >= 0
+    ubx = np.concatenate([ubx, np.full(nup + ns, np.inf)])
     lbu, ubu = row_bounds(umin, umax, nu)
+    lbu = np.concatenate([lbu, np.zeros(ns)])                          # Sl >= 0
+    ubu = np.concatenate([ubu, np.full(ns, np.inf)])
 
     # per-variable scaling from the box bounds: internally x~ = x / sxa
     def _scales(lo, hi):
@@ -368,6 +550,9 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         return np.where(mag > 1.0, mag, 1.0)
 
     sxa, su, si = _scales(lbx, ubx), _scales(lbu, ubu), _scales(lbi, ubi)
+
+    def dyn_s(xa, u, pk):
+        return raw_dyn(_t(sxa, xa) * xa, _t(su, u) * u, pk) / _t(sxa, xa)
 
     def cost_s(xa, u, pk):
         return raw_cost(_t(sxa, xa) * xa, _t(su, u) * u, pk)
@@ -379,17 +564,43 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     def ineq_s(xa, u, pk):
         return raw_ineq(_t(sxa, xa) * xa, _t(su, u) * u, pk) / _t(si, xa)
 
+    def eq_s(xa, u, pk):
+        return raw_eq(_t(sxa, xa) * xa, _t(su, u) * u, pk)
+
     def x0_s(p):
-        x0a = torch.cat([p["x0"], p["um1"]], -1) if du_coupled else p["x0"]
+        parts = [p["x0"]] + ([p["um1"]] if du_coupled else [])
+        if slacks:
+            parts.append(p["x0"].new_zeros(p["x0"].shape[:-1] + (ns,)))   # inert slot
+        x0a = torch.cat(parts, -1) if len(parts) > 1 else p["x0"]
         return x0a / _t(sxa, x0a)
 
-    common = dict(N=cfg.N, nxa=nxa, nu=nu, ni=ni, cost=cost_s,
+    # the terminal equality x_N = xs (QForm) or x_N = 0 (the reference's
+    # literal semantics without QForm, Control_Calc.py:196-198) on the
+    # true state slots, in scaled units, for a batch of lanes
+    n_tc = nx if cfg.TermCons else 0
+
+    def tc_target(p):
+        return p["xs"] / _t(sxa[:nx], p["xs"]) if qform else torch.zeros_like(p["xs"])
+
+    common = dict(N=N, nxa=nxa, nu=nu_eff, ni=ni, cost=cost_s,
                   cost_N=cost_N_s, ineq=ineq_s if ni else None,
                   lbi=lbi / si, ubi=ubi / si, lbx=lbx / sxa, ubx=ubx / sxa,
                   lbu=lbu / su, ubu=ubu / su, x0_of_p=x0_s,
-                  sxa=sxa, su=su, si=si, device=dev)
+                  sxa=sxa, su=su, si=si, device=dev, ns=ns, nu_ctrl=nu,
+                  n_tc=n_tc, tc_target=tc_target if n_tc else None,
+                  n_eq=nh_user, eq=eq_s if nh_user else None)
+
+    if colloc:
+        # no sweep kernel: every stage derivative comes from torch.func
+        # through the condensed step (JAX riccati.py:604, the fast sweep
+        # is for shooting only)
+        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
 
     if cont_form:
+        if slacks:
+            # the slack augmentation keeps JAX's generic route (JAX
+            # riccati.py:686-690): no joint sweep
+            return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
         # the joint rollout sweep: dynamics Jacobians and the quadrature
         # cost's gradient and Hessian from one pass (JAX riccati.py:686-715)
         sweep_cf = rk4_quad_stage_hess(_ode, _quad, Mx_c)
@@ -415,18 +626,11 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         # continuous and discrete forms (JAX riccati.py:604-606), and the
         # solver differentiates this generic map (JAX dyn, :376-389, scaled
         # as dyn_s, :411-414) by torch.func
-        def dyn_lin(xa, u, pk):
-            uu = _t(su, u) * u
-            xn = model.fx((_t(sxa, xa) * xa)[:nx], uu, h, pk["d"], pk["t"], pk["px"])
-            if du_coupled:
-                xn = torch.cat([xn, uu])
-            return xn / _t(sxa, xa)
-
-        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_lin)
+        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
 
     # the dynamics sweep: value and Jacobians of the model's step for all
-    # stages in one pass; the augmented u_prev rows have a constant
-    # Jacobian structure assembled here (JAX riccati.py:600-679)
+    # stages in one pass; the augmented u_prev and slack rows have a
+    # constant Jacobian structure assembled here (JAX riccati.py:600-679)
     Bd = (np.asarray(cfg.dist.Bd, float)
           if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
     lin_par = cfg.LinPar
@@ -455,12 +659,12 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         if not du_coupled:
             # the one-interval map the exact Lagrangian Hessian traverses:
             # the model's RK4 on the guarded state, + Bd d, + px (JAX
-            # riccati.py:376-390, dyn_s :559-560), the same t at every stage
-            def dyn_s(xa, u, pk):
-                xn = model.fx(_t(sxa, xa) * xa, _t(su, u) * u, h, pk["d"],
-                              pk["t"], pk["px"])
-                return xn / _t(sxa, xa)
-
+            # riccati.py:376-390, dyn_s :559-560), the same t at every
+            # stage, with the slack slots
+            exact = dict(dyn=dyn_s)
+        if not (du_coupled or slacks or ng_user or nh_user):
+            # ... and, for the stage functions the fused stage sweep
+            # lowers, their raw forms (JAX's generic route takes the rest)
             def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
                 return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
                                             lam=lam, py=py, py0=py0))
@@ -469,24 +673,37 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
                 return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
                                             lam=lam, py=py, py0=py0))
 
-            exact = dict(dyn=dyn_s, lowering=StageLowering(
+            exact["lowering"] = StageLowering(
                 ode=_ode, Mx=int(m.Mx), h=h, clip_lo=m.clip_lo,
                 clip_hi=m.clip_hi, Bd=Bd, lin_par=lin_par, cost=cost_at,
-                ineq=ineq_at if ni else None, nx=nx, ny=ny))
+                ineq=ineq_at if ni else None, nx=nx, ny=ny)
 
     def stage_dyn_jac(Xs, Us, p):
         s_x, s_u = _t(sxa, Xs), _t(su, Us)
-        u = Us * s_u
-        xf, Jx, Ju = run_sweep((Xs * s_x)[..., :nx], u, p)
+        xa, ua = Xs * s_x, Us * s_u
+        u = ua[..., :nu]
+        xf, Jx, Ju = run_sweep(xa[..., :nx], u, p)
         if Bd is not None:
             xf = xf + (p["d"] @ _t(Bd, Xs).T)[:, None]
         if lin_par:
             xf = xf + p["px"]
-        if du_coupled:
-            xf = torch.cat([xf, u], -1)
-            Jx = torch.nn.functional.pad(Jx, (0, nup, 0, nup))
-            eye_u = torch.eye(nu, dtype=Us.dtype, device=Us.device)
-            Ju = torch.cat([Ju, eye_u.expand(Ju.shape[:2] + (nu, nu))], -2)
+        if du_coupled or slacks:
+            parts = [xf]
+            A = Jx.new_zeros(Jx.shape[:2] + (nxa, nxa))
+            Bm = Ju.new_zeros(Ju.shape[:2] + (nxa, nu_eff))
+            A[..., :nx, :nx] = Jx
+            Bm[..., :nx, :nu] = Ju
+            if du_coupled:
+                parts.append(u)
+                Bm[..., nx:nx + nu, :nu] = torch.eye(nu, dtype=Us.dtype, device=Us.device)
+            if slacks:
+                # s_{k+1} = s_in at stage 0, s_k after it
+                k0 = torch.arange(N, device=Xs.device) == 0
+                parts.append(torch.where(k0[:, None], ua[..., nu:], xa[..., nx + nup:]))
+                eye_s = torch.eye(ns, dtype=Us.dtype, device=Us.device)
+                A[:, 1:, nx + nup:, nx + nup:] = eye_s
+                Bm[:, 0, nx + nup:, nu:] = eye_s
+            xf, Jx, Ju = torch.cat(parts, -1), A, Bm
         dval = _dense(torch.div, xf, s_x)
         A = _dense(torch.mul, Jx, s_x[None, :] / s_x[:, None])
         Bm = _dense(torch.mul, Ju, s_u[None, :] / s_x[:, None])
@@ -497,17 +714,20 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
 
 def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
                       skip_dyn: bool = False, skip_cost: bool = False) -> Callable:
-    """Per-point derivative sweep ``(z (nz,), pk, lam_k, nu_k) -> (H, gc, A,
-    B, E, ival, dval)``, the JAX ``make_stage_derivs`` without the stage
-    equalities: the cost's Hessian and gradient (``pk["_sf"]`` scales the
-    objective), the dynamics' Jacobians with their value and the
-    inequality Jacobian with its value.  ``hessian='exact'`` gives H =
-    ∇²(sf·c + lam_k·dyn + nu_k·ineq), ``'gauss_newton'`` H = ∇²(sf·c).
-    With ``skip_dyn`` (Gauss-Newton only: the caller gets the dynamics
-    from ``s.stage_dyn_jac``) it is ``(z, pk) -> (H, gc, E, ival)``, and
-    with ``skip_cost`` as well (the ContForm joint sweep gives H and gc)
-    ``(E, ival)``; there E and ival are left out when ``s.ni == 0``.
-    Batch it with ``torch.func.vmap`` over (scenario, stage) points."""
+    """Per-point derivative sweep ``(z (nz,), pk, lam_k, nu_k[, mu_k]) ->
+    (H, gc, A, B, E, ival, dval[, Cz, hval])``, the JAX
+    ``make_stage_derivs`` (JAX riccati.py:973-1070): the cost's Hessian and
+    gradient (``pk["_sf"]`` scales the objective), the dynamics' Jacobians
+    with their value, the inequality Jacobian with its value and, when the
+    OCP has stage equalities (``s.n_eq``), their Jacobian ``Cz = [Cx Cu]``
+    and value, with ``mu_k`` their multipliers.  ``hessian='exact'`` gives
+    H = ∇²(sf·c + lam_k·dyn + nu_k·ineq + mu_k·eq), ``'gauss_newton'`` H =
+    ∇²(sf·c).  With ``skip_dyn`` (Gauss-Newton only: the caller gets the
+    dynamics from ``s.stage_dyn_jac``) it is ``(z, pk) -> (H, gc[, E,
+    ival][, Cz, hval])``, and with ``skip_cost`` as well (the ContForm
+    joint sweep gives H and gc) ``([E, ival][, Cz, hval])``: E and ival are
+    left out when ``s.ni == 0``, Cz and hval when ``s.n_eq == 0``.  Batch
+    it with ``torch.func.vmap`` over (scenario, stage) points."""
     if (skip_dyn or skip_cost) and hessian != "gauss_newton":
         raise ValueError("skip_dyn/skip_cost require hessian='gauss_newton' "
                          "(the exact Lagrangian Hessian traverses the dynamics)")
@@ -517,8 +737,8 @@ def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
     if not skip_dyn and s.dyn is None:
         raise _todo("the full stage sweep (and the exact Hessian) for the "
                     "discrete map, ContForm and the u_prev augmentation",
-                    "Queue 1 item 21")
-    nxa, ni = s.nxa, s.ni
+                    "Queue 1 item 21(c)")
+    nxa, ni, n_eq = s.nxa, s.ni, s.n_eq
     nz = nxa + s.nu
 
     def c_of_z(zz, pk):
@@ -528,12 +748,21 @@ def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
         v = s.ineq(zz[:nxa], zz[nxa:], pk)
         return v, v
 
+    def eq_aux(zz, pk):
+        v = s.eq(zz[:nxa], zz[nxa:], pk)
+        return v, v
+
     if skip_dyn:
+        # the rows' Jacobians in reverse mode: torch.func.jacfwd of a 0-dim
+        # tensor plus a Python float, as user rows are written, returns an
+        # f64 Jacobian for f32 inputs (ROADMAP Queue 3, F12)
         def split_derivs(z, pk):
             out = () if skip_cost else (torch.func.hessian(c_of_z)(z, pk),
                                         grad(c_of_z)(z, pk))
             if ni:
-                out += jacfwd(ineq_aux, has_aux=True)(z, pk)
+                out += jacrev(ineq_aux, has_aux=True)(z, pk)
+            if n_eq:
+                out += jacrev(eq_aux, has_aux=True)(z, pk)
             return out
 
         return split_derivs
@@ -542,29 +771,34 @@ def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
         v = s.dyn(zz[:nxa], zz[nxa:], pk)
         return v, v
 
-    def L_of_z(zz, pk, lam_k, nu_k):
+    def L_of_z(zz, pk, lam_k, nu_k, mu_k):
         # sums of products, not dot products: torch.func's Hessian of a
         # dot product leaves f32 (ROADMAP Queue 3, F4)
         val = c_of_z(zz, pk) + (lam_k * s.dyn(zz[:nxa], zz[nxa:], pk)).sum()
         if ni:
             val = val + (nu_k * s.ineq(zz[:nxa], zz[nxa:], pk)).sum()
+        if n_eq:
+            val = val + (mu_k * s.eq(zz[:nxa], zz[nxa:], pk)).sum()
         return val
 
     # reverse over reverse: torch's forward mode runs Python decompositions
     # for every op that mixes a tensor and a Python number, several times
     # slower through the RK4 sub-steps on the CPU (PERF.md, kernel 5)
-    def stage_derivs(z, pk, lam_k, nu_k):
+    def stage_derivs(z, pk, lam_k, nu_k, mu_k=None):
         if hessian == "gauss_newton":
             H = jacrev(jacrev(c_of_z))(z, pk)
         else:
-            H = jacrev(jacrev(L_of_z))(z, pk, lam_k, nu_k)
+            H = jacrev(jacrev(L_of_z))(z, pk, lam_k, nu_k, mu_k)
         gc = grad(c_of_z)(z, pk)
         Jd, dval = jacrev(dyn_aux, has_aux=True)(z, pk)
         if ni:
             E, ival = jacrev(ineq_aux, has_aux=True)(z, pk)
         else:
             E, ival = z.new_zeros((0, nz)), z.new_zeros(0)
-        return H, gc, Jd[:, :nxa], Jd[:, nxa:], E, ival, dval
+        out = (H, gc, Jd[:, :nxa], Jd[:, nxa:], E, ival, dval)
+        if n_eq:
+            out += jacrev(eq_aux, has_aux=True)(z, pk)
+        return out
 
     return stage_derivs
 
@@ -594,6 +828,132 @@ def _nan0(a):
     return torch.nan_to_num(a, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def _tr(M):
+    return M.transpose(-1, -2)
+
+
+def _mv(M, v):
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _finite(L):
+    """Per lane: every entry of a factor finite (a failed Cholesky leaves
+    NaN on its lane, F2/F3)."""
+    return torch.isfinite(L).flatten(1).all(1)
+
+
+def _stage_q(Hk, qk, Ak, Bk, rdk, P, pv, nxa):
+    """The stage's quadratic model under the value function (P, p):
+    Qxx, Quu, Qxu, qx, qu."""
+    AtP, BtP = _tr(Ak) @ P, _tr(Bk) @ P
+    Pr = pv + _mv(P, rdk)
+    return (Hk[:, :nxa, :nxa] + AtP @ Ak, Hk[:, nxa:, nxa:] + BtP @ Bk,
+            Hk[:, :nxa, nxa:] + AtP @ Bk, qk[:, :nxa] + _mv(_tr(Ak), Pr),
+            qk[:, nxa:] + _mv(_tr(Bk), Pr))
+
+
+def _sym(M):
+    return 0.5 * (M + _tr(M))
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _root_xi(Hm0, f0, ok):
+    """The terminal multiplier from Hm_0 xi = -f_0, with -Hm_0 positive
+    definite when the constraint is reachable; a tiny jitter flows into
+    ``ok`` through the Cholesky (JAX riccati.py:862-868)."""
+    n_tc = Hm0.shape[-1]
+    M = -Hm0
+    eps = torch.finfo(M.dtype).eps
+    eps_x = 10.0 * eps * (1.0 + M.diagonal(dim1=-2, dim2=-1).abs().amax(-1))
+    Lx = chol(M + eps_x[:, None, None] * _eye(n_tc, M))
+    ok = ok & _finite(Lx)
+    return _nan0(cho_solve(Lx, f0)), ok
+
+
+def riccati_bordered(Hs, q, A, B, rd, PN, pN, Cz, hv, rT, *, nxa, nu):
+    """Riccati backward and forward pass with stage equality rows and a
+    terminal equality, for a batch of lanes: one recursion for JAX's three
+    (riccati.py:728-971), ``_riccati_eqstage`` (n_tc = 0), ``_riccati_tc``
+    (n_eq = 0) and ``_riccati_eqstage_tc``.  n_eq = Cz.shape[2] and n_tc =
+    rT.shape[1]; either may be 0, and its rows are then empty.
+
+    Stage k carries the linearised user equality Cx dx + Cu du + hv = 0,
+    ``Cz = [Cx Cu]`` (B, N, n_eq, nxa+nu); the bordered stage system is
+    eliminated through the Schur complement S = Cu Quu^-1 Cu' (positive
+    definite when Cu has full row rank), for three right-hand sides: the
+    dx coupling K, the constant kf and the terminal multiplier's coupling
+    Kxi, with rhs (F B)'.  The terminal equality dx_N[:n_tc] + rT = 0
+    enters the value function as its affine dependence on the multiplier
+    xi: V_k(dx, xi) = 1/2 dx'P dx + p'dx + xi'(F dx + f) + 1/2 xi'Hm xi,
+    from (PN, pN, F = [I 0], f = rT, Hm = 0) at N; at the root Hm_0 xi =
+    -f_0.  The rollout takes du = kf + K dx + Kxi xi, the stage multipliers
+    are mu_k = S^-1 (Cx~ dx + h~) - S^-1 Cu Quu^-1 (F B)' xi and the defect
+    multipliers lam_k = P_{k+1} dx_{k+1} + p_{k+1} + F_{k+1}' xi.  A failed
+    Cholesky of Quu, S or -Hm_0 clears the lane's ``ok``.  Returns (ok
+    (B,), Ks, kf, P_seq, p_seq, F_seq (B, N, n_tc, nxa), xi (B, n_tc),
+    mu_seq (B, N, n_eq), dX (B, N+1, nxa), dU)."""
+    Bsz, N = Hs.shape[:2]
+    n_eq, n_tc = Cz.shape[2], rT.shape[1]
+    eps_s = 100.0 * torch.finfo(Hs.dtype).eps
+    ok = torch.ones(Bsz, dtype=torch.bool, device=Hs.device)
+    P, pv = PN, pN
+    F = Hs.new_zeros((Bsz, n_tc, nxa))
+    F[:, :, :n_tc] = _eye(n_tc, Hs)
+    fv, Hm = rT, Hs.new_zeros((Bsz, n_tc, n_tc))
+    zero_e = Hs.new_zeros((Bsz, n_eq, n_tc))
+    outs = [[None] * N for _ in range(9)]
+    for k in range(N - 1, -1, -1):
+        Ak, Bk = A[:, k], B[:, k]
+        Cx, Cu = Cz[:, k, :, :nxa], Cz[:, k, :, nxa:]
+        Qxx, Quu, Qxu, qx, qu = _stage_q(Hs[:, k], q[:, k], Ak, Bk, rd[:, k], P, pv, nxa)
+        L = chol(Quu)
+        ok = ok & _finite(L)
+        Qi_Cut = cho_solve(L, _tr(Cu))
+        S = _sym(Cu @ Qi_Cut) + eps_s * _eye(n_eq, Hs)
+        Ls = chol(S)
+        ok = ok & _finite(Ls)
+
+        def bordered(g, e):
+            # du = -(Quu^-1 g + Quu^-1 Cu' S^-1 (e - Cu Quu^-1 g)), and the
+            # multiplier's response S^-1 (e - Cu Quu^-1 g); g, e as columns
+            w = cho_solve(L, g)
+            s_r = cho_solve(Ls, e - Cu @ w)
+            return -(w + Qi_Cut @ s_r), s_r
+
+        FB = F @ Bk
+        Kk, Si_Cxt = bordered(_tr(Qxu), Cx)
+        kk, Si_ht = (a[..., 0] for a in bordered(qu[..., None], hv[:, k, :, None]))
+        Kxi, Si_Cxi = bordered(_tr(FB), zero_e)
+        for o, v in zip(outs, (Kk, kk, Kxi, Si_Cxt, Si_ht, Si_Cxi, P, pv, F)):
+            o[k] = v
+        if n_eq:
+            # the bordered gains are not Quu's own optimum: the whole quadratic
+            P = _sym(Qxx + Qxu @ Kk + _tr(Kk) @ _tr(Qxu) + _tr(Kk) @ Quu @ Kk)
+            pv = qx + _mv(Qxu, kk) + _mv(_tr(Kk), qu + _mv(Quu, kk))
+        else:
+            P = _sym(Qxx + Qxu @ Kk)
+            pv = qx + _mv(Qxu, kk)
+        fv = fv + _mv(F, rd[:, k]) + _mv(FB, kk)
+        F = F @ Ak + FB @ Kk
+        Hm = _sym(Hm + FB @ Kxi)
+    xi, ok = _root_xi(Hm, fv, ok) if n_tc else (fv, ok)
+    Ks, kf, Kxis, SiC, Sih, SiXi, P_seq, p_seq, F_seq = outs
+    dx = Hs.new_zeros((Bsz, nxa))
+    dX, dU, mus = [dx], [], []
+    for k in range(N):
+        du = kf[k] + _mv(Ks[k], dx) + _mv(Kxis[k], xi)
+        mus.append(_mv(SiC[k], dx) + Sih[k] + _mv(SiXi[k], xi))
+        dx = _mv(A[:, k], dx) + _mv(B[:, k], du) + rd[:, k]
+        dX.append(dx)
+        dU.append(du)
+    st = lambda v: torch.stack(v, 1)  # noqa: E731
+    return (ok, st(Ks), st(kf), st(P_seq), st(p_seq), st(F_seq), xi, st(mus),
+            st(dX), st(dU))
+
+
 def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions(),
                            parallel: bool = False) -> Callable:
     """Build ``solve(p, X0, U0, max_iter=None, ws=None) -> StructResult``
@@ -606,57 +966,64 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     dict with ``zl``, ``zu`` (B, N, nxa+nu+ni), ``lam`` (B, N, nxa), ``nus``
     (B, N, ni), ``mu``, ``sf`` and ``ok`` (B,), the previous step's result
     shifted one stage; a lane with ``ok`` False starts cold."""
+    N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
+    nz = nxa + nu
+    n_tc, n_eq = s.n_tc, s.n_eq
+    termcons = n_tc > 0    # terminal equality: the terminal-multiplier recursion
+    eqcons = n_eq > 0      # stage equalities: the bordered-stage recursion
     if parallel:
+        if termcons or eqcons:
+            raise ValueError("TermCons / stage equalities (H_eq) are not "
+                             "supported with the parallel-scan Riccati variant; "
+                             "use the sequential default")
         raise _todo("the associative-scan Riccati (parallel=True)",
-                    "Queue 1 item 21")
+                    "Queue 1 item 21(b)")
     if opts.mu_strategy != "monotone":
-        raise _todo(f"mu_strategy={opts.mu_strategy!r}", "Queue 1 item 21")
+        raise _todo(f"mu_strategy={opts.mu_strategy!r}", "Queue 1 item 21(b)")
     if opts.ls_mode != "adaptive":
-        raise _todo(f"ls_mode={opts.ls_mode!r}", "Queue 1 item 21")
+        raise _todo(f"ls_mode={opts.ls_mode!r}", "Queue 1 item 21(b)")
     if opts.hessian not in ("exact", "gauss_newton"):
         raise ValueError(f"unknown hessian {opts.hessian!r}: "
                          "use 'exact' or 'gauss_newton'")
     exact = opts.hessian == "exact"
     if exact and s.dyn is None:
         raise _todo("hessian='exact' for the discrete map, ContForm and the "
-                    "u_prev augmentation", "Queue 1 item 21")
+                    "u_prev augmentation", "Queue 1 item 21(c)")
     if opts.ls_parallel:
-        raise _todo("ls_parallel", "Queue 1 item 21")
+        raise _todo("ls_parallel", "Queue 1 item 21(b)")
     if int(opts.sweep_every) > 1:
-        raise _todo("sweep_every > 1", "Queue 1 item 21")
+        raise _todo("sweep_every > 1", "Queue 1 item 21(b)")
     if opts.dual_init != "zero":
-        raise _todo(f"dual_init={opts.dual_init!r}", "Queue 1 item 21")
+        raise _todo(f"dual_init={opts.dual_init!r}", "Queue 1 item 21(b)")
     if opts.debug:
         raise _todo("debug printing", "Queue 1 item 29")
 
-    N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
-    nz = nxa + nu
     # The route is chosen here, once, from the OCP's structure.
     # Gauss-Newton: the split sweep, dynamics from their kernel and the
     # cost and rows by torch.func; ContForm's joint sweep also gives the
     # stage cost's value, gradient and Hessian (JAX fast_cf, riccati.py:
-    # 1150-1154).  An OCP with neither a sweep kernel nor a lowering (a
-    # LinearModel) takes every output from make_stage_derivs vmapped over
-    # the B*N points, under either Hessian, as JAX does outside any Pallas
-    # kernel (JAX riccati.py:1150-1155, 1396-1398).  Otherwise every output
+    # 1150-1154).  Otherwise, where the OCP has a lowering, every output
     # comes from the fused stage sweep, with the iterate's multipliers (JAX
     # riccati.py:1394-1400); the card has no other path for it, so it
-    # always launches its kernel there.
+    # always launches its kernel there.  The rest (a LinearModel, a
+    # collocated OCP, and under the exact Hessian the slack, G_ineq and
+    # H_eq forms) takes every output from make_stage_derivs vmapped over
+    # the B*N points, as JAX does outside any Pallas kernel (JAX
+    # riccati.py:1150-1155, 1396-1398).
     fast_cf = s.stage_cf is not None and not exact
     split = (s.stage_dyn_jac is not None and not exact) or fast_cf
-    generic = (s.stage_dyn_jac is None and s.stage_cf is None
-               and s.lowering is None and s.dyn is not None)
     fused = None
     v_stage = v_full = None
-    if generic:
-        v_full = vmap(make_stage_derivs(s, opts.hessian))
-    elif not split:
+    if split:
+        if ni or eqcons or not fast_cf:
+            v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
+                                             skip_cost=fast_cf))
+    elif s.lowering is not None:
         from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
 
         fused = make_stage_sweep(s, opts.hessian)
-    elif ni or not fast_cf:
-        v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
-                                         skip_cost=fast_cf))
+    else:
+        v_full = vmap(make_stage_derivs(s, opts.hessian))
 
     def _cstage(zz, pk):
         return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
@@ -708,6 +1075,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             return torch.cat([X_[:, 1:], U_, S_], dim=-1)
 
         x0a = s.x0_of_p(p)
+        tc_tgt = s.tc_target(p) if termcons else None
         mu0 = torch.full((Bsz,), opts.mu_init, **kw)
         sxa_t, su_t = T(s.sxa), T(s.su)
 
@@ -789,6 +1157,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             it=torch.zeros(Bsz, dtype=torch.int32, device=dev),
             done=torch.zeros(Bsz, dtype=torch.bool, device=dev),
             kkt0=full(float("inf")), feas=full(float("inf")),
+            xi=torch.zeros((Bsz, n_tc), **kw), mu_h=torch.zeros((Bsz, N, n_eq), **kw),
             psi_prev=full(float("inf")), acap=full(1.0),
             bX=X_init, bU=U_init, bS=S_init,
             bkkt=full(float("inf")), bfeas=full(float("inf")),
@@ -807,19 +1176,25 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             return tl.flatten(1).sum(1) + tu.flatten(1).sum(1)
 
         def sweep(st):
-            """H, gc, A, Bm, E, ival, dval at the iterate, and qv, the
-            ContForm quadrature there (None otherwise)."""
+            """H, gc, A, Bm, E, ival, dval, Cz, hval at the iterate, and qv,
+            the ContForm quadrature there (None otherwise)."""
             X, U = st["X"], st["U"]
+            no_eq = (torch.zeros((Bsz, N, 0, nz), **kw), torch.zeros((Bsz, N, 0), **kw))
             if fused is not None:
-                return fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"])) + (None,)
+                return (fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"]))
+                        + no_eq + (None,))
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
             if v_full is not None:
-                out = v_full(Zs, pk, st["lam"].reshape(L, nxa), st["nus"].reshape(L, ni))
+                mu_arg = (st["mu_h"].reshape(L, n_eq),) if eqcons else ()
+                out = v_full(Zs, pk, st["lam"].reshape(L, nxa), st["nus"].reshape(L, ni),
+                             *mu_arg)
                 # A and B are column blocks of one Jacobian: copied out, as
                 # the Riccati kernel reads contiguous (B, N, ...) tensors (F11)
-                shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,))
-                return tuple(o.reshape((Bsz, N) + sh).contiguous()
-                             for o, sh in zip(out, shapes)) + (None,)
+                shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,),
+                          (n_eq, nz), (n_eq,))
+                out = tuple(o.reshape((Bsz, N) + sh).contiguous()
+                            for o, sh in zip(out, shapes))
+                return out + (() if eqcons else no_eq) + (None,)
             derivs = v_stage(Zs, pk) if v_stage is not None else ()
             qv = None
             if fast_cf:
@@ -831,27 +1206,39 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                 dval, A, Bm = s.stage_dyn_jac(X[:, :N], U, p)
             if ni:
                 E, ival = derivs[0].reshape(Bsz, N, ni, nz), derivs[1].reshape(Bsz, N, ni)
+                derivs = derivs[2:]
             else:
                 E, ival = torch.zeros((Bsz, N, 0, nz), **kw), torch.zeros((Bsz, N, 0), **kw)
-            return H, gc, A, Bm, E, ival, dval, qv
+            Cz, hval = ((derivs[0].reshape(Bsz, N, n_eq, nz), derivs[1].reshape(Bsz, N, n_eq))
+                        if eqcons else no_eq)
+            return H, gc, A, Bm, E, ival, dval, Cz, hval, qv
 
-        def ipm_step(st, H, gc, A, Bm, E, ival, dval, qv):
+        def ipm_step(st, H, gc, A, Bm, E, ival, dval, Cz, hval, qv):
             X, U, S = st["X"], st["U"], st["S"]
             lam, nus, zl, zu = st["lam"], st["nus"], st["zl"], st["zu"]
+            xi, mu_h = st["xi"], st["mu_h"]
             mu_c = st["mu"]
             Z = mkZ(X, U, S)
             r_d = dval - X[:, 1:]
             r_i = ival - S
+            r_T = X[:, N, :n_tc] - tc_tgt if termcons else X.new_zeros((Bsz, 0))
+            r_h = hval
 
             # KKT errors at the current point from the stage data
             AtL = torch.einsum("bkai,bka->bki", A, lam)
             BtL = torch.einsum("bkai,bka->bki", Bm, lam)
             EtZ = torch.einsum("bkia,bki->bka", E, nus)
+            if eqcons:
+                EtZ = EtZ + torch.einsum("bkia,bki->bka", Cz, mu_h)
             gx_full = gc[..., :nxa] + AtL + EtZ[..., :nxa]
             gu_full = gc[..., nxa:] + BtL + EtZ[..., nxa:]
             gradN = v_grad_N(X[:, N], pN)
             rx = torch.cat([gx_full[:, 1:] - lam[:, :N - 1],
                             (gradN - lam[:, N - 1])[:, None]], dim=1)
+            if termcons:
+                # the terminal multiplier enters x_N's stationarity
+                rx = rx.clone()
+                rx[:, N - 1, :n_tc] += xi
             stat_z = torch.cat([rx, gu_full, -nus], dim=-1) - (zl - zu)
 
             cl_c = (Z - lbz) * zl
@@ -863,6 +1250,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             e_stat = _amax0(stat_z.abs())
             e_stat = torch.where(torch.isnan(e_stat), inf, e_stat)
             e_feas = torch.maximum(_amax0(r_d.abs()), _amax0(r_i.abs()))
+            e_feas = torch.maximum(e_feas, torch.maximum(_amax0(r_T.abs()),
+                                                         _amax0(r_h.abs())))
             e_feas = torch.where(torch.isnan(e_feas), inf, e_feas)
             scale = torch.clamp((lam.abs().flatten(1).sum(1)
                                  + nus.abs().flatten(1).sum(1)
@@ -923,14 +1312,30 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                               bgZ[..., nxa:nxa + nu]], dim=-1)
             q = gc + g_extra - bg_q
             pN_g = pN_cost - bgZ[:, N - 1, :nxa]
-            solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
-                Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw),
-                nxa=nxa, nu=nu)
+            # the KKT solve (JAX riccati.py:1703-1730): with TermCons or H_eq
+            # the bordered recursion, plain PyTorch for JAX's three (JAX has
+            # no Pallas kernel for them); else kernel 2
+            xi_new, mu_h_new = xi, mu_h
+            if termcons or eqcons:
+                (solvable, Ks, kf, P_seq, p_seq, F_seq, xi_new, mu_seq,
+                 dX, dU) = riccati_bordered(Hs, q, A, Bm, r_d, PN_h, pN_g, Cz, r_h, r_T,
+                                            nxa=nxa, nu=nu)
+            else:
+                solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
+                    Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw), nxa=nxa, nu=nu)
+            if termcons:
+                xi_new = torch.where(_lane(solvable, xi_new), xi_new, xi)
+            if eqcons:
+                mu_h_new = torch.where(_lane(solvable, mu_seq), _nan0(mu_seq), mu_h)
             dX, dU = _nan0(dX), _nan0(dU)
             dS = torch.einsum("bkia,bka->bki", E,
                               torch.cat([dX[:, :N], dU], dim=-1)) + r_i
             dnu = _nan0(sigS * dS - (nus + bgS))
-            lam_new = _nan0(torch.einsum("bkij,bkj->bki", P_seq, dX[:, 1:]) + p_seq)
+            # defect multipliers lam_k = P_{k+1} dx_{k+1} + p_{k+1} (+ F' xi)
+            lam_new = torch.einsum("bkij,bkj->bki", P_seq, dX[:, 1:]) + p_seq
+            if termcons:
+                lam_new = lam_new + torch.einsum("bkia,bi->bka", F_seq, xi_new)
+            lam_new = _nan0(lam_new)
             lam_new = torch.where(_lane(solvable, lam_new), lam_new, lam)
             dlam = lam_new - lam
 
@@ -955,8 +1360,11 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             ad = torch.clamp(torch.minimum(_amin(ftb_dual(zl, dzl)),
                                            _amin(ftb_dual(zu, dzu))), max=1.0)
 
-            c_norm = r_d.abs().flatten(1).sum(1) + r_i.abs().flatten(1).sum(1)
+            c_norm = (r_d.abs().flatten(1).sum(1) + r_i.abs().flatten(1).sum(1)
+                      + r_T.abs().sum(1) + r_h.abs().flatten(1).sum(1))
             lam_inf = torch.maximum(_amax0(lam_new.abs()), _amax0((nus + dnu).abs()))
+            lam_inf = torch.maximum(lam_inf, torch.maximum(_amax0(xi_new.abs()),
+                                                           _amax0(mu_h_new.abs())))
             nu_pen = torch.maximum(1.5 * lam_inf + 1e-4, 0.5 * st["nu_pen"])
             if qv is not None:
                 # the ContForm sweep already integrated the stage quadrature
@@ -993,6 +1401,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
             new = dict(X=X_n, U=U_n, S=S_n, lam=lam + a_x * dlam,
                        nus=nus + a_x * dnu, zl=zl_n, zu=zu_n, mu=mu,
+                       xi=xi + _lane(alpha, xi) * (xi_new - xi),
+                       mu_h=mu_h + a_x * (mu_h_new - mu_h),
                        nu_pen=nu_pen, delta=delta_n, it=st["it"] + 1,
                        done=torch.zeros_like(st["done"]), kkt0=e_0, feas=feas,
                        psi_prev=psi0_c, acap=acap_n,

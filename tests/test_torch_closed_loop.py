@@ -180,19 +180,23 @@ def test_dense_loop_matches_jax():
 
 
 def test_unported_features_raise():
-    """The host loop, the hand-off from the host ``MHERuntime`` and
-    modifier adaptation run since they were ported; what is still unported
-    raises with its ROADMAP item: collocation in ``ClosedLoop`` (item 20),
-    a structured-solver option (item 21) and ``SolverOptions.debug``
-    (item 29)."""
+    """The host loop, the hand-off from the host ``MHERuntime``, modifier
+    adaptation and collocation run since they were ported; what is still
+    unported raises with its ROADMAP item: the associative-scan Riccati
+    (``parallel=True``) and another structured-solver option (item 21) and
+    ``SolverOptions.debug`` (item 29)."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples.nmpc import make_config
     from mpc_code_tpu_torch.loop import ClosedLoop
     from mpc_code_tpu_torch.loop.batched import make_mpc_step
+    from mpc_code_tpu_torch.models import build_model, build_stage_cost, build_terminal_cost
+    from mpc_code_tpu_torch.solver.riccati import build_structured_ocp, make_structured_solver
 
     cfg = make_config().replace(N=N)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ClosedLoop(cfg.replace(Collocation=True), device="cpu")
+    socp = build_structured_ocp(cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
+                                build_terminal_cost(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 21"):
+        make_structured_solver(socp, cfg.sol_opts_dyn, parallel=True)
     with pytest.raises(NotImplementedError, match="item 21"):
         make_mpc_step(cfg.replace(sol_opts_dyn=SolverOptions(mu_strategy="adaptive")),
                       device="cpu")

@@ -128,9 +128,9 @@ def test_unported_options_raise_with_roadmap_item():
     cfg = make_config()
     args = (build_model(cfg), build_stage_cost(cfg.stage_cost),
             build_terminal_cost(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_structured_ocp(cfg.replace(Collocation=True), *args, device="cpu")
     socp = build_structured_ocp(cfg, *args, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_structured_solver(socp, SolverOptions(), parallel=True)
     # the exact Hessian of the discrete map with the u_prev augmentation
     dcfg = nmpc_dis.make_config()
     dis = build_structured_ocp(dcfg, build_model(dcfg), build_stage_cost(dcfg.stage_cost),
