@@ -90,7 +90,17 @@ It never imports JAX or the JAX package.  Phases:
    first 4 to the dense transcription on the CPU, and x_N = xs under
    TermCons; and the bordered recursion on the card against the CPU with
    and without each kind of row;
-11. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
+11. the solver options (``solver_options``): the bench workload of phase 3
+   on OPTIONS_B lanes in f32 under its default settings and under each
+   option of the structured solver (``parallel=True``, the 'adaptive' and
+   'mehrotra' barriers, backtracking sequential and in one batched
+   rollout, ``sweep_every=2``, costate duals), then three OCPs under the
+   exact Hessian through the generic ``torch.func`` stage derivatives (the
+   nmpc_dis and ENMPC workloads with the examples' exact Hessian, the
+   CSTR with DUForm): solves/s, ok_fraction, iterations and every
+   kernel's launches against the solver's own counts; 8 lanes of each run
+   in f64 on the card held to the CPU's f64 run;
+12. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
    economic target by the dense IPM and the ContForm OCP under
@@ -104,7 +114,7 @@ It never imports JAX or the JAX package.  Phases:
    and the OCP under the profiler, and the 64-lane
    f64 check holding every MHE, target and OCP iteration and status and the
    estimate too;
-12. the host loop (``host_loop``, run before phase 11 so that phase 11's
+13. the host loop (``host_loop``, run before phase 12 so that phase 12's
    CPU reference finishes beside it): ``loop/simulator.py::ClosedLoop`` on the
    card in f64 on ``fixtures/enmpc.npz`` (the host MHE, its window solves
    on kernel 2 at one lane) and ``fixtures/nmpc.npz`` (the EKF), every
@@ -118,13 +128,13 @@ It never imports JAX or the JAX package.  Phases:
    process of its own on the card, beside the ENMPC fixture (kernel 2 at
    one lane is held against its plain version in the enmpc_mhe kernel
    phase);
-13. the warm hand-off (``enmpc_handoff``): the ENMPC flagship's host
+14. the warm hand-off (``enmpc_handoff``): the ENMPC flagship's host
    warmup (``ClosedLoop``, N_mhe + 2 = 12 steps, f32 on the card, in a
-   process of its own started with phase 12) held
+   process of its own started with phase 13) held
    against the CPU's f64 run, then ``carry_from_runtime`` into the batched
-   step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 11
+   step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 12
    from the handed-off carry;
-14. one ``{"kernels": [...]}`` line, and as the last line
+15. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  With no CUDA
@@ -1031,14 +1041,15 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
     "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop",
-    "enmpc_loop", "enmpc_handoff", "constrained") in one
+    "enmpc_loop", "enmpc_handoff", "constrained", "solver_options") in one
     dtype, with the Riccati ``ok`` flags of every call (for the loops: the
     closed loop's history; "enmpc_handoff" continues from ``carry``, numpy
     arrays, at time ``t0`` and step ``k0``).  "enmpc_handoff_warmup" is the
     hand-off's host warmup through ``ClosedLoop`` on the CPU: (history,
     per-step stats).  "constrained" gives, per run of the constrained
     phase, the check lanes' structured solve and their dense
-    transcription's.  Returns (results, flags).  It runs
+    transcription's; "solver_options", per run of that phase, its check
+    lanes' solve.  Returns (results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -1058,6 +1069,10 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
             return {name: dict(struct=constrained_check_solve(name, cpu),
                                dense=constrained_dense(name))
                     for name in constrained_runs()}, flags
+        if path == "solver_options":
+            torch.set_num_threads(1)
+            return {name: options_check_solve(name, cpu)
+                    for name in dict(OPTION_RUNS, **EXACT_RUNS) if name != "default"}, flags
         if path.startswith("enmpc_handoff"):
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.loop import ClosedLoop
@@ -2212,10 +2227,204 @@ def constrained_phase(dev, launches, results, cpu_refs):
     return failures, report
 
 
+# The solver_options phase (ROADMAP item 21(b), (c)): the bench workload
+# of the slice phase on its first OPTIONS_B lanes in f32 under each option
+# of the structured solver (OPTION_RUNS, make_problem's arguments; "default"
+# is the slice phase's settings at the same lanes, the yardstick), then
+# three OCPs under the exact Hessian, whose stage derivatives come from the
+# generic torch.func route (EXACT_RUNS: the nmpc_dis and ENMPC workloads
+# with the examples' exact Hessian, the bench's CSTR with DUForm).  Kernel
+# launches are held to the solver's own counts: kernel 2 once a pass (twice
+# under Mehrotra, none under parallel=True, K a sweep under sweep_every=K),
+# kernel 1 once a sweep (and once more a solve for costate duals); on the
+# exact routes kernel 2 once a pass and no sweep kernel.  OPTIONS_CHECK
+# lanes of every run but "default" (the slice phase checks it) are solved
+# in f64 on the card to OPTIONS_CHECK_OPTS and held to the CPU's f64 run:
+# statuses and iterations equal, X and U to OPTIONS_F64_TOL.
+OPTIONS_B = 4096
+OPTIONS_WARMUP, OPTIONS_WARMUP_ITERS = 64, 2
+OPTIONS_CHECK = 8
+OPTIONS_CHECK_OPTS = dict(max_iter=50, tol=1e-8, constr_viol_tol=1e-8)
+OPTIONS_F64_TOL = 1e-8
+OPTION_RUNS = {"default": {}, "parallel": dict(parallel=True),
+               "adaptive": dict(mu_strategy="adaptive"),
+               "mehrotra": dict(mu_strategy="mehrotra"),
+               "backtrack": dict(ls_mode="backtrack"),
+               "ls_parallel": dict(ls_mode="backtrack", ls_parallel=True),
+               "sweep_every": dict(sweep_every=2), "costate": dict(dual_init="costate")}
+EXACT_RUNS = {"nmpc_dis_exact": {}, "enmpc_exact": {},
+              "cstr_du_exact": dict(hessian="exact", DUForm=True)}
+SOLVER_FIELDS = ("hessian", "mu_strategy", "ls_mode", "ls_parallel", "sweep_every",
+                 "dual_init")
+
+
+def options_workload(name, device, ocp_opts=None):
+    """The workload module and problem of an exact run on the nmpc_dis or
+    ENMPC path, its OCP under the exact Hessian (``ocp_opts``, default the
+    workload's own f32 options with hessian='exact')."""
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples import enmpc_workload, nmpc_dis_workload
+
+    wl = nmpc_dis_workload if name.startswith("nmpc_dis") else enmpc_workload
+    if ocp_opts is None:
+        ocp_opts = SolverOptions.for_f32(max_iter=30, hessian="exact")
+    return wl, wl.make_problem(device, ocp_opts=ocp_opts)
+
+
+def options_check_solve(name, device):
+    """The check lanes of a solver_options run in f64 to OPTIONS_CHECK_OPTS
+    under the run's options: status, iters, X and U as numpy (for the
+    bench runs from the bench's warm start, for the nmpc_dis and ENMPC runs
+    through their workloads' pipelines)."""
+    import torch
+
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        U_SS, bench_params, draw_x0, make_problem, warm_start,
+    )
+    from mpc_code_tpu_torch.solver.riccati import make_structured_solver
+
+    f64 = torch.float64
+    if name in ("nmpc_dis_exact", "enmpc_exact"):
+        wl, prob = options_workload(name, device, SolverOptions(hessian="exact",
+                                                                **OPTIONS_CHECK_OPTS))
+        out = wl.run_pipeline(prob, wl.draw_lanes(OPTIONS_CHECK, device, dtype=f64))
+        return {k: out[k] for k in ("status", "iters", "X", "U")}
+    run = dict(OPTION_RUNS, **EXACT_RUNS)[name]
+    cfg, model, socp, _ = make_problem(device, **run)
+    opts = dict(dict(hessian="gauss_newton"), **{k: v for k, v in run.items() if k in SOLVER_FIELDS})
+    solve = make_structured_solver(socp, SolverOptions(**OPTIONS_CHECK_OPTS, **opts),
+                                   parallel=run.get("parallel", False))
+    x0 = draw_x0(OPTIONS_CHECK, device, dtype=f64)
+    u_ws = torch.as_tensor(U_SS, dtype=f64, device=device).expand(len(x0), cfg.nu)
+    X0, U0 = warm_start(cfg, model, x0, u_ws)
+    if socp.nxa > cfg.nx:        # the u_prev slots, from the warm input
+        X0 = torch.cat([X0, u_ws[:, None].expand(-1, X0.shape[1], -1)], -1)
+    r = solve(bench_params(cfg, x0), X0, U0)
+    return dict(status=r.status.cpu().numpy(), iters=r.iters.cpu().numpy(),
+                X=r.X.cpu().numpy(), U=r.U.cpu().numpy())
+
+
+def expected_option_launches(run, calls):
+    """(kernel 1, kernel 2) launches by the solver's own counts over its
+    solve calls, each (passes, pass-1 solver or not): sweeps =
+    ceil(passes / sweep_every), kernel 1 once a sweep (one more a solve
+    for costate duals), kernel 2 sweep_every times a sweep, twice that
+    under Mehrotra (pass 1 only: the rescue is monotone), never under
+    parallel=True."""
+    k_sw = run.get("sweep_every", 1)
+    k1 = k2 = 0
+    for passes, pass1 in calls:
+        sweeps = -(-passes // k_sw)
+        k1 += sweeps + (run.get("dual_init") == "costate")
+        if not run.get("parallel"):
+            k2 += sweeps * k_sw * (2 if pass1 and run.get("mu_strategy") == "mehrotra" else 1)
+    return k1, k2
+
+
+def options_phase(dev, launches, cpu_refs):
+    """The solver_options phase's runs at OPTIONS_B lanes in f32: per run
+    the solves per second, ok_fraction, the iterations' median and maximum
+    and the launches of every kernel against the solver's counts; then the
+    f64 check lanes against the CPU."""
+    import torch
+
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        U_SS, PipelineSolve, bench_params, draw_x0, make_problem, run_pipeline, warm_start,
+    )
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    mods = dict(rk4_stage_jac=sweep_cuda, riccati_kkt=rk, map_stage_jac=sweep_map_cuda,
+                rk4_quad_stage_hess=sweep_cf_cuda, stage_sweep=sk)
+    failures, report = [], {}
+    refs = cpu_refs[("solver_options", "float64")]
+    for name, run in dict(OPTION_RUNS, **EXACT_RUNS).items():
+        calls = []
+
+        def counted(fn, pass1):
+            def solve(*a, **k):
+                r = fn(*a, **k)
+                calls.append((solver_passes(r.iters, r.status), pass1))
+                return r
+            return solve
+
+        # each run after an untimed short one at OPTIONS_WARMUP lanes: the
+        # card's first use of what the run calls (cuBLAS and cuSOLVER
+        # handles, the kernels' libraries) stays out of its time
+        generic = name in ("nmpc_dis_exact", "enmpc_exact")
+        if generic:
+            wl, prob = options_workload(name, dev)
+            wl.run_pipeline(prob, wl.draw_lanes(OPTIONS_WARMUP, dev))
+            prob = prob._replace(ocp_solve=counted(prob.ocp_solve, True))
+            lanes = wl.draw_lanes(OPTIONS_B, dev)
+            nxa = prob.socp.nxa
+        else:
+            cfg, model, socp, solve = make_problem(dev, **run)
+            nxa = socp.nxa
+            x0s = draw_x0(OPTIONS_B, dev)
+            x0w = x0s[:OPTIONS_WARMUP]
+            u_ws = torch.as_tensor(U_SS, dtype=x0w.dtype, device=dev).expand(len(x0w), cfg.nu)
+            Xw, Uw = warm_start(cfg, model, x0w, u_ws)
+            if nxa > cfg.nx:
+                Xw = torch.cat([Xw, u_ws[:, None].expand(-1, Xw.shape[1], -1)], -1)
+            for fn in {solve.solve, solve.rescue}:
+                fn(bench_params(cfg, x0w), Xw, Uw, max_iter=OPTIONS_WARMUP_ITERS)
+            solve = PipelineSolve(counted(solve.solve, True), counted(solve.rescue, False))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for m in mods.values():
+            m.LAUNCHES = 0
+        if generic:
+            out = wl.run_pipeline(prob, lanes)
+            status, iters, times = out["status"], out["iters"], out["times"]
+        else:
+            status, iters, _, _, _, times = run_pipeline(
+                cfg, model, solve, x0s, nup=nxa - cfg.nx - socp.ns)
+        got = {k: m.LAUNCHES for k, m in mods.items()}
+        for k, n in got.items():
+            launches[f"{k}_options_{name}"] = n
+        if name.endswith("_exact"):
+            want = dict.fromkeys(mods, 0)
+            want["riccati_kkt"] = sum(p for p, _ in calls)
+        else:
+            want = dict(dict.fromkeys(mods, 0), **dict(zip(
+                ("rk4_stage_jac", "riccati_kkt"), expected_option_launches(run, calls))))
+        n_ok = int((status != 2).sum())
+        r = dict(batch=OPTIONS_B, nxa=nxa, ok=n_ok, ok_fraction=n_ok / OPTIONS_B,
+                 solves_per_s=n_ok / times["total_s"],
+                 status_counts=np.bincount(status, minlength=3).tolist(),
+                 median_iters=float(np.median(iters)), max_iters=int(iters.max()),
+                 passes=calls, launches=got, expected_launches=want,
+                 peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in times.items()})
+        log(f"# solver_options {name} " + json.dumps(r))
+        if got != want:
+            failures.append(f"solver_options {name}: launches {got}, expected {want}")
+        if name != "default":
+            gpu = options_check_solve(name, dev)
+            cpu = refs.result()[0][name]
+            same_status = bool((gpu["status"] == cpu["status"]).all())
+            same_iters = bool((gpu["iters"] == cpu["iters"]).all())
+            ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
+            r.update(check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
+                     cpu_status=cpu["status"].tolist(), cpu_iters=cpu["iters"].tolist(),
+                     max_norm_err_vs_cpu=ex)
+            log(f"# solver_options {name} f64 check ({OPTIONS_CHECK} lanes): status "
+                f"{gpu['status'].tolist()} (cpu {cpu['status'].tolist()}) iters "
+                f"{gpu['iters'].tolist()} (cpu {cpu['iters'].tolist()}), max norm err X/U "
+                f"vs cpu {ex:.3e} (tol {OPTIONS_F64_TOL:g})")
+            if not (same_status and same_iters and ex <= OPTIONS_F64_TOL):
+                failures.append(f"solver_options {name}: f64 check lanes differ from the CPU")
+        report[name] = r
+    return failures, report
+
+
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
           "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
-          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "constrained", "host_loop",
-          "enmpc_loop", "enmpc_handoff")
+          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "constrained", "solver_options",
+          "host_loop", "enmpc_loop", "enmpc_handoff")
 
 
 def main() -> int:
@@ -2333,6 +2542,11 @@ def main() -> int:
     cpu_refs.update({(p, dt): pool.submit(cpu_reference, p, dt)
                      for p in ("slice", "enmpc", "nmpc_dis", "cstr_exact") if p in selected
                      for dt in ("float64", "float32")})
+    # the solver_options phase's check lanes: needed after the constrained
+    # phase, so queued after the controller phases' runs
+    if "solver_options" in selected:
+        cpu_refs[("solver_options", "float64")] = pool.submit(
+            cpu_reference, "solver_options", "float64")
     # the one-lane host runs on the card in processes of their own
     # (card_job), from host_loop on
     card_pool = cf.ProcessPoolExecutor(CARD_WORKERS, mp_context=mp.get_context("spawn"))
@@ -2368,6 +2582,7 @@ def main() -> int:
               ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
               ("clb", lambda: clb_phase(dev, launches)),
               ("constrained", lambda: constrained_phase(dev, launches, results, cpu_refs)),
+              ("solver_options", lambda: options_phase(dev, launches, cpu_refs)),
               # host_loop before enmpc_loop: enmpc_loop's CPU reference (64
               # lanes) and the hand-off's warmup reference finish beside it
               # instead of being waited for (119 s and 39 s on the H100
@@ -2472,6 +2687,12 @@ def main() -> int:
             # takes the plain recursions (0 launches)
             for p in ("colloc", "soft", "tc_heq"):
                 k["launches_by_path"][f"constrained_{p}"] = launches[f"riccati_kkt_{p}"]
+            # the solver_options phase: the CSTR path's shapes under each
+            # option, then the exact routes at (50, 8, 2), (25, 2, 1) and
+            # (50, 5, 2)
+            for p in dict(OPTION_RUNS, **EXACT_RUNS):
+                k["launches_by_path"][f"solver_options_{p}"] = launches.get(
+                    f"riccati_kkt_options_{p}", 0)
             k["at_soft_shapes"] = entry(name, results["riccati_kkt_soft"],
                                         launches["riccati_kkt_soft"])
         if name == "rk4_stage_jac":
@@ -2479,7 +2700,10 @@ def main() -> int:
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
                                      "cstr_loop": launches["rk4_stage_jac_cstr_loop"],
                                      **{f"constrained_{p}": launches[f"rk4_stage_jac_{p}"]
-                                        for p in ("colloc", "soft", "tc_heq")}}
+                                        for p in ("colloc", "soft", "tc_heq")},
+                                     **{f"solver_options_{p}": launches.get(
+                                         f"rk4_stage_jac_options_{p}", 0)
+                                        for p in OPTION_RUNS}}
         if name == "rk4_quad_stage_hess":
             # kernel 4 on the ENMPC flagship loop's OCP solves too
             k["launches_by_path"] = {"enmpc": launches["rk4_quad_stage_hess"],

@@ -299,8 +299,8 @@ class SolverOptions:
 
     Field for field the same as the JAX package's ``SolverOptions``; the
     comments there record why each option exists.  The port's structured
-    solver implements the Gauss-Newton Hessian, the monotone barrier and
-    ``ls_mode='adaptive'`` and raises ``NotImplementedError`` for the rest.
+    solver implements every option and raises ``NotImplementedError``
+    (ROADMAP Queue 1 item 29) only for ``debug``, as does the dense IPM.
     """
 
     max_iter: int = 100

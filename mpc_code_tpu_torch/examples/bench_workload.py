@@ -4,14 +4,21 @@ Batched cold solves of the CSTR NMPC OCP (``examples/nmpc.py``, N=50, RK4
 Mx=10, the bench's saturation guard, ``bench.py:81-84``) by the structured
 solver with the Gauss-Newton Hessian (or, with ``hessian="exact"``, the
 exact Lagrangian Hessian, as ``bench.py:100`` runs under
-``BENCH_HESS=exact``), the monotone barrier, adaptive line search and
-``track_best``.  The pipeline is ``bench.py:236-295``: a
+``BENCH_HESS=exact``), by default the monotone barrier, the adaptive
+line search and ``track_best``.  The pipeline is ``bench.py:236-295``: a
 forward-simulated warm start, pass 1 at a cap of 12 iterations, then one
 combined steady/coolhold rescue call at cap 40 for the lanes that failed.
 
     cfg, model, socp, solve = make_problem(device)
     x0s = draw_x0(16384, device)
     status, iters, feas, kkt, U, times = run_pipeline(cfg, model, solve, x0s)
+
+The solver options that ``bench.py:95-120`` reads from its ``BENCH_*``
+variables are ``make_problem``'s arguments: ``parallel`` (the
+associative-scan Riccati), the pass-1 ``mu_strategy``, ``ls_mode``,
+``ls_parallel``, ``sweep_every`` and ``dual_init``.  The rescue always
+runs the monotone barrier: with another pass-1 strategy ``make_problem``
+builds it a second solver, as ``bench.py:111-120`` does.
 
 Config overrides drive the same workload through other transcriptions of
 the same OCP: ``make_problem(device, Collocation=True)`` (the tracking
@@ -54,12 +61,28 @@ CLIP_HI = np.array([2.0, 420.0, 1.0])
 U_BOX = np.array([305.0 - 295.0, 0.25])   # width of the input bounds
 
 
-def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", **overrides):
+class PipelineSolve:
+    """The pipeline's two solvers: calling it runs pass 1's; ``rescue`` is
+    the rescue calls' (pass 1's own when it is monotone)."""
+
+    def __init__(self, solve, rescue):
+        self.solve, self.rescue = solve, rescue
+
+    def __call__(self, *args, **kwargs):
+        return self.solve(*args, **kwargs)
+
+
+def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", parallel=False,
+                 mu_strategy="monotone", ls_mode="adaptive", ls_parallel=False,
+                 sweep_every=1, dual_init="zero", **overrides):
     """``(cfg, model, socp, solve)`` for the bench configuration on
-    ``device`` (default the card), with the OCP Hessian ``hessian`` and the
-    config fields ``overrides``.  With ``Collocation=True`` the config's
-    tracking cost 0.5 (dx'Q dx + du'R du) becomes the collocation form's
-    ``f_coll``, which leaves its stage-state argument unused."""
+    ``device`` (default the card), with the OCP Hessian ``hessian``, the
+    solver options ``parallel``, ``mu_strategy`` (pass 1's), ``ls_mode``,
+    ``ls_parallel``, ``sweep_every`` and ``dual_init`` (``SolverOptions``'s
+    fields), and the config fields ``overrides``.  ``solve`` is a
+    ``PipelineSolve``.  With ``Collocation=True`` the config's tracking
+    cost 0.5 (dx'Q dx + du'R du) becomes the collocation form's ``f_coll``,
+    which leaves its stage-state argument unused."""
     cfg = make_config().replace(N=Nh, R_wn=None, **overrides)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, Mx=Mx, clip_lo=CLIP_LO.astype(np.float32),
@@ -74,11 +97,17 @@ def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", **overrides):
     model = build_model(cfg)
     socp = build_structured_ocp(cfg, model, build_stage_cost(cfg.stage_cost),
                                 build_terminal_cost(cfg), device=device)
-    opts = SolverOptions(max_iter=MAXIT_R, tol=1e-3, constr_viol_tol=1e-3,
-                         mu_init=1e-1, hessian=hessian,
-                         mu_strategy="monotone", ls_mode="adaptive",
-                         track_best=True)
-    return cfg, model, socp, make_structured_solver(socp, opts)
+
+    def solver(mu):
+        return make_structured_solver(socp, SolverOptions(
+            max_iter=MAXIT_R, tol=1e-3, constr_viol_tol=1e-3, mu_init=1e-1,
+            hessian=hessian, mu_strategy=mu, ls_mode=ls_mode, ls_parallel=ls_parallel,
+            sweep_every=sweep_every, dual_init=dual_init, track_best=True),
+            parallel=parallel)
+
+    solve = solver(mu_strategy)
+    rescue = solve if mu_strategy == "monotone" else solver("monotone")
+    return cfg, model, socp, PipelineSolve(solve, rescue)
 
 
 def draw_x0(batch, device=None, seed=0, dtype=torch.float32):
@@ -115,19 +144,25 @@ def warm_start(cfg, model, x0, u_ws, Nh=N):
     return torch.stack(xs, 1), u_ws[:, None].expand(-1, Nh, -1).contiguous()
 
 
-def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N, ns=0):
+def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N, ns=0, nup=0):
     """Pass 1 at cap MAXIT1, then one combined steady/coolhold rescue call
     per ``rescue_cap`` failed lanes at cap MAXIT_R
-    (bench.py:236-295).  Returns numpy status, iters, feas, kkt, U (the
-    model's inputs) and the per-phase host times.  ``ns``: the OCP's
+    (bench.py:236-295).  ``solve`` runs pass 1, and its ``rescue``, where
+    it has one (a ``PipelineSolve``), the rescue calls.  Returns numpy
+    status, iters, feas, kkt, U (the model's inputs) and the per-phase
+    host times.  ``ns``: the OCP's
     shared slacks (``socp.ns``), whose state and input slots the warm
-    start fills with 0."""
+    start fills with 0; ``nup``: its u_prev slots (``socp.nxa - cfg.nx -
+    socp.ns``, under DUForm or Delta-u bounds), which it fills with the
+    warm start's input."""
     dev, dtype = x0s.device, x0s.dtype
     kw = dict(dtype=dtype, device=dev)
     nx, nu = cfg.nx, cfg.nu
 
     def guess(x0, u_ws):
         X0, U0 = warm_start(cfg, model, x0, u_ws, Nh)
+        if nup:
+            X0 = torch.cat([X0, u_ws[:, None].expand(-1, Nh + 1, -1)], -1)
         if ns:
             X0 = torch.nn.functional.pad(X0, (0, ns))
             U0 = torch.nn.functional.pad(U0, (0, ns))
@@ -137,6 +172,7 @@ def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N, ns=0):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    rescue = getattr(solve, "rescue", solve)
     times = {}
     t0 = time.perf_counter()
     nb = x0s.shape[0]
@@ -167,7 +203,7 @@ def run_pipeline(cfg, model, solve, x0s, rescue_cap=RESCUE_CAP, Nh=N, ns=0):
         uw = np.repeat(np.stack([U_SS, U_COOL]), rescue_cap, axis=0)
         xr_t = torch.as_tensor(xr, **kw)
         X0r, U0r = guess(xr_t, torch.as_tensor(uw, **kw))
-        rr = solve(bench_params(cfg, xr_t, Nh), X0r, U0r, max_iter=MAXIT_R)
+        rr = rescue(bench_params(cfg, xr_t, Nh), X0r, U0r, max_iter=MAXIT_R)
         s2 = np.stack([rr.status.cpu().numpy(), rr.iters.cpu().numpy(),
                        rr.feas_err.cpu().numpy(), rr.kkt_err.cpu().numpy()], 1)
         U2 = rr.U[..., :nu].cpu().numpy()

@@ -9,16 +9,21 @@ with or without output bounds, soft output bounds (the shared slacks,
 with ``slacksG`` and ``slacksH``), user stage inequalities (``G_ineq``)
 and equalities (``H_eq``) and the terminal equality (``TermCons``), the
 shooting forms also with the u_prev state augmentation that Delta-u
-bounds and Delta-u costs (``DUForm``, ``DUFormEcon``) need.  The solver
-has the Gauss-Newton Hessian, the monotone barrier, the rollout-free
-adaptive step controller (``ls_mode='adaptive'``), best-iterate
+bounds and Delta-u costs (``DUForm``, ``DUFormEcon``) need.  Every
+option of JAX's solver is here: the exact Lagrangian Hessian (the
+default of ``SolverOptions``) on every transcription and the
+Gauss-Newton one; the monotone, 'adaptive' (LOQO centrality) and
+'mehrotra' (predictor-corrector) barriers; the rollout-free adaptive
+step controller (``ls_mode='adaptive'``) and Armijo backtracking on the
+merit, its trials one at a time or all in one batched rollout
+(``ls_parallel``); stale-derivative sub-steps (``sweep_every``); zero or
+costate initial defect multipliers (``dual_init``); the associative-scan
+Riccati (``parallel=True``, ``riccati_parallel``); best-iterate
 bookkeeping and the closed loop's cross-solve dual/barrier warm start
 (``solve(..., ws=)``: the previous step's multipliers and barrier, shifted
-one stage and rescaled to the new objective scaling).  All but the
-discrete map, ContForm without slacks and the u_prev augmentation also
-take the exact Lagrangian Hessian (the default of ``SolverOptions``).
-Every other configuration raises ``NotImplementedError`` naming its
-ROADMAP item.
+one stage and rescaled to the new objective scaling).  Only
+``SolverOptions.debug`` raises ``NotImplementedError`` (ROADMAP Queue 1
+item 29); what JAX refuses raises JAX's ``ValueError``.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
@@ -35,22 +40,30 @@ sweep (``ops/sweep_map_cuda.py``), both through
 ``StructuredOCP.stage_dyn_jac``, or, for a ContForm OCP, the joint
 dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
 ``StructuredOCP.stage_cf``, which also gives the stage cost's value,
-gradient and Hessian), or, under the exact Hessian, the fused generic
-stage-derivative sweep (``solver/sweep_kernel.py``: every output of
-``make_stage_derivs`` in one pass), and the Riccati KKT solve
-(``solver/riccati_kernel.py``).  A linear model has no derivative
-kernel, in JAX as here, nor has a collocated OCP (the Newton solve
-inside each stage): their stage derivatives come from
-``make_stage_derivs`` by ``torch.func``, and the Riccati KKT solve is
-their one kernel.  With TermCons or H_eq the KKT solve is the bordered
-recursion ``riccati_bordered`` in plain PyTorch, as JAX has no Pallas
-kernel for its three.  The rest is IPM algebra on whole tensors.
+gradient and Hessian), or, under the exact Hessian of the continuous map
+without u_prev, the fused generic stage-derivative sweep
+(``solver/sweep_kernel.py``: every output of ``make_stage_derivs`` in one
+pass), and the Riccati KKT solve (``solver/riccati_kernel.py``).  A
+linear model has no derivative kernel, in JAX as here, nor has a
+collocated OCP (the Newton solve inside each stage), nor has the exact
+Hessian of the discrete map, ContForm or the u_prev augmentation (JAX's
+fused sweep is opt-in, its default the generic route): their stage
+derivatives come from ``make_stage_derivs`` by ``torch.func``, and the
+Riccati KKT solve is their one kernel.  With TermCons or H_eq the KKT
+solve is the bordered recursion ``riccati_bordered``, and under
+``parallel=True`` the associative scan ``riccati_parallel``, both in plain
+PyTorch as JAX has no Pallas kernel for them.  The line search's trial
+points, the stale-derivative sub-steps' values and the costate
+recursion's Jacobian (where the OCP has no ``stage_dyn_jac``) come from
+the generic map ``dyn``, as in JAX.  The rest is IPM algebra on whole
+tensors.
 
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
 freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
 false; the masked loop here does the same, so per-lane ``iters`` and
 ``status`` match.  Deciding whether any lane is still active costs one
-host synchronisation per iteration.
+host synchronisation per pass (and backtracking one more per trip of its
+search, at most 12 a pass).
 """
 
 from __future__ import annotations
@@ -67,17 +80,28 @@ from mpc_code_tpu_torch.config import (
 )
 from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.models.model import ModelFns
-from mpc_code_tpu_torch.ops.smalllin import cho_solve, chol
+from mpc_code_tpu_torch.ops.smalllin import cho_solve, chol, solve_lu
 from mpc_code_tpu_torch.solver.nlp import (
     STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED,
 )
 from mpc_code_tpu_torch.solver.riccati_kernel import riccati_kkt
 
 _TAU_MIN = 0.99
+_ETA_LS = 1e-4
+# the backtracking ladder alpha_j = alpha_max 0.5^e(j), e(j) = j + max(j - 4,
+# 0): halving for the first _LS_FINE trials, then quartering, down to the
+# floor exponent _MAX_BACKTRACK in _LS_TRIPS trials (JAX riccati.py:56-74)
 _MAX_BACKTRACK = 20
+_LS_FINE = 4
+_LS_TRIPS = 12
 _KAPPA_EPS = 10.0
 _KAPPA_MU = 0.2
 _THETA_MU = 1.5
+
+
+def _ls_exp(j: int) -> int:
+    """The ladder's exponent e(j)."""
+    return j + max(j - _LS_FINE, 0)
 
 # per-lane rank of each entry of the parameter dict p
 PARAM_NDIM = {"x0": 1, "xs": 1, "us": 1, "d": 1, "um1": 1, "t": 0,
@@ -171,15 +195,14 @@ class StructuredOCP:
     qv (B,N), gq (B,N,nz), Hq (B,N,nz,nz))``, the quadrature cost's value,
     gradient and Hessian (scaled) from the same rollout.  ``ineq`` is None
     when ``ni = 0``.  ``dyn`` is the scaled one-interval map on one point
-    ``(xa, u, pk) -> xa_next``, which the exact Lagrangian Hessian
-    traverses, and ``lowering`` what the fused stage sweep's code
-    generator needs; ``dyn`` is None where the exact Hessian is not ported
-    (the discrete map, ContForm without slacks, the u_prev augmentation of
-    a continuous model), ``lowering`` also with slacks or user rows.  A
-    ``LinearModel``, a collocated OCP and a ContForm OCP with slacks have
-    ``dyn`` (with the u_prev and slack rows) and neither a sweep nor a
-    lowering: the solver differentiates ``dyn`` by ``torch.func``, as JAX
-    does.  ``ns`` shared slacks ride the tails of xa and u (``nu_ctrl``
+    ``(xa, u, pk) -> xa_next`` (with the u_prev and slack rows), on every
+    route: the exact Lagrangian Hessian traverses it by ``torch.func``, as
+    JAX does, and the line search, the stale sub-steps and the costate
+    recursion evaluate it.  ``lowering`` is what the fused stage sweep's
+    code generator needs, given only for the continuous map without the
+    u_prev augmentation, slacks or user rows.  A ``LinearModel``, a
+    collocated OCP and a ContForm OCP with slacks have neither a sweep nor
+    a lowering.  ``ns`` shared slacks ride the tails of xa and u (``nu_ctrl``
     inputs before them); ``n_tc`` terminal equality rows hold x_N[:n_tc]
     at ``tc_target(p)`` (B, n_tc); ``eq`` gives the ``n_eq`` stage
     equality rows on one point.
@@ -617,8 +640,12 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             return (_dense(torch.div, xf, s_x), A, Bm, qv, _dense(torch.mul, gq, s_z),
                     _dense(torch.mul, Hq, s_z[:, None] * s_z[None, :]))
 
+        # the generic map beside the sweep: the exact Hessian's route (JAX
+        # riccati.py:1150-1155, make_stage_derivs through _cont_step, :331-341,
+        # 376-380), the line search's trial rollouts and the costate
+        # recursion's Jacobian (JAX :1273-1279)
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
-                             stage_cf=stage_cf)
+                             stage_cf=stage_cf, dyn=dyn_s)
 
     m = cfg.model
     if isinstance(m, LinearModel):
@@ -634,7 +661,12 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     Bd = (np.asarray(cfg.dist.Bd, float)
           if cfg.dist.offree == "lin" and cfg.dist.Bd is not None else None)
     lin_par = cfg.LinPar
-    exact = {}
+    # the one-interval map beside the sweep, on every route (JAX riccati.py:
+    # 376-390, dyn_s :559-560): the model's step (RK4 on the guarded state,
+    # + Bd d, + px; or the discrete map), then the u_prev and slack slots.
+    # The exact Lagrangian Hessian traverses it by torch.func, as JAX's
+    # generic make_stage_derivs does, unless the fused stage sweep lowers it
+    exact = dict(dyn=dyn_s)
     if isinstance(m, DiscreteModel):
         from mpc_code_tpu_torch.ops.integrators import map_stage_jac
 
@@ -656,15 +688,10 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             hb = torch.full((x.shape[0],), h, dtype=x.dtype, device=x.device)
             return sweep(x, u, p["px"], p["t"], hb, p["d"])
 
-        if not du_coupled:
-            # the one-interval map the exact Lagrangian Hessian traverses:
-            # the model's RK4 on the guarded state, + Bd d, + px (JAX
-            # riccati.py:376-390, dyn_s :559-560), the same t at every
-            # stage, with the slack slots
-            exact = dict(dyn=dyn_s)
         if not (du_coupled or slacks or ng_user or nh_user):
-            # ... and, for the stage functions the fused stage sweep
-            # lowers, their raw forms (JAX's generic route takes the rest)
+            # the stage functions the fused stage sweep lowers, in their raw
+            # forms: the continuous map without the u_prev augmentation
+            # (JAX's generic route takes the rest)
             def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
                 return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
                                             lam=lam, py=py, py0=py0))
@@ -734,10 +761,6 @@ def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
     if skip_cost and not skip_dyn:
         raise ValueError("skip_cost implies skip_dyn (the ContForm joint "
                          "sweep provides both)")
-    if not skip_dyn and s.dyn is None:
-        raise _todo("the full stage sweep (and the exact Hessian) for the "
-                    "discrete map, ContForm and the u_prev augmentation",
-                    "Queue 1 item 21(c)")
     nxa, ni, n_eq = s.nxa, s.ni, s.n_eq
     nz = nxa + s.nu
 
@@ -954,6 +977,106 @@ def riccati_bordered(Hs, q, A, B, rd, PN, pN, Cz, hv, rT, *, nxa, nu):
             st(dX), st(dU))
 
 
+def _interleave(a, b):
+    """a[0], b[0], a[1], b[1], ... along dim 1; a has as many entries as b
+    or one more."""
+    out = a.new_empty(a.shape[:1] + (a.shape[1] + b.shape[1],) + a.shape[2:])
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out
+
+
+def associative_scan(fn, elems, reverse=False):
+    """``jax.lax.associative_scan`` along dim 1 of each tensor of the tuple
+    ``elems``, with the same pairing, so that the rounding follows JAX's:
+    adjacent pairs are combined, the pairs scanned by recursion, and the
+    even entries filled in from the odd ones.  ``fn(a, b)`` gets tuples of
+    slices, ``a`` the earlier entries; with ``reverse`` the sequence is
+    flipped first and the result flipped back, so ``a`` holds the higher
+    original index, as in JAX."""
+    if reverse:
+        elems = tuple(e.flip(1) for e in elems)
+
+    def scan(el):
+        n = el[0].shape[1]
+        if n < 2:
+            return el
+        odd = scan(fn(tuple(e[:, 0:n - 1:2] for e in el), tuple(e[:, 1::2] for e in el)))
+        rest = tuple(e[:, 2::2] for e in el)
+        even = fn(tuple(o[:, :-1] for o in odd) if n % 2 == 0 else odd, rest)
+        even = tuple(torch.cat([e[:, :1], r], 1) for e, r in zip(el, even))
+        return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+    out = scan(tuple(elems))
+    return tuple(o.flip(1) for o in out) if reverse else out
+
+
+def riccati_parallel(Hs, q, A, B, rd, PN, pN, *, nxa):
+    """The associative-scan Riccati of ``parallel=True`` (JAX riccati.py:
+    1591-1677 and the forward scan :1736-1750), for a batch of lanes.
+
+    Each stage, u eliminated, is an element of the parallel LQT value
+    function recursion (Sarkka & Garcia-Fernandez, 'Temporal
+    Parallelization of Dynamic Programming'):
+        Ae = A - B Huu^-1 Hux      be = r - B Huu^-1 qu
+        Ce = B Huu^-1 B'           Je = Hxx - Hxu Huu^-1 Hux
+        eta = -(qx - Hxu Huu^-1 qu)
+    with the terminal element (0, 0, 0, -pN, PN).  A reverse inclusive scan
+    of these gives (P_k, p_k) = (J_{k..N}, -eta_{k..N}) at every k in
+    O(log N) depth; the gains follow stage by stage, and the rollout is an
+    associative scan of the affine maps dx -> (A + B K) dx + r + B kf.  JAX
+    runs this outside any Pallas kernel, as batched small products and
+    solves, and so does the port, in plain PyTorch: the merges' solves go
+    through ``ops/smalllin.py``.  Returns (ok (B,), Ks, kf, P_seq, p_seq,
+    dX (B, N+1, nxa), dU)."""
+    Bsz, N = Hs.shape[:2]
+    eye = _eye(nxa, Hs)
+    Huu, Hxu, Hxx = Hs[..., nxa:, nxa:], Hs[..., :nxa, nxa:], Hs[..., :nxa, :nxa]
+    qx, qu = q[..., :nxa], q[..., nxa:]
+    L = chol(Huu)
+    ok = _finite(L)
+    Hi_ux = cho_solve(L, _tr(Hxu))          # Huu^-1 Hux
+    Hi_qu = cho_solve(L, qu)
+    Hi_Bt = cho_solve(L, _tr(B))            # Huu^-1 B'
+    zx = Hs.new_zeros((Bsz, 1, nxa))
+    zxx = Hs.new_zeros((Bsz, 1, nxa, nxa))
+    elems = (torch.cat([A - B @ Hi_ux, zxx], 1),
+             torch.cat([rd - _mv(B, Hi_qu), zx], 1),
+             torch.cat([_sym(B @ Hi_Bt), zxx], 1),
+             torch.cat([-(qx - _mv(Hxu, Hi_qu)), -pN[:, None]], 1),
+             torch.cat([_sym(Hxx - Hxu @ Hi_ux), PN[:, None]], 1))
+
+    def comp(e1, e2):
+        # e1 the earlier window (i -> j), e2 the later (j -> l)
+        A1, b1, C1, n1, J1 = e1
+        A2, b2, C2, n2, J2 = e2
+        sol = solve_lu(eye + C1 @ J2,
+                       torch.cat([A1, (b1 + _mv(C1, n2))[..., None], C1], -1))
+        MA1, Mb, MC1 = sol[..., :nxa], sol[..., nxa], sol[..., nxa + 1:]
+        sol2 = solve_lu(eye + J2 @ C1,
+                        torch.cat([(n2 - _mv(J2, b1))[..., None], J2 @ A1], -1))
+        return (A2 @ MA1, _mv(A2, Mb) + b2, _sym(A2 @ MC1 @ _tr(A2) + C2),
+                _mv(_tr(A1), sol2[..., 0]) + n1, _sym(_tr(A1) @ sol2[..., 1:] + J1))
+
+    # the reverse scan feeds fn(higher index, lower index); comp takes
+    # (earlier, later): swapped, as in JAX riccati.py:1659-1662
+    suf = associative_scan(lambda a, b: comp(b, a), elems, reverse=True)
+    P_nxt, p_nxt = suf[4][:, 1:], -suf[3][:, 1:]
+    Bt = _tr(B)
+    Lf = chol(Huu + Bt @ P_nxt @ B)
+    ok = ok & _finite(Lf)
+    Ks = -cho_solve(Lf, _tr(Hxu) + Bt @ P_nxt @ A)
+    kf = -cho_solve(Lf, qu + _mv(Bt, _mv(P_nxt, rd) + p_nxt))
+
+    def acomp(a, b):
+        (Ma, va), (Mb, vb) = a, b
+        return Mb @ Ma, _mv(Mb, va) + vb
+
+    vc = associative_scan(acomp, (A + B @ Ks, rd + _mv(B, kf)))[1]
+    dX = torch.cat([zx, vc], 1)
+    return ok, Ks, kf, P_nxt, p_nxt, dX, kf + _mv(Ks, dX[:, :N])
+
+
 def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions(),
                            parallel: bool = False) -> Callable:
     """Build ``solve(p, X0, U0, max_iter=None, ws=None) -> StructResult``
@@ -965,38 +1088,43 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     ``ws`` is the cross-solve dual/barrier warm start of the closed loop: a
     dict with ``zl``, ``zu`` (B, N, nxa+nu+ni), ``lam`` (B, N, nxa), ``nus``
     (B, N, ni), ``mu``, ``sf`` and ``ok`` (B,), the previous step's result
-    shifted one stage; a lane with ``ok`` False starts cold."""
+    shifted one stage; a lane with ``ok`` False starts cold.
+
+    ``parallel=True`` takes the associative-scan Riccati
+    (``riccati_parallel``) in place of the Riccati KKT kernel, with a
+    permanent 1e-6 floor on the regularisation of the whole stage Hessian
+    (JAX riccati.py:1103-1117, 1584-1589)."""
+    if opts.mu_strategy not in ("monotone", "adaptive", "mehrotra"):
+        raise ValueError(f"unknown mu_strategy {opts.mu_strategy!r}: "
+                         "use 'monotone', 'adaptive' or 'mehrotra'")
+    if opts.ls_mode not in ("backtrack", "adaptive"):
+        raise ValueError(f"unknown ls_mode {opts.ls_mode!r}: "
+                         "use 'backtrack' or 'adaptive'")
+    if opts.hessian not in ("exact", "gauss_newton"):
+        raise ValueError(f"unknown hessian {opts.hessian!r}: "
+                         "use 'exact' or 'gauss_newton'")
     N, nxa, nu, ni = s.N, s.nxa, s.nu, s.ni
     nz = nxa + nu
     n_tc, n_eq = s.n_tc, s.n_eq
     termcons = n_tc > 0    # terminal equality: the terminal-multiplier recursion
     eqcons = n_eq > 0      # stage equalities: the bordered-stage recursion
-    if parallel:
-        if termcons or eqcons:
-            raise ValueError("TermCons / stage equalities (H_eq) are not "
-                             "supported with the parallel-scan Riccati variant; "
-                             "use the sequential default")
-        raise _todo("the associative-scan Riccati (parallel=True)",
-                    "Queue 1 item 21(b)")
-    if opts.mu_strategy != "monotone":
-        raise _todo(f"mu_strategy={opts.mu_strategy!r}", "Queue 1 item 21(b)")
-    if opts.ls_mode != "adaptive":
-        raise _todo(f"ls_mode={opts.ls_mode!r}", "Queue 1 item 21(b)")
-    if opts.hessian not in ("exact", "gauss_newton"):
-        raise ValueError(f"unknown hessian {opts.hessian!r}: "
-                         "use 'exact' or 'gauss_newton'")
-    exact = opts.hessian == "exact"
-    if exact and s.dyn is None:
-        raise _todo("hessian='exact' for the discrete map, ContForm and the "
-                    "u_prev augmentation", "Queue 1 item 21(c)")
-    if opts.ls_parallel:
-        raise _todo("ls_parallel", "Queue 1 item 21(b)")
-    if int(opts.sweep_every) > 1:
-        raise _todo("sweep_every > 1", "Queue 1 item 21(b)")
-    if opts.dual_init != "zero":
-        raise _todo(f"dual_init={opts.dual_init!r}", "Queue 1 item 21(b)")
+    if (termcons or eqcons) and parallel:
+        raise ValueError("TermCons / stage equalities (H_eq) are not "
+                         "supported with the parallel-scan Riccati variant; "
+                         "use the sequential default")
     if opts.debug:
         raise _todo("debug printing", "Queue 1 item 29")
+    exact = opts.hessian == "exact"
+    mehrotra = opts.mu_strategy == "mehrotra"
+    ls_adaptive = opts.ls_mode == "adaptive"
+    # ls_parallel only chooses how backtracking evaluates its trials
+    ls_parallel = opts.ls_parallel and not ls_adaptive
+    sweep_every = max(int(opts.sweep_every), 1)
+    delta_floor = 1e-6 if parallel else 0.0
+    # the held bound pairs of a lane (Mehrotra's average complementarity)
+    lbz_np = np.concatenate([s.lbx, s.lbu, s.lbi])
+    ubz_np = np.concatenate([s.ubx, s.ubu, s.ubi])
+    c_cnt = max(N * int((lbz_np > -1e18).sum() + (ubz_np < 1e18).sum()), 1)
 
     # The route is chosen here, once, from the OCP's structure.
     # Gauss-Newton: the split sweep, dynamics from their kernel and the
@@ -1006,10 +1134,11 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     # comes from the fused stage sweep, with the iterate's multipliers (JAX
     # riccati.py:1394-1400); the card has no other path for it, so it
     # always launches its kernel there.  The rest (a LinearModel, a
-    # collocated OCP, and under the exact Hessian the slack, G_ineq and
-    # H_eq forms) takes every output from make_stage_derivs vmapped over
-    # the B*N points, as JAX does outside any Pallas kernel (JAX
-    # riccati.py:1150-1155, 1396-1398).
+    # collocated OCP, and under the exact Hessian the discrete map,
+    # ContForm, the u_prev augmentation and the slack, G_ineq and H_eq
+    # forms) takes every output from make_stage_derivs vmapped over the B*N
+    # points, as JAX does outside any Pallas kernel (JAX riccati.py:
+    # 1150-1155, 1396-1398).
     fast_cf = s.stage_cf is not None and not exact
     split = (s.stage_dyn_jac is not None and not exact) or fast_cf
     fused = None
@@ -1031,6 +1160,19 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     def _cN(xx, pN):
         return pN["_sf"] * s.cost_N(xx, pN)
 
+    def _dyn(zz, pk):
+        return s.dyn(zz[:nxa], zz[nxa:], pk)
+
+    def _vals(zz, pk):
+        # primal values and cost gradient only, for the stale-derivative
+        # sub-steps (JAX riccati.py:1402-1418)
+        out = (grad(_cstage)(zz, pk), _dyn(zz, pk))
+        if ni:
+            out += (s.ineq(zz[:nxa], zz[nxa:], pk),)
+        if eqcons:
+            out += (s.eq(zz[:nxa], zz[nxa:], pk),)
+        return out
+
     v_cost = vmap(_cstage)
     v_grad_c0 = vmap(grad(lambda zz, pk: s.cost(zz[:nxa], zz[nxa:], pk)))
     v_cost_N = vmap(_cN)
@@ -1038,6 +1180,12 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     v_hess_N = vmap(hessian(_cN))
     v_grad_N0 = vmap(grad(lambda xx, pN: s.cost_N(xx, pN)))
     v_ineq = vmap(lambda zz, pk: s.ineq(zz[:nxa], zz[nxa:], pk)) if ni else None
+    v_eq = vmap(lambda zz, pk: s.eq(zz[:nxa], zz[nxa:], pk)) if eqcons else None
+    v_dyn = vmap(_dyn)
+    v_vals = vmap(_vals)
+    # the dynamics' Jacobian in x by reverse mode (forward mode gave f64
+    # Jacobians for f32 inputs, ROADMAP Queue 3, F9 and F12)
+    v_dyn_x = vmap(lambda zz, pk: jacrev(_dyn)(zz, pk)[:, :nxa])
 
     def _mdiv(num, den, mask):
         return torch.where(mask, num / torch.where(mask, den, torch.ones_like(den)),
@@ -1068,6 +1216,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         lbz = torch.cat([lbx, lbu, lbi])
         ubz = torch.cat([ubx, ubu, ubi])
         hlz, huz = lbz > -INF, ubz < INF
+        nzs = lbz.shape[0]
         eye_nz = torch.eye(nz, **kw)
         eye_x = torch.eye(nxa, **kw)
 
@@ -1121,6 +1270,26 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         zl0, zu0 = dual_init(mkZ(X_init, U_init, S_init), lbz, ubz, hlz, huz)
         lam0 = torch.zeros((Bsz, N, nxa), **kw)
         nus0 = torch.zeros((Bsz, N, ni), **kw)
+        if opts.dual_init == "costate":
+            # the adjoint recursion at the warm start's rollout, the
+            # stagewise least-squares stationarity solution for the defect
+            # multipliers: lam_k = qx_{k+1} + A_{k+1}' lam_{k+1}, lam_{N-1} =
+            # grad Vfin (JAX riccati.py:1264-1295); g0 and gN0 from the
+            # scaling probe, and one dynamics-Jacobian sweep
+            if s.stage_dyn_jac is not None:
+                A_i = s.stage_dyn_jac(X_init[:, :N], U_init, p)[1]
+            else:
+                A_i = v_dyn_x(Zs0, pk).reshape(Bsz, N, nxa, nxa)
+            qx = sf[:, None, None] * g0.reshape(Bsz, N, nz)[..., :nxa]
+            lam_k = sf[:, None] * gN0
+            lams = [lam_k]
+            for k in range(N - 1, 0, -1):
+                lam_k = qx[:, k] + _mv(_tr(A_i[:, k]), lam_k)
+                lams.append(lam_k)
+            lam_ls = _nan0(torch.stack(lams[::-1], 1))
+            # IPOPT-style safeguard, per lane: an exploding least-squares
+            # solution (an ignited rollout) is worse than the zero init
+            lam0 = torch.where(_lane(_amax(lam_ls.abs()) < 1e4, lam_ls), lam_ls, lam0)
         if ws is not None:
             # cross-solve dual/barrier warm start (the closed loop's regime,
             # JAX riccati.py:1296-1330).  The carried duals are in the
@@ -1153,7 +1322,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         full = lambda v: torch.full((Bsz,), v, **kw)  # noqa: E731
         st = dict(
             X=X_init, U=U_init, S=S_init, lam=lam0, nus=nus0,
-            zl=zl0, zu=zu0, mu=mu0, nu_pen=full(1.0), delta=full(0.0),
+            zl=zl0, zu=zu0, mu=mu0, nu_pen=full(1.0), delta=full(delta_floor),
             it=torch.zeros(Bsz, dtype=torch.int32, device=dev),
             done=torch.zeros(Bsz, dtype=torch.bool, device=dev),
             kkt0=full(float("inf")), feas=full(float("inf")),
@@ -1163,9 +1332,13 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             bkkt=full(float("inf")), bfeas=full(float("inf")),
         )
 
-        def total_cost(X, U):
-            Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
-            return v_cost(Zs, pk).reshape(Bsz, N).sum(1) + v_cost_N(X[:, N], pN)
+        def lane_sum(a):
+            return a.flatten(1).sum(1)
+
+        def total_cost(X, U, pk_=pk, pN_=pN):
+            n_l = X.shape[0]
+            Zs = torch.cat([X[:, :N], U], dim=-1).reshape(n_l * N, nz)
+            return v_cost(Zs, pk_).reshape(n_l, N).sum(1) + v_cost_N(X[:, N], pN_)
 
         def bar_of(Z):
             one = torch.ones_like(Z)
@@ -1173,7 +1346,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                                                         min=tiny)), 0.0)
             tu = torch.where(huz, torch.log(torch.clamp(torch.where(huz, ubz - Z, one),
                                                         min=tiny)), 0.0)
-            return tl.flatten(1).sum(1) + tu.flatten(1).sum(1)
+            return lane_sum(tl) + lane_sum(tu)
 
         def sweep(st):
             """H, gc, A, Bm, E, ival, dval, Cz, hval at the iterate, and qv,
@@ -1213,12 +1386,44 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                         if eqcons else no_eq)
             return H, gc, A, Bm, E, ival, dval, Cz, hval, qv
 
+        def values(st):
+            """gc, ival, dval, hval at the iterate without derivatives: the
+            stale-derivative sub-steps' re-evaluation (JAX riccati.py:
+            1402-1418), by the generic map (no kernel)."""
+            Zs = torch.cat([st["X"][:, :N], st["U"]], dim=-1).reshape(L, nz)
+            out = v_vals(Zs, pk)
+            gc, dval = out[0].reshape(Bsz, N, nz), out[1].reshape(Bsz, N, nxa)
+            ival = out[2].reshape(Bsz, N, ni) if ni else torch.zeros((Bsz, N, 0), **kw)
+            hval = out[-1].reshape(Bsz, N, n_eq) if eqcons else torch.zeros((Bsz, N, 0), **kw)
+            return gc, ival, dval, hval
+
+        def residuals(X, U, S, pk_, tgt):
+            """r_d, r_i, r_T, r_h at a trial point of n_l lanes (JAX
+            riccati.py:1351-1363): one rollout of the generic map."""
+            n_l = X.shape[0]
+            Zs = torch.cat([X[:, :N], U], dim=-1).reshape(n_l * N, nz)
+            r_d = v_dyn(Zs, pk_).reshape(n_l, N, nxa) - X[:, 1:]
+            r_i = (v_ineq(Zs, pk_).reshape(n_l, N, ni) - S if ni
+                   else X.new_zeros((n_l, N, 0)))
+            r_T = X[:, N, :n_tc] - tgt if termcons else X.new_zeros((n_l, 0))
+            r_h = (v_eq(Zs, pk_).reshape(n_l, N, n_eq) if eqcons
+                   else X.new_zeros((n_l, N, 0)))
+            return r_d, r_i, r_T, r_h
+
+        def capped(*rs):
+            # the residuals' l1 norm with overflow capped and NaN as 0
+            out = 0
+            for r in rs:
+                out = out + lane_sum(torch.nan_to_num(r, posinf=1e30, neginf=-1e30).abs())
+            return out
+
         def ipm_step(st, H, gc, A, Bm, E, ival, dval, Cz, hval, qv):
             X, U, S = st["X"], st["U"], st["S"]
             lam, nus, zl, zu = st["lam"], st["nus"], st["zl"], st["zu"]
             xi, mu_h = st["xi"], st["mu_h"]
             mu_c = st["mu"]
             Z = mkZ(X, U, S)
+            one = torch.ones_like(Z)
             r_d = dval - X[:, 1:]
             r_i = ival - S
             r_T = X[:, N, :n_tc] - tc_tgt if termcons else X.new_zeros((Bsz, 0))
@@ -1284,9 +1489,37 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                                                        mu_c ** _THETA_MU),
                                          min=opts.tol / 10.0),
                              mu_c)
-            mu_z = _lane(mu, Z)
+            if opts.mu_strategy == "adaptive":
+                # the LOQO centrality rule (IPOPT mu_strategy=adaptive,
+                # quality_function=loqo; JAX riccati.py:1523-1539): mu =
+                # sigma * the average complementarity, sigma = 0.1 min(0.05
+                # (1-xi)/xi, 2)^3 with the centrality xi = min_i c_i / avg c_i
+                # over one lane's bound products
+                cv = torch.cat([torch.where(hlz, cl_c, torch.nan).flatten(1),
+                                torch.where(huz, cu_c, torch.nan).flatten(1)], 1)
+                cm = torch.isfinite(cv)
+                m_cnt = cm.sum(1)
+                avg_c = (torch.where(cm, cv, 0.0).sum(1)
+                         / torch.clamp(m_cnt, min=1).to(dtype))
+                xi_c = (torch.where(cm, cv, inf).amin(1)
+                        / torch.clamp(avg_c, min=tiny))
+                sigma = 0.1 * torch.clamp(0.05 * (1.0 - xi_c) / torch.clamp(xi_c, min=1e-6),
+                                          max=2.0) ** 3
+                mu_ad = torch.clamp(sigma * avg_c, opts.tol / 10.0, 1e4)
+                mu = torch.where(m_cnt > 0, mu_ad, mu)
 
-            # barrier sigmas and gradient on the merged Z layout
+            # barrier sigmas on the merged Z layout; the barrier gradient is
+            # built per direction from componentwise complementarity targets
+            # (numerators), so that the Mehrotra corrector can inject its
+            # second-order terms
+            def bg_of(tl, tu):
+                return _mdiv(tl * one, Z - lbz, hlz) - _mdiv(tu * one, ubz - Z, huz)
+
+            def dz_of(dZc, tl, tu):
+                dzl = torch.where(hlz, -zl + _mdiv(tl * one - zl * dZc, Z - lbz, hlz), 0.0)
+                dzu = torch.where(huz, -zu + _mdiv(tu * one + zu * dZc, ubz - Z, huz), 0.0)
+                return dzl, dzu
+
             sigZ = _mdiv(zl, Z - lbz, hlz) + _mdiv(zu, ubz - Z, huz)
             sigX_stage = torch.cat([torch.zeros((Bsz, 1, nxa), **kw),
                                     sigZ[:, :N - 1, :nxa]], dim=1)
@@ -1298,48 +1531,104 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             Hs = Hs + eye_nz * torch.cat([sigX_stage, sigU], dim=-1)[:, :, None, :]
             PN_h = _dense(torch.add, v_hess_N(X[:, N], pN), torch.diag_embed(sigX_term))
             pN_cost = gradN
+            # the carried regularisation shifts the whole stage Hessian (the
+            # parallel composition needs its windows well posed)
             Hs = Hs + st["delta"][:, None, None, None] * eye_nz
             PN_h = PN_h + st["delta"][:, None, None] * eye_x
 
-            one = torch.ones_like(Z)
-            bgZ = _mdiv(mu_z * one, Z - lbz, hlz) - _mdiv(mu_z * one, ubz - Z, huz)
-            bgS = bgZ[..., nxa + nu:]
+            def direction(bgZ):
+                """One KKT solve for the merged barrier-gradient right-hand
+                side ``bgZ`` (laid out as Z), reusing the mu-independent
+                Hs, PN_h and sigmas (JAX riccati.py:1679-1773)."""
+                bgS = bgZ[..., nxa + nu:]
+                g_extra = torch.einsum("bkia,bki->bka", E, sigS * r_i - bgS)
+                bg_q = torch.cat([torch.cat([torch.zeros((Bsz, 1, nxa), **kw),
+                                             bgZ[:, :N - 1, :nxa]], dim=1),
+                                  bgZ[..., nxa:nxa + nu]], dim=-1)
+                q = gc + g_extra - bg_q
+                pN_g = pN_cost - bgZ[:, N - 1, :nxa]
+                # the KKT solve (JAX riccati.py:1703-1734): with TermCons or
+                # H_eq the bordered recursion, plain PyTorch for JAX's three
+                # (JAX has no Pallas kernel for them); parallel=True the
+                # associative scan, plain PyTorch as JAX's; else kernel 2
+                xi_new, mu_h_new = xi, mu_h
+                if termcons or eqcons:
+                    (solvable, Ks, kf, P_seq, p_seq, F_seq, xi_new, mu_seq,
+                     dX, dU) = riccati_bordered(Hs, q, A, Bm, r_d, PN_h, pN_g, Cz, r_h,
+                                                r_T, nxa=nxa, nu=nu)
+                elif parallel:
+                    solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_parallel(
+                        Hs, q, A, Bm, r_d, PN_h, pN_g, nxa=nxa)
+                else:
+                    solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
+                        Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw),
+                        nxa=nxa, nu=nu)
+                if termcons:
+                    xi_new = torch.where(_lane(solvable, xi_new), xi_new, xi)
+                if eqcons:
+                    mu_h_new = torch.where(_lane(solvable, mu_seq), _nan0(mu_seq), mu_h)
+                dX, dU = _nan0(dX), _nan0(dU)
+                dS = torch.einsum("bkia,bka->bki", E,
+                                  torch.cat([dX[:, :N], dU], dim=-1)) + r_i
+                dnu = _nan0(sigS * dS - (nus + bgS))
+                # defect multipliers lam_k = P_{k+1} dx_{k+1} + p_{k+1} (+ F' xi)
+                lam_new = torch.einsum("bkij,bkj->bki", P_seq, dX[:, 1:]) + p_seq
+                if termcons:
+                    lam_new = lam_new + torch.einsum("bkia,bi->bka", F_seq, xi_new)
+                lam_new = _nan0(lam_new)
+                lam_new = torch.where(_lane(solvable, lam_new), lam_new, lam)
+                return (solvable, dX, dU, dS, dnu, lam_new, xi_new, mu_h_new,
+                        q, g_extra, pN_g)
 
-            # one KKT solve
-            g_extra = torch.einsum("bkia,bki->bka", E, sigS * r_i - bgS)
-            bg_q = torch.cat([torch.cat([torch.zeros((Bsz, 1, nxa), **kw),
-                                         bgZ[:, :N - 1, :nxa]], dim=1),
-                              bgZ[..., nxa:nxa + nu]], dim=-1)
-            q = gc + g_extra - bg_q
-            pN_g = pN_cost - bgZ[:, N - 1, :nxa]
-            # the KKT solve (JAX riccati.py:1703-1730): with TermCons or H_eq
-            # the bordered recursion, plain PyTorch for JAX's three (JAX has
-            # no Pallas kernel for them); else kernel 2
-            xi_new, mu_h_new = xi, mu_h
-            if termcons or eqcons:
-                (solvable, Ks, kf, P_seq, p_seq, F_seq, xi_new, mu_seq,
-                 dX, dU) = riccati_bordered(Hs, q, A, Bm, r_d, PN_h, pN_g, Cz, r_h, r_T,
-                                            nxa=nxa, nu=nu)
+            if mehrotra:
+                # Mehrotra predictor-corrector (JAX riccati.py:1785-1838): the
+                # affine predictor, a pure primal-dual Newton step (zero
+                # complementarity targets), then the corrector
+                zero = torch.zeros_like(mu)
+                _, dXa, dUa, dSa = direction(torch.zeros((Bsz, N, nzs), **kw))[:4]
+                dZa = torch.cat([dXa[:, 1:], dUa, dSa], dim=-1)
+                dzl_a, dzu_a = dz_of(dZa, _lane(zero, Z), _lane(zero, Z))
+                # the step lengths to the boundary (tau = 1)
+                neg, pos = dZa < 0, dZa > 0
+                al1 = torch.where(hlz & neg, -(Z - lbz) / torch.where(neg, dZa, -one), inf)
+                au1 = torch.where(huz & pos, (ubz - Z) / torch.where(pos, dZa, one), inf)
+                a_p = torch.clamp(torch.minimum(_amin(al1), _amin(au1)), max=1.0)
+                nl, nu_ = dzl_a < 0, dzu_a < 0
+                a_d = torch.clamp(torch.minimum(
+                    _amin(torch.where(nl, -zl / torch.where(nl, dzl_a, -one), inf)),
+                    _amin(torch.where(nu_, -zu / torch.where(nu_, dzu_a, -one), inf))),
+                    max=1.0)
+                # the average complementarity now and at the affine probe
+
+                def comp_sum(ap, ad):
+                    Zp = Z + _lane(ap, Z) * dZa
+                    ad_z = _lane(ad, Z)
+                    gl = torch.where(hlz, Zp - lbz, 0.0)
+                    gu = torch.where(huz, ubz - Zp, 0.0)
+                    return lane_sum(gl * (zl + ad_z * dzl_a)) + lane_sum(gu * (zu + ad_z * dzu_a))
+
+                mu_avg = comp_sum(zero, zero) / c_cnt
+                mu_aff = comp_sum(a_p, a_d) / c_cnt
+                sigma_m = torch.clamp((mu_aff / torch.clamp(mu_avg, min=tiny)) ** 3, 0.0, 1.0)
+                mu = torch.clamp(sigma_m * mu_avg, opts.tol / 10.0, 1e4)
+                mu_z = _lane(mu, Z)
+                # corrector targets mu - dprim dz_aff (lower), mu + dprim
+                # dz_aff (upper), held within [0.01 mu, 100 mu]: unbounded
+                # second-order terms destabilise f32 lanes far from the
+                # central path
+                lo_t, hi_t = 0.01 * mu_z, 100.0 * mu_z
+                tl = torch.minimum(torch.maximum(mu_z + (-dZa * dzl_a), lo_t), hi_t)
+                tu = torch.minimum(torch.maximum(mu_z + dZa * dzu_a, lo_t), hi_t)
             else:
-                solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
-                    Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw), nxa=nxa, nu=nu)
-            if termcons:
-                xi_new = torch.where(_lane(solvable, xi_new), xi_new, xi)
-            if eqcons:
-                mu_h_new = torch.where(_lane(solvable, mu_seq), _nan0(mu_seq), mu_h)
-            dX, dU = _nan0(dX), _nan0(dU)
-            dS = torch.einsum("bkia,bka->bki", E,
-                              torch.cat([dX[:, :N], dU], dim=-1)) + r_i
-            dnu = _nan0(sigS * dS - (nus + bgS))
-            # defect multipliers lam_k = P_{k+1} dx_{k+1} + p_{k+1} (+ F' xi)
-            lam_new = torch.einsum("bkij,bkj->bki", P_seq, dX[:, 1:]) + p_seq
-            if termcons:
-                lam_new = lam_new + torch.einsum("bkia,bi->bka", F_seq, xi_new)
-            lam_new = _nan0(lam_new)
-            lam_new = torch.where(_lane(solvable, lam_new), lam_new, lam)
+                mu_z = _lane(mu, Z)
+                tl = tu = mu_z
+            bgZ = bg_of(tl, tu)
+            (solvable, dX, dU, dS, dnu, lam_new, xi_new, mu_h_new,
+             q, g_extra, pN_g) = direction(bgZ)
+            bgS = bgZ[..., nxa + nu:]
             dlam = lam_new - lam
 
-            # fraction to boundary + adaptive step controller
+            # fraction to boundary
             tau = torch.clamp(1.0 - mu, min=_TAU_MIN)
             tau_z = _lane(tau, Z)
             dZ = torch.cat([dX[:, 1:], dU, dS], dim=-1)
@@ -1350,8 +1639,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                              / torch.where(pos, dZ, one), inf)
             alpha_max = torch.clamp(torch.minimum(_amin(al), _amin(au)), max=1.0)
 
-            dzl = torch.where(hlz, -zl + _mdiv(mu_z * one - zl * dZ, Z - lbz, hlz), 0.0)
-            dzu = torch.where(huz, -zu + _mdiv(mu_z * one + zu * dZ, ubz - Z, huz), 0.0)
+            # dual steps towards the (componentwise) complementarity targets
+            dzl, dzu = dz_of(dZ, tl, tu)
 
             def ftb_dual(zv, dzv):
                 n_ = dzv < 0
@@ -1374,16 +1663,29 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                 cost0 = total_cost(X, U)
             psi0 = cost0 - mu * bar_of(Z) + nu_pen * c_norm
             slack_tol = 10.0 * torch.finfo(dtype).eps * (psi0.abs() + 1.0)
-            psi0_c = torch.where(torch.isnan(psi0), inf, psi0)
-            increased = (~torch.isfinite(psi0_c)) | (psi0_c > st["psi_prev"] + slack_tol)
-            acap_n = torch.where(increased,
-                                 torch.clamp(st["acap"] * 0.25, min=0.5 ** _MAX_BACKTRACK),
-                                 torch.ones_like(psi0))
-            alpha = torch.where(solvable, alpha_max * acap_n, torch.zeros_like(psi0))
+
+            if ls_adaptive:
+                # the rollout-free step controller: the cap quarters when the
+                # merit rose over the last iteration, and resets on a decrease
+                psi0_c = torch.where(torch.isnan(psi0), inf, psi0)
+                increased = (~torch.isfinite(psi0_c)) | (psi0_c > st["psi_prev"] + slack_tol)
+                acap_n = torch.where(increased,
+                                     torch.clamp(st["acap"] * 0.25, min=0.5 ** _MAX_BACKTRACK),
+                                     torch.ones_like(psi0))
+                alpha = alpha_max * acap_n
+                psi_keep = psi0_c
+            else:
+                alpha = line_search(X, U, S, Z, dX, dU, dS, dZ, q, g_extra, pN_g, bgS,
+                                    mu, nu_pen, psi0, c_norm, slack_tol, alpha_max,
+                                    st["kkt0"] < 1e-5, (r_d, r_i, r_T, r_h))
+                acap_n, psi_keep = st["acap"], st["psi_prev"]
+            alpha = torch.where(solvable, alpha, torch.zeros_like(psi0))
             delta = st["delta"]
-            delta_n = torch.where(solvable,
-                                  torch.clamp(delta / 2.0, min=0.0) * (delta > 1e-9),
-                                  torch.clamp(delta * 10.0, min=1e-5))
+            if parallel:
+                delta_kept = torch.clamp(delta / 2.0, min=delta_floor)
+            else:
+                delta_kept = torch.clamp(delta / 2.0, min=0.0) * (delta > 1e-9)
+            delta_n = torch.where(solvable, delta_kept, torch.clamp(delta * 10.0, min=1e-5))
 
             a_x = _lane(alpha, X)
             X_n = torch.cat([X[:, :1], X[:, 1:] + a_x * dX[:, 1:]], dim=1)
@@ -1405,7 +1707,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                        mu_h=mu_h + a_x * (mu_h_new - mu_h),
                        nu_pen=nu_pen, delta=delta_n, it=st["it"] + 1,
                        done=torch.zeros_like(st["done"]), kkt0=e_0, feas=feas,
-                       psi_prev=psi0_c, acap=acap_n,
+                       psi_prev=psi_keep, acap=acap_n,
                        bX=bX_n, bU=bU_n, bS=bS_n, bkkt=bkkt_n, bfeas=bfeas_n)
             # a lane that converged at this point keeps its iterate
             stay = dict(st, done=torch.ones_like(st["done"]), kkt0=e_0, feas=feas,
@@ -1413,12 +1715,89 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             return {k: torch.where(_lane(done_now, new[k]), stay[k], new[k])
                     for k in new}
 
+        def line_search(X, U, S, Z, dX, dU, dS, dZ, q, g_extra, pN_g, bgS, mu, nu_pen,
+                        psi0, c_norm, slack_tol, alpha_max, near_opt, res0):
+            """The step of ls_mode='backtrack' (JAX riccati.py:1925-1991): the
+            first alpha_max 0.5^e(j), e(j) = j + max(j - 4, 0), j < 12, whose
+            trial point lowers the merit enough (Armijo), or, where the merit
+            overflowed, the residuals by 1%; alpha_max 0.5^20 when none does,
+            alpha_max at once near the optimum."""
+            # the a = 0 point's residuals are those of the sweep: no rollout
+            c_norm_capped = capped(*res0)
+            psi0_finite = torch.isfinite(psi0)
+            dphi = (lane_sum((q - g_extra) * torch.cat([dX[:, :N], dU], dim=-1))
+                    + (pN_g * dX[:, N]).sum(-1) - lane_sum(bgS * dS))
+            dpsi = dphi - nu_pen * c_norm
+
+            def trial_ok(a):
+                """Whether each trial step a (n_t, B) is accepted: one
+                residual rollout of every (trial, lane) at once, flattened to
+                n_t * B lanes (reductions per lane, so that a trial's outcome
+                is the same whether it is evaluated alone or with others)."""
+                n_t = a.shape[0]
+
+                def rep(v):
+                    return v if n_t == 1 else v.repeat((n_t,) + (1,) * (v.dim() - 1))
+
+                a_l = a.reshape(n_t * Bsz)
+                aX = a_l[:, None, None]
+                Xt = torch.cat([rep(X[:, :1]), rep(X[:, 1:]) + aX * rep(dX[:, 1:])], 1)
+                Ut = rep(U) + aX * rep(dU)
+                St = rep(S) + aX * rep(dS)
+                pk_t = {k: rep(v) for k, v in pk.items()}
+                pN_t = {k: rep(v) for k, v in pN.items()}
+                r_t = residuals(Xt, Ut, St, pk_t, rep(tc_tgt) if termcons else None)
+                mer = (total_cost(Xt, Ut, pk_t, pN_t) - rep(mu) * bar_of(rep(Z) + aX * rep(dZ))
+                       + rep(nu_pen) * (lane_sum(r_t[0].abs()) + lane_sum(r_t[1].abs())
+                                        + lane_sum(r_t[2].abs()) + lane_sum(r_t[3].abs())))
+                ok_merit = mer <= rep(psi0) + _ETA_LS * a_l * rep(dpsi) + rep(slack_tol)
+                ok_resto = capped(*r_t) <= 0.99 * rep(c_norm_capped)
+                return torch.where(rep(psi0_finite), ok_merit, ok_resto).reshape(n_t, Bsz)
+
+            fallback = alpha_max * 0.5 ** _MAX_BACKTRACK
+            if ls_parallel:
+                # every trial in one batched rollout of (_LS_TRIPS, B) lanes;
+                # the step is the first acceptable one, as the sequential
+                # loop's (JAX riccati.py:1962-1984)
+                alphas = alpha_max[None] * torch.tensor(
+                    [0.5 ** _ls_exp(j) for j in range(_LS_TRIPS)], **kw)[:, None]
+                oks = trial_ok(alphas)
+                any_ok = oks.any(0)
+                first = alphas.gather(0, oks.to(torch.uint8).argmax(0)[None])[0]
+                return torch.where(near_opt, alpha_max,
+                                   torch.where(any_ok, first, fallback))
+            # the trips of JAX's while loop under vmap: every lane's trial at
+            # once, a lane's alpha fixed when it is accepted; the loop ends
+            # when every lane is, after at most _LS_TRIPS trips, at one host
+            # synchronisation a trip (so up to _LS_TRIPS more a pass)
+            accepted = near_opt.clone()
+            alpha = alpha_max.clone()
+            for j in range(_LS_TRIPS):
+                if bool(accepted.all()):
+                    break
+                a = alpha_max * 0.5 ** _ls_exp(j)
+                searching = ~accepted
+                alpha = torch.where(searching, a, alpha)
+                accepted = accepted | (searching & trial_ok(a[None])[0])
+            return torch.where(accepted, alpha, fallback)
+
         it_cap = opts.max_iter if max_iter is None else int(max_iter)
         while True:
             active = (~st["done"]) & (st["it"] < it_cap)
-            if not bool(active.any()):       # one host sync per iteration
+            if not bool(active.any()):       # one host sync per loop pass
                 break
-            cand = ipm_step(st, *sweep(st))
+            sw = sweep(st)
+            cand = ipm_step(st, *sw)
+            # stale-derivative sub-steps (sweep_every = K > 1, JAX riccati.py:
+            # 2043-2061): K-1 modified-Newton steps that reuse H, A, B, E and
+            # Cz with re-evaluated values and cost gradients; a lane done or
+            # at the cap passes through
+            H, _, A, Bm, E, _, _, Cz = sw[:8]
+            for _ in range(sweep_every - 1):
+                gc2, ival2, dval2, hval2 = values(cand)
+                nxt = ipm_step(cand, H, gc2, A, Bm, E, ival2, dval2, Cz, hval2, None)
+                hold = cand["done"] | (cand["it"] >= it_cap)
+                cand = {k: torch.where(_lane(hold, v), v, nxt[k]) for k, v in cand.items()}
             st = {k: torch.where(_lane(active, v), cand[k], v)
                   for k, v in st.items()}
 

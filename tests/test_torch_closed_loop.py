@@ -181,9 +181,9 @@ def test_dense_loop_matches_jax():
 
 def test_unported_features_raise():
     """The host loop, the hand-off from the host ``MHERuntime``, modifier
-    adaptation and collocation run since they were ported; what is still
-    unported raises with its ROADMAP item: the associative-scan Riccati
-    (``parallel=True``) and another structured-solver option (item 21) and
+    adaptation, collocation and every structured-solver option (item 21:
+    the associative-scan Riccati, ``mu_strategy='adaptive'``) run since
+    they were ported; what is still unported raises with its ROADMAP item:
     ``SolverOptions.debug`` (item 29)."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples.nmpc import make_config
@@ -195,11 +195,9 @@ def test_unported_features_raise():
     cfg = make_config().replace(N=N)
     socp = build_structured_ocp(cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
                                 build_terminal_cost(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        make_structured_solver(socp, cfg.sol_opts_dyn, parallel=True)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        make_mpc_step(cfg.replace(sol_opts_dyn=SolverOptions(mu_strategy="adaptive")),
-                      device="cpu")
+    assert callable(make_structured_solver(socp, cfg.sol_opts_dyn, parallel=True))
+    assert callable(make_mpc_step(cfg.replace(sol_opts_dyn=SolverOptions(mu_strategy="adaptive")),
+                                  device="cpu"))
     with pytest.raises(NotImplementedError, match="item 29"):
         ClosedLoop(cfg.replace(sol_opts_ss=SolverOptions(debug=True)), device="cpu")
 

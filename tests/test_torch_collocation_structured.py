@@ -252,7 +252,7 @@ def test_contform_wins_over_collocation():
         par = dict(x0=x0, xs=x0, us=us0, d=np.zeros(cfg.nd), um1=us0, t=0.0,
                    lam=np.zeros((cfg.ny, cfg.nu)), px=np.zeros((N, cfg.npx)),
                    py=np.zeros((N, cfg.npy)))
-        # Gauss-Newton: the ContForm exact Hessian waits for item 21(c)
+        # Gauss-Newton, the Hessian of the ContForm joint sweep
         r = make_structured_solver(socp, SolverOptions(max_iter=120, hessian="gauss_newton"))(
             par, torch.as_tensor(np.tile(x0, (1, N + 1, 1))),
             torch.as_tensor(np.tile(us0, (1, N, 1))))

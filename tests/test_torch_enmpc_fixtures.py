@@ -13,8 +13,8 @@ target by the dense IPM, the plant by RK4.
 - The structured OCP (ContForm, kernel 4's plain version) within the
   structured-vs-dense tolerance of ``tests/test_traced_fidelity.py``
   (rtol 1e-4, atol 1e-5) of the recording, every status equal.  The
-  port's structured ContForm OCP takes the Gauss-Newton Hessian: its exact
-  Hessian is ROADMAP Queue 1 item 21.
+  port's structured ContForm OCP takes the Gauss-Newton Hessian, whose
+  joint sweep the card runs as kernel 4.
 - ``run_traced_checkpointed`` on an MHE loop (the linear configuration of
   ``test_torch_mhe_solve.py`` under 'smooth', 7 steps in segments of 3):
   equal to ``run_traced``, the checkpoint holding the MHE window field by

@@ -115,6 +115,11 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise_with_roadmap_item():
+    """Every option of the structured solver builds since item 21 (the
+    associative scan, the barrier strategies, backtracking, stale sweeps,
+    costate duals, the exact Hessian of the discrete map with the u_prev
+    augmentation); what JAX refuses raises JAX's ValueError, and the debug
+    printing, still unported, names its ROADMAP item (29)."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples import nmpc_dis
     from mpc_code_tpu_torch.examples.nmpc import make_config
@@ -129,13 +134,19 @@ def test_unported_options_raise_with_roadmap_item():
     args = (build_model(cfg), build_stage_cost(cfg.stage_cost),
             build_terminal_cost(cfg))
     socp = build_structured_ocp(cfg, *args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_structured_solver(socp, SolverOptions(), parallel=True)
+    assert callable(make_structured_solver(socp, SolverOptions(), parallel=True))
     # the exact Hessian of the discrete map with the u_prev augmentation
     dcfg = nmpc_dis.make_config()
     dis = build_structured_ocp(dcfg, build_model(dcfg), build_stage_cost(dcfg.stage_cost),
                                build_terminal_cost(dcfg), device="cpu")
     for ocp, kw in ((dis, dict(hessian="exact")), (socp, dict(mu_strategy="mehrotra")),
-                    (socp, dict(hessian="gauss_newton", ls_mode="backtrack"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_structured_solver(ocp, SolverOptions(**kw))
+                    (socp, dict(hessian="gauss_newton", ls_mode="backtrack",
+                                ls_parallel=True)),
+                    (socp, dict(mu_strategy="adaptive", sweep_every=2,
+                                dual_init="costate"))):
+        assert callable(make_structured_solver(ocp, SolverOptions(**kw)))
+    for kw in (dict(mu_strategy="loqo"), dict(ls_mode="filter"), dict(hessian="bfgs")):
+        with pytest.raises(ValueError, match="unknown"):
+            make_structured_solver(socp, SolverOptions(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 29"):
+        make_structured_solver(socp, SolverOptions(debug=True))
