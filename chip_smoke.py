@@ -77,7 +77,13 @@ It never imports JAX or the JAX package.  Phases:
    steps 0 and 1 replayed with their OCP under the profiler for its
    launches per pass;
 9. the bench port (``clb``): ``examples/closed_loop_bench.py`` at its
-   defaults (B=1024, 20 steps, cap 10), its two lines;
+   defaults (B=1024, 20 steps, cap 10), its two lines, built through
+   ``make_closed_loop_runner`` with the tool's AOT key; then the mesh
+   phase (``mesh``): the bench port's configuration on MESH_B lanes for
+   MESH_STEPS steps through the runner on a one-rank NCCL mesh against
+   the unsharded runner (statuses, iterations and U), kernel 2's launches
+   against the OCP solver's passes, ``aggregate_metrics`` over NCCL
+   against the host's count, and ``entry.dryrun_multichip(1)``;
 10. the constrained phase (``constrained``): the bench workload of phase 3
    through three other transcriptions of the CSTR OCP, CONSTRAINED_B lanes, f32:
    Gauss-Legendre collocation condensed within each stage (kernel 2 at
@@ -99,7 +105,13 @@ It never imports JAX or the JAX package.  Phases:
    nmpc_dis and ENMPC workloads with the examples' exact Hessian, the
    CSTR with DUForm): solves/s, ok_fraction, iterations and every
    kernel's launches against the solver's own counts; 8 lanes of each run
-   in f64 on the card held to the CPU's f64 run;
+   in f64 on the card held to the CPU's f64 run; and the autotune run: the
+   sweep autotune's probe of the two Gauss-Newton routes (kernel 1 with
+   ``torch.func``, or kernel 5's Gauss-Newton build) at 16,384 lanes, its
+   cache, and the winner's route with the same checks; then the debug
+   phase (``debug``): ``SolverOptions(debug=True)`` on 2 lanes of the
+   CSTR structured solve and one dense target solve in f64, lanes x passes
+   lines, lane 0's numbers against the CPU f64 run's;
 12. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
@@ -134,11 +146,21 @@ It never imports JAX or the JAX package.  Phases:
    against the CPU's f64 run, then ``carry_from_runtime`` into the batched
    step, B=16384 lanes for HANDOFF_T steady steps, checked as phase 12
    from the handed-off carry;
-15. one ``{"kernels": [...]}`` line, and as the last line
+15. the AOT artifact (``aot``): two processes on the card (started with
+   phase 13's), one after the other, fresh kernel build directories and
+   one fresh artifact directory: the bench port's runner with
+   ``aot_key="auto"``; the second loads the first's kernel library and
+   runs no nvcc, its outputs bitwise equal;
+16. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase exits non-zero without the last line.  With no CUDA
-device, or outside a checkout of the repository, it exits 2.
+The kernel phases and phase 3 run alone on the card.  From there on
+three processes share it: this one (phases 4-10 and the debug phase),
+one for phase 11's solver options and one for phases 13, 12, 14 and 15
+(``PARTS``; each started as ``python3 chip_smoke.py --part ...`` with CPU
+workers of its own), and the check lanes of phases 7 and 12 run in
+processes of their own beside them.  Any failed phase exits non-zero without the last line.
+With no CUDA device, or outside a checkout of the repository, it exits 2.
 """
 
 from __future__ import annotations
@@ -159,7 +181,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 B = 16384                          # lanes of the bench and ENMPC workloads
 N_CHECK = 64                       # lanes cross-checked on the CPU in f64
-CPU_REF_WORKERS = 2                # processes that run the CPU cross-check paths
+CPU_REF_WORKERS = 3                # processes that run the CPU cross-check paths
+                                   # in each of the smoke's processes (PARTS)
 CPU_REF_THREADS = 2                # torch threads in each
 
 TOL_F64 = 1e-10
@@ -253,20 +276,21 @@ ENMPC_PROFILE_STEPS = (10,)
 # fixtures' bar (tests/test_fixtures.py:37); step HOST_PROFILE_STEP of
 # the ENMPC fixture (a full window) under the profiler.  The hand-off
 # (enmpc_handoff): the host warmup of N_mhe + 2 steps in f32 on the card,
-# then HANDOFF_T steady steps of B lanes (the JAX tool runs 20).  The
-# command line's run takes CLI_NSIM steps: both cut to keep the whole
-# smoke, with the constrained phase, under 1,100 s.  The
+# then HANDOFF_T steady steps of B lanes (the JAX tool runs 20; 8, then
+# 6 before).  The command line's run takes CLI_NSIM steps: both cut to
+# keep the whole smoke, with the constrained phase and the mesh, debug and
+# aot phases, under 1,100 s.  The
 # one-lane host runs (the nmpc fixture, the command line, the hand-off's
-# host warmup) each run in a process of their own on the card beside the
-# main process's phases from host_loop on (CARD_WORKERS): each keeps the
-# card busy a few per cent of the time (PERF.md section 5).
+# host warmup) and the enmpc_loop check lanes each run in a process of
+# their own on the card beside the loops' part (CARD_WORKERS): each keeps
+# the card busy a few per cent of the time (PERF.md section 5).
 HOST_FIXTURES = (("enmpc", 8, 8, 5), ("nmpc", 10, 10, None))
 FIXTURE_BAR = 1e-4
 FIXTURE_KEYS = ("Xp", "Yp", "U", "XS", "US", "YS", "X_HAT", "D_HAT")
 HOST_PROFILE_STEP = 6
-HANDOFF_T = 6
+HANDOFF_T = 4
 CLI_NSIM = 1
-CARD_WORKERS = 3
+CARD_WORKERS = 4
 HANDOFF_REF_THREADS = 4            # the continuation's CPU run, alone by then
 CLB_BATCH, CLB_STEPS = 1024, 20    # the bench port's defaults
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -1041,15 +1065,15 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
     """The reference side of a phase's cross-check: the port's plain path
     on the CPU over the first N_CHECK lanes of ``path`` ("slice",
     "enmpc", "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop",
-    "enmpc_loop", "enmpc_handoff", "constrained", "solver_options") in one
+    "enmpc_loop", "enmpc_handoff", "constrained", "solver_options:<run>", "debug") in one
     dtype, with the Riccati ``ok`` flags of every call (for the loops: the
     closed loop's history; "enmpc_handoff" continues from ``carry``, numpy
     arrays, at time ``t0`` and step ``k0``).  "enmpc_handoff_warmup" is the
     hand-off's host warmup through ``ClosedLoop`` on the CPU: (history,
     per-step stats).  "constrained" gives, per run of the constrained
     phase, the check lanes' structured solve and their dense
-    transcription's; "solver_options", per run of that phase, its check
-    lanes' solve.  Returns (results, flags).  It runs
+    transcription's; "solver_options:<run>", that run's check lanes'
+    solve; "debug", the debug phase's lines (``debug_runs``).  Returns (results, flags).  It runs
     in a worker process while the card's phases run (``main``), so it
     imports what it needs itself."""
     if ROOT not in sys.path:
@@ -1069,10 +1093,11 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
             return {name: dict(struct=constrained_check_solve(name, cpu),
                                dense=constrained_dense(name))
                     for name in constrained_runs()}, flags
-        if path == "solver_options":
+        if path.startswith("solver_options:"):
             torch.set_num_threads(1)
-            return {name: options_check_solve(name, cpu)
-                    for name in dict(OPTION_RUNS, **EXACT_RUNS) if name != "default"}, flags
+            return options_check_solve(path.split(":")[1], cpu), flags
+        if path == "debug":
+            return debug_runs(cpu), flags
         if path.startswith("enmpc_handoff"):
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.loop import ClosedLoop
@@ -1420,7 +1445,33 @@ def describe(kinds, st, apart=None):
     return out
 
 
-def loop_phase(dev, loop: Loop, launches, cpu_refs):
+LOOP_WORKLOADS = {"cstr_loop": "closed_loop_workload", "lmpc_loop": "lmpc_loop_workload",
+                  "enmpc_loop": "enmpc_loop_workload"}
+
+
+def check_lanes(step, cfg, c64, nsim, t0=0.0, k0=0):
+    """A closed loop's check lanes from the f64 carry ``c64``: the f64 run
+    of ``nsim`` steps and, from each of its steps' states, one f32 step.
+    Returns their histories (H64, R32) as numpy."""
+    import torch
+
+    from mpc_code_tpu_torch.loop.batched import (
+        cast_carry, history_from_outputs, stack_outputs,
+    )
+    from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
+
+    inputs = make_step_inputs(cfg, nsim, t0=t0, k0=k0)
+    outs64, outs32 = [], []
+    for k in range(nsim):
+        inp = StepInput(*(a[k] for a in inputs))
+        outs32.append(step(cast_carry(c64, torch.float32), inp)[1])
+        c64, out = step(c64, inp)
+        outs64.append(out)
+    return (history_from_outputs(stack_outputs(outs64)),
+            history_from_outputs(stack_outputs(outs32)))
+
+
+def loop_phase(dev, loop: Loop, launches, cpu_refs, card_jobs):
     """A warm batched closed loop (``examples/closed_loop_workload.py``, the
     CSTR NMPC; ``examples/lmpc_loop_workload.py``, the LMPC on the
     nonlinear CSTR plant; ``examples/enmpc_loop_workload.py``, the ENMPC
@@ -1436,10 +1487,8 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
     f64 step."""
     import torch
 
-    from mpc_code_tpu_torch.loop.batched import (
-        cast_carry, history_from_outputs, init_carry, map_carry, stack_outputs,
-    )
-    from mpc_code_tpu_torch.loop.schedules import StepInput, make_step_inputs
+    from mpc_code_tpu_torch.loop.batched import cast_carry, init_carry, map_carry
+    from mpc_code_tpu_torch.loop.schedules import make_step_inputs
 
     failures = []
     name, wl, U_BOX, nsim = loop.name, loop.wl, loop.u_box, loop.nsim
@@ -1576,22 +1625,20 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs):
 
     # the first N_CHECK lanes: the card's f64 run against the CPU f64 run
     # (worker process); from each of its steps' states one f32 step on the
-    # card; the main run's free-running f32 lanes, reported
+    # card; the main run's free-running f32 lanes, reported.  From step 0
+    # the card's side runs in a process of its own (``card_job``
+    # "loop_check", started with the phases beside the kernel phases)
     t0 = time.perf_counter()
     if begin:
         # the handed-off carry's first lanes, cast to f64
         c64 = cast_carry(map_carry(lambda a: a[:N_CHECK], begin["carry"]), torch.float64)
+        H64, R32 = check_lanes(step, cfg, c64, nsim, t_start, k_start)
+    elif ("loop_check", name) in card_jobs:
+        H64, R32, check_s = card_jobs[("loop_check", name)].result()
+        log(f"# {name} check lanes on the card, in a process of their own: {check_s:.1f} s")
     else:
         c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
-    inputs = make_step_inputs(cfg, nsim, t0=t_start, k0=k_start)
-    outs64, outs32 = [], []
-    for k in range(nsim):
-        inp = StepInput(*(a[k] for a in inputs))
-        outs32.append(step(cast_carry(c64, torch.float32), inp)[1])
-        c64, out = step(c64, inp)
-        outs64.append(out)
-    H64 = history_from_outputs(stack_outputs(outs64))
-    R32 = history_from_outputs(stack_outputs(outs32))
+        H64, R32 = check_lanes(step, cfg, c64, nsim, t_start, k_start)
     ref = (begin["ref"] if begin else cpu_refs[(name, "float64")]).result()[0]
     equal_keys = ("STATUS_SS", "STATUS_DYN", "OCP_ITERS")
     err_keys = ("U", "Xp")
@@ -1744,13 +1791,15 @@ def host_fixture(name, nsim, n, n_mhe, profile_step, device):
 
 
 def card_job(job, *args):
-    """A one-lane host run on the card in a process of its own (spawned, so
-    it imports what it needs itself), beside the main process's phases:
+    """A run on the card in a process of its own (spawned, so it imports
+    what it needs itself), beside the main process's phases:
     "fixture" (``host_fixture``'s tuple), "cli" (the command line's exit
     code, seconds and kernel-2 launches; its prints go to stderr) or
     "handoff_warmup" (``host_warmup``: the one-lane carry as numpy, the
     loop's step stats and final state, its history, its seconds and
-    kernel-2 launches).  The kernels load from the builds of ``main``."""
+    kernel-2 launches) or "loop_check" (a closed loop's check lanes from
+    step 0, ``check_lanes``, and its seconds).  The kernels load from the
+    builds of ``main``."""
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     import contextlib
@@ -1773,6 +1822,17 @@ def card_job(job, *args):
         with contextlib.redirect_stdout(sys.stderr):
             rc = cli.main(["enmpc", "--nsim", str(CLI_NSIM), "--save", args[0]])
         return rc, time.perf_counter() - t0, rk.LAUNCHES
+    if job == "loop_check":
+        import importlib
+
+        from mpc_code_tpu_torch.loop.batched import init_carry
+
+        name, nsim = args
+        wl = importlib.import_module(f"mpc_code_tpu_torch.examples.{LOOP_WORKLOADS[name]}")
+        cfg = wl.make_config()
+        c64 = init_carry(cfg, wl.draw_x0(N_CHECK, dev, dtype=torch.float64), device=dev)
+        H64, R32 = check_lanes(wl.make_step(cfg, device=dev), cfg, c64, nsim)
+        return H64, R32, time.perf_counter() - t0
     from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
     from mpc_code_tpu_torch.loop.batched import map_carry
 
@@ -1972,7 +2032,9 @@ def clb_phase(dev, launches):
 # much a lane-iteration on the CPU and runs to its slowest lane's count)
 # the phase took 212 s on the H100 and the whole smoke ran past its
 # limit; at 4,096 lanes and 4 dense lanes, 116 s of 1,331 s, within the
-# phase's ~150 s.  The iterations of the tc_heq run are reported, not held
+# phase's ~150 s, and 112 s of 1,117 s once the mesh, debug and aot
+# phases were added, so the runs take 2,048 lanes since (the checks
+# unchanged).  The iterations of the tc_heq run are reported, not held
 # equal: there the merit test that quarters the step compares values that
 # differ by less than the residuals' rounding near the optimum (c_norm
 # weighted by a penalty of ~330), and a relative change of 1e-15 in x0
@@ -1983,7 +2045,7 @@ def clb_phase(dev, launches):
 # card against its CPU run, with and without each kind of row
 # (BORDERED_CASES), to CONSTRAINED_TOL in f64.
 CONSTRAINED_ITERS_BY_ROUNDING = ("tc_heq",)
-CONSTRAINED_B = 4096
+CONSTRAINED_B = 2048
 CONSTRAINED_CHECK = 8
 CONSTRAINED_DENSE_LANES = 4
 CONSTRAINED_TOL = 1e-10
@@ -2240,18 +2302,28 @@ def constrained_phase(dev, launches, results, cpu_refs):
 # exact routes kernel 2 once a pass and no sweep kernel.  OPTIONS_CHECK
 # lanes of every run but "default" (the slice phase checks it) are solved
 # in f64 on the card to OPTIONS_CHECK_OPTS and held to the CPU's f64 run:
-# statuses and iterations equal, X and U to OPTIONS_F64_TOL.
+# statuses and iterations equal, X and U to OPTIONS_F64_TOL.  The exact
+# runs take EXACT_B lanes (4,096 before the mesh, debug and aot phases
+# pushed the whole smoke to 1,117 s; their checks unchanged).
 OPTIONS_B = 4096
+EXACT_B = 2048
 OPTIONS_WARMUP, OPTIONS_WARMUP_ITERS = 64, 2
 OPTIONS_CHECK = 8
 OPTIONS_CHECK_OPTS = dict(max_iter=50, tol=1e-8, constr_viol_tol=1e-8)
 OPTIONS_F64_TOL = 1e-8
+# The autotune run: the sweep autotune's probe at AUTOTUNE_HINT lanes (the
+# CSTR cell's batch; MPC_TPU_SWEEP_AUTOTUNE=1 and the hint, in a fresh
+# cache directory), its times and winner printed, the second probe served
+# from its cache, then the winner's Gauss-Newton route on OPTIONS_B lanes
+# with the phase's checks (its f64 lanes held to the CPU's "split" route).
+AUTOTUNE_HINT = 16384
 OPTION_RUNS = {"default": {}, "parallel": dict(parallel=True),
                "adaptive": dict(mu_strategy="adaptive"),
                "mehrotra": dict(mu_strategy="mehrotra"),
                "backtrack": dict(ls_mode="backtrack"),
                "ls_parallel": dict(ls_mode="backtrack", ls_parallel=True),
-               "sweep_every": dict(sweep_every=2), "costate": dict(dual_init="costate")}
+               "sweep_every": dict(sweep_every=2), "costate": dict(dual_init="costate"),
+               "autotune": dict(batch_hint=AUTOTUNE_HINT)}
 EXACT_RUNS = {"nmpc_dis_exact": {}, "enmpc_exact": {},
               "cstr_du_exact": dict(hessian="exact", DUForm=True)}
 SOLVER_FIELDS = ("hessian", "mu_strategy", "ls_mode", "ls_parallel", "sweep_every",
@@ -2271,11 +2343,12 @@ def options_workload(name, device, ocp_opts=None):
     return wl, wl.make_problem(device, ocp_opts=ocp_opts)
 
 
-def options_check_solve(name, device):
+def options_check_solve(name, device, impl=None):
     """The check lanes of a solver_options run in f64 to OPTIONS_CHECK_OPTS
     under the run's options: status, iters, X and U as numpy (for the
     bench runs from the bench's warm start, for the nmpc_dis and ENMPC runs
-    through their workloads' pipelines)."""
+    through their workloads' pipelines).  ``impl``: the Gauss-Newton route
+    (default the OCP's, 'split' without the autotune)."""
     import torch
 
     from mpc_code_tpu_torch.config import SolverOptions
@@ -2294,7 +2367,7 @@ def options_check_solve(name, device):
     cfg, model, socp, _ = make_problem(device, **run)
     opts = dict(dict(hessian="gauss_newton"), **{k: v for k, v in run.items() if k in SOLVER_FIELDS})
     solve = make_structured_solver(socp, SolverOptions(**OPTIONS_CHECK_OPTS, **opts),
-                                   parallel=run.get("parallel", False))
+                                   parallel=run.get("parallel", False), impl=impl)
     x0 = draw_x0(OPTIONS_CHECK, device, dtype=f64)
     u_ws = torch.as_tensor(U_SS, dtype=f64, device=device).expand(len(x0), cfg.nu)
     X0, U0 = warm_start(cfg, model, x0, u_ws)
@@ -2322,11 +2395,47 @@ def expected_option_launches(run, calls):
     return k1, k2
 
 
+def autotune_problem(dev):
+    """The bench problem built as the autotune engages: under
+    MPC_TPU_SWEEP_AUTOTUNE=1 with the AUTOTUNE_HINT batch hint, in a fresh
+    cache directory (the script's own environment, restored after).
+    Returns the problem and the probe's report (its times, the winner, and
+    whether a second probe came from the cache)."""
+    import shutil
+    import tempfile
+
+    from mpc_code_tpu_torch.examples.bench_workload import make_problem
+    from mpc_code_tpu_torch.ops import sweep_autotune as sa
+
+    tmp = tempfile.mkdtemp(prefix="mpc_autotune_smoke_")
+    saved = {k: os.environ.get(k) for k in ("MPC_TPU_SWEEP_AUTOTUNE", "MPC_TPU_AOT_CACHE")}
+    os.environ.update(MPC_TPU_SWEEP_AUTOTUNE="1", MPC_TPU_AOT_CACHE=tmp)
+    try:
+        n0 = sa.PROBES
+        problem = make_problem(dev, **OPTION_RUNS["autotune"])
+        times = {k: 1e3 * v for k, v in sa.LAST_TIMES.items()}
+        again = sa.autotune_sweep_impl(problem[0], problem[2], AUTOTUNE_HINT)
+        report = dict(hint=AUTOTUNE_HINT, ms=times, winner=problem[2].sweep_impl,
+                      probes=sa.PROBES - n0, second_probe_cached=sa.PROBES == n0 + 1
+                      and again == problem[2].sweep_impl)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("# solver_options autotune probe " + json.dumps(report))
+    return problem, report
+
+
 def options_phase(dev, launches, cpu_refs):
     """The solver_options phase's runs at OPTIONS_B lanes in f32: per run
     the solves per second, ok_fraction, the iterations' median and maximum
     and the launches of every kernel against the solver's counts; then the
-    f64 check lanes against the CPU."""
+    f64 check lanes on the card, held against the CPU's runs (one worker
+    job a run) after the last run, so that the CPU's side finishes beside
+    the card's runs."""
     import torch
 
     from mpc_code_tpu_torch.examples.bench_workload import (
@@ -2338,8 +2447,7 @@ def options_phase(dev, launches, cpu_refs):
 
     mods = dict(rk4_stage_jac=sweep_cuda, riccati_kkt=rk, map_stage_jac=sweep_map_cuda,
                 rk4_quad_stage_hess=sweep_cf_cuda, stage_sweep=sk)
-    failures, report = [], {}
-    refs = cpu_refs[("solver_options", "float64")]
+    failures, report, checks = [], {}, {}
     for name, run in dict(OPTION_RUNS, **EXACT_RUNS).items():
         calls = []
 
@@ -2354,16 +2462,22 @@ def options_phase(dev, launches, cpu_refs):
         # card's first use of what the run calls (cuBLAS and cuSOLVER
         # handles, the kernels' libraries) stays out of its time
         generic = name in ("nmpc_dis_exact", "enmpc_exact")
+        run_b = EXACT_B if name in EXACT_RUNS else OPTIONS_B
         if generic:
             wl, prob = options_workload(name, dev)
             wl.run_pipeline(prob, wl.draw_lanes(OPTIONS_WARMUP, dev))
             prob = prob._replace(ocp_solve=counted(prob.ocp_solve, True))
-            lanes = wl.draw_lanes(OPTIONS_B, dev)
+            lanes = wl.draw_lanes(run_b, dev)
             nxa = prob.socp.nxa
         else:
-            cfg, model, socp, solve = make_problem(dev, **run)
+            if name == "autotune":
+                (cfg, model, socp, solve), probe = autotune_problem(dev)
+                if not probe["second_probe_cached"] or probe["probes"] != 1:
+                    failures.append(f"solver_options autotune: the probe {probe}")
+            else:
+                cfg, model, socp, solve = make_problem(dev, **run)
             nxa = socp.nxa
-            x0s = draw_x0(OPTIONS_B, dev)
+            x0s = draw_x0(run_b, dev)
             x0w = x0s[:OPTIONS_WARMUP]
             u_ws = torch.as_tensor(U_SS, dtype=x0w.dtype, device=dev).expand(len(x0w), cfg.nu)
             Xw, Uw = warm_start(cfg, model, x0w, u_ws)
@@ -2389,48 +2503,464 @@ def options_phase(dev, launches, cpu_refs):
             want = dict.fromkeys(mods, 0)
             want["riccati_kkt"] = sum(p for p, _ in calls)
         else:
+            # the autotune's "fused" winner: kernel 5's Gauss-Newton build
+            # where kernel 1 launched
+            sweep_key = ("stage_sweep" if name == "autotune" and socp.sweep_impl == "fused"
+                         else "rk4_stage_jac")
             want = dict(dict.fromkeys(mods, 0), **dict(zip(
-                ("rk4_stage_jac", "riccati_kkt"), expected_option_launches(run, calls))))
+                (sweep_key, "riccati_kkt"), expected_option_launches(run, calls))))
         n_ok = int((status != 2).sum())
-        r = dict(batch=OPTIONS_B, nxa=nxa, ok=n_ok, ok_fraction=n_ok / OPTIONS_B,
+        r = dict(batch=run_b, nxa=nxa, ok=n_ok, ok_fraction=n_ok / run_b,
                  solves_per_s=n_ok / times["total_s"],
                  status_counts=np.bincount(status, minlength=3).tolist(),
                  median_iters=float(np.median(iters)), max_iters=int(iters.max()),
                  passes=calls, launches=got, expected_launches=want,
+                 **({"impl": socp.sweep_impl, "probe": probe} if name == "autotune" else {}),
                  peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                  **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in times.items()})
         log(f"# solver_options {name} " + json.dumps(r))
         if got != want:
             failures.append(f"solver_options {name}: launches {got}, expected {want}")
         if name != "default":
-            gpu = options_check_solve(name, dev)
-            cpu = refs.result()[0][name]
-            same_status = bool((gpu["status"] == cpu["status"]).all())
-            same_iters = bool((gpu["iters"] == cpu["iters"]).all())
-            ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
-            r.update(check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
-                     cpu_status=cpu["status"].tolist(), cpu_iters=cpu["iters"].tolist(),
-                     max_norm_err_vs_cpu=ex)
-            log(f"# solver_options {name} f64 check ({OPTIONS_CHECK} lanes): status "
-                f"{gpu['status'].tolist()} (cpu {cpu['status'].tolist()}) iters "
-                f"{gpu['iters'].tolist()} (cpu {cpu['iters'].tolist()}), max norm err X/U "
-                f"vs cpu {ex:.3e} (tol {OPTIONS_F64_TOL:g})")
-            if not (same_status and same_iters and ex <= OPTIONS_F64_TOL):
-                failures.append(f"solver_options {name}: f64 check lanes differ from the CPU")
+            checks[name] = options_check_solve(name, dev, impl=socp.sweep_impl
+                                               if name == "autotune" else None)
         report[name] = r
+    for name, gpu in checks.items():
+        r = report[name]
+        cpu = cpu_refs[(f"solver_options:{name}", "float64")].result()[0]
+        same_status = bool((gpu["status"] == cpu["status"]).all())
+        same_iters = bool((gpu["iters"] == cpu["iters"]).all())
+        ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
+        r.update(check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
+                 cpu_status=cpu["status"].tolist(), cpu_iters=cpu["iters"].tolist(),
+                 max_norm_err_vs_cpu=ex)
+        log(f"# solver_options {name} f64 check ({OPTIONS_CHECK} lanes): status "
+            f"{gpu['status'].tolist()} (cpu {cpu['status'].tolist()}) iters "
+            f"{gpu['iters'].tolist()} (cpu {cpu['iters'].tolist()}), max norm err X/U "
+            f"vs cpu {ex:.3e} (tol {OPTIONS_F64_TOL:g})")
+        if not (same_status and same_iters and ex <= OPTIONS_F64_TOL):
+            failures.append(f"solver_options {name}: f64 check lanes differ from the CPU")
+    return failures, report
+
+
+# ---------------------------------------------------------------------------
+# scale-out, start-up and diagnostics: the mesh, the AOT artifact, debug
+# ---------------------------------------------------------------------------
+
+# The mesh phase: the bench port's configuration (``closed_loop_bench.py``)
+# on MESH_B lanes for MESH_STEPS steps in f32 through
+# ``make_closed_loop_runner`` on a one-rank NCCL mesh (``make_mesh(1)`` on
+# 127.0.0.1) and without one, on the same lanes: statuses and OCP
+# iterations equal and U bitwise equal (or within MESH_U_TOL of the input
+# box, with the difference reported); kernel 2's launches in each run equal
+# to the OCP solver's passes (the Kalman filter and the dense-IPM targets
+# launch none); ``aggregate_metrics`` over NCCL equal to the host's count;
+# then ``entry.dryrun_multichip(1)`` (the linear CSTR at N=4, then Ex_ENMPC
+# at N=3 with the MHE at N_mhe=3), kernel 2's launches equal to its OCP
+# and MHE solvers' passes (kernel 4 idle: the example's ContForm OCP runs
+# the exact Hessian, by the generic torch.func route).  The card is one
+# H100: only a one-rank mesh is checked here.
+MESH_B, MESH_STEPS = 1024, 5
+MESH_U_TOL = 1e-6
+# The aot phase: two processes on the card, one after the other, each
+# with a fresh kernel build directory and sharing one fresh artifact
+# directory (MPC_TPU_AOT_CACHE), build the bench port's runner with
+# aot_key="auto" and run AOT_STEPS steps of AOT_B lanes: the first builds
+# its kernel library and saves the artifact, the second must load it and
+# run no nvcc, with outputs bitwise equal to the first's.  They start with
+# host_loop's one-lane card processes and run beside the main process.
+AOT_B, AOT_STEPS = 1024, 2
+AOT_WAIT_S = 600
+# The debug phase: DEBUG_LANES lanes of the CSTR structured solve (the
+# bench's pass-1 options at cap MAXIT_R) and one dense target solve
+# (Ex_ENMPC's), in f64 with SolverOptions(debug=True), stdout captured:
+# lanes x passes lines each, and lane 0's it, mu, kkt and feas equal to
+# the CPU f64 run's to DEBUG_REL (a difference of rounding size, below
+# DEBUG_FLOOR, counts as none; two printed numbers one unit apart in their
+# last digit straddle a rounding boundary of the format).
+DEBUG_LANES = 2
+DEBUG_REL, DEBUG_FLOOR = 1e-8, 1e-14
+def run_passes(out):
+    """Kernel 2's launches a closed-loop run of the OCP makes: its
+    solver's passes summed over the steps of stacked outputs."""
+    return sum(solver_passes(out.ocp_iters[k], out.status_dyn[k])
+               for k in range(out.ocp_iters.shape[0]))
+
+
+def mesh_phase(dev, launches):
+    import torch
+    import torch.distributed as dist
+
+    from mpc_code_tpu_torch import entry
+    from mpc_code_tpu_torch.examples import closed_loop_bench as cb
+    from mpc_code_tpu_torch.examples.enmpc import make_config as enmpc_config
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda
+    from mpc_code_tpu_torch.parallel.mesh import (
+        aggregate_metrics, make_closed_loop_runner, make_mesh,
+    )
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+
+    failures, report = [], {}
+    mesh = make_mesh(1)
+    try:
+        report["backend"] = dist.get_backend()
+        cfg = cb.make_config(10)
+        x0s = cb.draw_x0(cfg, MESH_B)
+        outs = {}
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            runner = make_closed_loop_runner(cfg, MESH_STEPS, MESH_B, mesh=m, ysp=cb.YSP,
+                                             device=dev)
+            torch.cuda.synchronize()
+            rk.LAUNCHES = 0
+            t0 = time.perf_counter()
+            _, out = runner(x0s)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            passes = run_passes(out)
+            launches[f"riccati_kkt_mesh_{name}"] = rk.LAUNCHES
+            report[name] = dict(seconds=dt, lane_steps_per_s=MESH_B * MESH_STEPS / dt,
+                                riccati_kkt=rk.LAUNCHES, passes=passes,
+                                ok=int((out.status_dyn != 2).sum()))
+            if rk.LAUNCHES != passes:
+                failures.append(f"mesh {name}: kernel 2 launched {rk.LAUNCHES} times, "
+                                f"the OCP solver made {passes} passes")
+            outs[name] = out
+        a, b = outs["unsharded"], outs["mesh"]
+        same = (torch.equal(a.status_dyn, b.status_dyn) and torch.equal(a.ocp_iters, b.ocp_iters))
+        bitwise = torch.equal(a.u, b.u)
+        box = torch.as_tensor(np.asarray(cfg.bounds.umax) - np.asarray(cfg.bounds.umin),
+                              dtype=a.u.dtype, device=a.u.device)
+        du = float(((a.u - b.u).abs() / box).max())
+        report.update(same_status_iters=same, u_bitwise=bitwise, max_du_over_box=du)
+        if not (same and (bitwise or du <= MESH_U_TOL)):
+            failures.append(f"mesh: the sharded run differs from the unsharded one "
+                            f"(status/iters equal {same}, max |du|/box {du:.3e})")
+        agg = aggregate_metrics(b.status_dyn, b.ocp_iters, mesh)
+        st, it = b.status_dyn.cpu().numpy(), b.ocp_iters.cpu().numpy()
+        host = dict(n_ok=int((st != 2).sum()), n_total=int(st.size),
+                    max_iters=int(it.max()), sum_iters=int(it.sum()))
+        report.update(aggregate=agg, host=host)
+        if agg != host:
+            failures.append(f"mesh: aggregate_metrics {agg} against the host's {host}")
+        # the one-rank dry run of the entry point
+        rk.LAUNCHES = sweep_cf_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        (_, lin), (_, mhe) = entry.dryrun_multichip(1)
+        torch.cuda.synchronize()
+        want_k2 = run_passes(lin) + run_passes(mhe) + sum(
+            solver_passes(mhe.mhe_iters[k], mhe.mhe_status[k])
+            for k in range(mhe.mhe_iters.shape[0]))
+        # kernel 4 is the ContForm OCP's sweep under Gauss-Newton only: the
+        # example's exact Hessian takes the generic torch.func route
+        want_k4 = run_passes(mhe) if enmpc_config().sol_opts_dyn.hessian != "exact" else 0
+        report["dryrun"] = dict(seconds=time.perf_counter() - t0, riccati_kkt=rk.LAUNCHES,
+                                expected_riccati_kkt=want_k2,
+                                rk4_quad_stage_hess=sweep_cf_cuda.LAUNCHES,
+                                expected_rk4_quad_stage_hess=want_k4,
+                                u_lin=lin.u.cpu().numpy().tolist(),
+                                u_enmpc=mhe.u.cpu().numpy().tolist())
+        launches["riccati_kkt_dryrun"] = rk.LAUNCHES
+        launches["rk4_quad_stage_hess_dryrun"] = sweep_cf_cuda.LAUNCHES
+        if rk.LAUNCHES != want_k2 or sweep_cf_cuda.LAUNCHES != want_k4:
+            failures.append(f"mesh dryrun: launches {rk.LAUNCHES} / {sweep_cf_cuda.LAUNCHES}"
+                            f", expected {want_k2} / {want_k4}")
+        for o in (lin, mhe):
+            if not (torch.isfinite(o.u).all() and (o.status_dyn != 2).all()):
+                failures.append("mesh dryrun: a non-finite or infeasible lane")
+    finally:
+        dist.destroy_process_group()
+    log("# mesh " + json.dumps(report))
+    return failures, report
+
+
+def aot_child(build_dir, out_path, t_spawn):
+    """One process of the aot phase (run by ``aot_jobs`` with a fresh
+    MPC_TPU_AOT_CACHE in its environment): the bench port's runner with
+    aot_key="auto" from a fresh kernel build directory, AOT_STEPS steps of
+    AOT_B lanes; its U to ``out_path`` and one JSON line: nvcc's runs, the
+    libraries loaded, the seconds from the parent's spawn to the first
+    result."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import torch
+
+    from mpc_code_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR = build_dir
+    from mpc_code_tpu_torch.device import pin_fp32_precision
+    from mpc_code_tpu_torch.examples import closed_loop_bench as cb
+    from mpc_code_tpu_torch.parallel.mesh import make_closed_loop_runner
+
+    pin_fp32_precision()
+    dev = torch.device("cuda")
+    cfg = cb.make_config(10)
+    runner = make_closed_loop_runner(cfg, AOT_STEPS, AOT_B, ysp=cb.YSP, aot_key="auto",
+                                     device=dev, dtype=torch.float32)
+    _, out = runner(cb.draw_x0(cfg, AOT_B))
+    u = out.u.cpu().numpy()
+    first_s = time.time() - t_spawn
+    np.save(out_path, u)
+    print(json.dumps(dict(nvcc_runs=cuda_build.NVCC_RUNS, loaded=sorted(
+        os.path.basename(os.path.dirname(b.path)) for b in cuda_build._LOADED.values()),
+        first_result_s=first_s, ok=int((out.status_dyn != 2).sum()))), flush=True)
+
+
+def aot_jobs():
+    """The aot phase's two processes, one after the other, in fresh
+    directories (removed after): (their JSON lines, their U, the
+    artifact's manifests)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="mpc_aot_smoke_")
+    env = dict(os.environ, MPC_TPU_AOT_CACHE=os.path.join(tmp, "cache"))
+    rows, us = [], []
+    try:
+        for i in range(2):
+            out_path = os.path.join(tmp, f"u{i}.npy")
+            code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                    f"chip_smoke.aot_child({os.path.join(tmp, f'build{i}')!r}, "
+                    f"{out_path!r}, {time.time()!r})")
+            proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                                  env=env, timeout=AOT_WAIT_S, cwd=ROOT)
+            if proc.returncode != 0:
+                raise RuntimeError(f"aot process {i} failed:\n{proc.stderr[-4000:]}")
+            rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            us.append(np.load(out_path))
+        cache = env["MPC_TPU_AOT_CACHE"]
+        manifests = [json.load(open(os.path.join(cache, d, "manifest.json")))
+                     for d in sorted(os.listdir(cache)) if not d.endswith(".json")]
+        return rows, us, manifests
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def aot_phase(job):
+    failures = []
+    rows, us, manifests = job.result()
+    report = dict(first=rows[0], second=rows[1], artifacts=len(manifests),
+                  libraries=[m["libraries"] for m in manifests])
+    log("# aot " + json.dumps(report))
+    log(f"# aot seconds from start to first result: first process "
+        f"{rows[0]['first_result_s']:.1f} s (nvcc {rows[0]['nvcc_runs']}), second "
+        f"{rows[1]['first_result_s']:.1f} s (nvcc {rows[1]['nvcc_runs']})")
+    if len(manifests) != 1 or not manifests[0]["libraries"]:
+        failures.append(f"aot: expected one artifact with its libraries, got {manifests}")
+    if rows[0]["nvcc_runs"] < 1 or rows[1]["nvcc_runs"] != 0:
+        failures.append(f"aot: nvcc ran {rows[0]['nvcc_runs']} then {rows[1]['nvcc_runs']} "
+                        "times (the second process must load the artifact)")
+    if manifests and not set(manifests[0]["libraries"]) <= set(rows[1]["loaded"]):
+        failures.append("aot: the second process did not load the artifact's libraries")
+    if not np.array_equal(us[0], us[1]):
+        failures.append("aot: the two processes' outputs differ")
+    return failures, report
+
+
+def debug_fields(text):
+    """(it, mu, kkt, feas) strings of every debug line of ``text``."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("it="):
+            kv = dict(tok.split("=", 1) for tok in line.split())
+            out.append((int(kv["it"]), kv["mu"], kv["kkt"], kv["feas"]))
+    return out
+
+
+def printed_close(a, b):
+    """Two printed numbers equal to DEBUG_REL (below DEBUG_FLOOR apart
+    counts as equal), or one unit apart in their last printed digit."""
+    x, y = float(a), float(b)
+    if abs(x - y) <= DEBUG_REL * max(abs(x), abs(y)) + DEBUG_FLOOR:
+        return True
+    mant, ex = b.split("e")
+    digits = len(mant.split(".")[1]) if "." in mant else 0
+    return abs(x - y) <= 10.0 ** (int(ex) - digits) * (1 + 1e-6)
+
+
+def debug_runs(device):
+    """The debug phase's two solves on ``device`` in f64 with debug=True,
+    their stdout captured: {name: (lines, lanes, passes)}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.examples.bench_workload import (
+        MAXIT_R, U_SS, bench_params, draw_x0, make_problem, warm_start,
+    )
+    from mpc_code_tpu_torch.examples.enmpc import make_config as enmpc_config
+    from mpc_code_tpu_torch.models import build_model, build_ss_cost
+    from mpc_code_tpu_torch.ocp.target import build_target
+    from mpc_code_tpu_torch.solver.ipm import make_solver
+    from mpc_code_tpu_torch.solver.riccati import make_structured_solver
+
+    f64 = dict(dtype=torch.float64, device=device)
+    cfg, model, socp, _ = make_problem(device)
+    solve = make_structured_solver(socp, SolverOptions(
+        max_iter=MAXIT_R, tol=1e-3, constr_viol_tol=1e-3, mu_init=1e-1,
+        hessian="gauss_newton", track_best=True, debug=True))
+    x0 = draw_x0(DEBUG_LANES, device, dtype=torch.float64)
+    X0, U0 = warm_start(cfg, model, x0, torch.as_tensor(U_SS, **f64).expand(DEBUG_LANES, 2))
+    ecfg = enmpc_config()
+    emodel = build_model(ecfg)
+    ts = build_target(ecfg, emodel, build_ss_cost(ecfg.ss_cost))
+    tsolve = make_solver(ts.nlp, SolverOptions(max_iter=100, tol=1e-8, debug=True))
+    d = torch.tensor([[0.01, -0.02]], **f64)
+    x0_m, u0 = (torch.as_tensor(v, **f64)[None] for v in (ecfg.x0_m, ecfg.u0))
+    z = torch.zeros(1, 2, **f64)
+    par = dict(usp=torch.zeros(1, 1, **f64), ysp=z, xsp=z, d=d, us_prev=u0,
+               lam=torch.zeros(1, 2, 1, **f64), t=torch.zeros(1, **f64), px=z, py=z)
+    w0 = torch.cat([x0_m, u0, torch.func.vmap(emodel.fy)(x0_m, u0, d, par["t"], z)], -1)
+    out = {}
+    for name, run in (("structured", lambda: solve(bench_params(cfg, x0), X0, U0)),
+                      ("dense", lambda: tsolve(w0, par, ts.lbw, ts.ubw, ts.lbg, ts.ubg))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = run()
+        st = r.status.cpu()
+        it = r.iters.cpu()
+        passes = (solver_passes(it, st) if name == "structured" else int(it.max()))
+        out[name] = (debug_fields(buf.getvalue()), len(st), passes)
+    return out
+
+
+def debug_phase(dev, cpu_refs):
+    failures, report = [], {}
+    got = debug_runs(dev)
+    ref = cpu_refs[("debug", "float64")].result()[0]
+    for name, (lines, lanes, passes) in got.items():
+        lane0 = lines[::lanes]
+        want = ref[name][0][::ref[name][1]]
+        close = (len(lane0) == len(want) and all(
+            g[0] == w[0] and all(printed_close(a, b) for a, b in zip(g[1:], w[1:]))
+            for g, w in zip(lane0, want)))
+        report[name] = dict(lines=len(lines), lanes=lanes, passes=passes,
+                            lane0_first=lane0[:1], lane0_last=lane0[-1:],
+                            cpu_lane0_last=want[-1:], lane0_matches_cpu=close)
+        if len(lines) != lanes * passes:
+            failures.append(f"debug {name}: {len(lines)} lines for {lanes} lanes x "
+                            f"{passes} passes")
+        if not close:
+            failures.append(f"debug {name}: lane 0's lines differ from the CPU's")
+    log("# debug " + json.dumps(report))
     return failures, report
 
 
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
           "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
-          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "constrained", "solver_options",
-          "host_loop", "enmpc_loop", "enmpc_handoff")
+          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "mesh", "constrained",
+          "solver_options", "debug", "host_loop", "enmpc_loop", "enmpc_handoff", "aot")
+
+
+# The phases after ALONE (the kernel phases and the CSTR slice) run in three
+# processes on the card at once: this one and one for each of PARTS, which
+# it starts itself (``python3 chip_smoke.py --part OUT GO phase...``) once
+# its kernels are built.  A part builds its problems and starts its CPU
+# workers at once, and its phases when this process has finished ALONE
+# (the file GO appears), so that the kernel times and the main path's
+# solves/s are taken on a card and a host of their own; it writes its
+# failures, launch counts and kernel results to OUT, which this process
+# folds into its own.  Every phase is bound by its host (the card busy
+# 5-66% of the time, PERF.md section 5), and one after another they took
+# 1,051-1,117 s of the 1,200 s limit on the H100 (PERF.md section 4).
+ALONE = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel", "enmpc_mhe kernel",
+         "stage_sweep kernel", "slice")
+PARTS = (("solver_options",), ("host_loop", "enmpc_loop", "enmpc_handoff", "aot"))
+PART_WAIT_S = 1100             # a part's run, from this process's start, at most
+# the closed loops whose check lanes (from step 0) run on the card in a
+# process of their own from the end of the kernel phases
+LOOP_CHECK_JOBS = ("cstr_loop", "enmpc_loop")
+
+
+def start_parts(selected, run_dir):
+    """Start a process for each of PARTS that holds a selected phase:
+    [(its phases, its result file, the process)].  Each runs in a session
+    of its own, so that ``stop_parts`` ends it with its workers."""
+    parts = []
+    for i, phases in enumerate(PARTS):
+        mine = [p for p in phases if p in selected]
+        if mine:
+            out = os.path.join(run_dir, f"part{i}.json")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--part", out,
+                 os.path.join(run_dir, "go"), *mine], cwd=ROOT, start_new_session=True)
+            parts.append((mine, out, proc))
+    return parts
+
+
+def cpu_seconds():
+    """CPU seconds of this process and of every process it has waited for
+    (its workers, the parts and theirs)."""
+    import resource
+
+    return sum(r.ru_utime + r.ru_stime for r in (
+        resource.getrusage(resource.RUSAGE_SELF),
+        resource.getrusage(resource.RUSAGE_CHILDREN)))
+
+
+def wait_for(path, timeout):
+    """Wait until ``path`` exists (at most ``timeout`` seconds)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            return False
+        time.sleep(0.5)
+    return True
+
+
+def stop_parts(parts):
+    import signal
+
+    for _, _, proc in parts:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def join_parts(parts, t_start, failures, launches, results):
+    """Wait for each part (until PART_WAIT_S from ``t_start``) and fold its
+    failures, launch counts and kernel results into this process's."""
+    for phases, out, proc in parts:
+        try:
+            rc = proc.wait(timeout=max(1.0, PART_WAIT_S - (time.time() - t_start)))
+        except subprocess.TimeoutExpired:
+            stop_parts([(phases, out, proc)])
+            failures.append(f"the part {phases} ran past {PART_WAIT_S} s")
+            continue
+        if not os.path.exists(out):
+            failures.append(f"the part {phases} exited {rc} without its result")
+            continue
+        with open(out) as f:
+            got = json.load(f)
+        failures += got["failures"]
+        if rc != 0 and not got["failures"]:
+            failures.append(f"the part {phases} exited {rc}")
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, res in got["results"].items():
+            for kk, v in res.items():
+                results.setdefault(k, {}).setdefault(kk, v)
 
 
 def main() -> int:
     # with no arguments every phase runs; arguments name the phases to run
     # (for trying one on the card), as PHASES spells them
-    selected = sys.argv[1:] or list(PHASES)
+    args = sys.argv[1:]
+    part = None
+    if args[:1] == ["--part"]:
+        # one of PARTS, started by the main process: where to write its
+        # result, the file whose appearance starts its phases
+        part, args = dict(out=args[1], go=args[2]), args[3:]
+        try:
+            # ended with the main process, should that one be killed
+            import ctypes
+            import signal
+
+            ctypes.CDLL(None).prctl(1, signal.SIGKILL)        # PR_SET_PDEATHSIG
+        except (OSError, AttributeError):
+            pass
+    selected = args or list(PHASES)
     if not set(selected) <= set(PHASES):
         print(f"chip_smoke: unknown phase in {selected}; phases: {PHASES}", file=sys.stderr)
         return 2
@@ -2451,9 +2981,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
-    log(card)
-    log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+    t_start = float(os.environ.setdefault("CHIP_SMOKE_T0", repr(time.time())))
+    if part is None:
+        log(card)
+        log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
+            f"device {torch.cuda.get_device_name(0)}")
 
     from mpc_code_tpu_torch.device import pin_fp32_precision
     from mpc_code_tpu_torch.examples import closed_loop_bench as cb
@@ -2520,10 +3052,12 @@ def main() -> int:
                    for key, hessian in (("stage_sweep", "exact"),
                                         ("stage_sweep_gn", "gauss_newton"))}}
             built = {name: j.result() for name, j in jobs.items()}
-        log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+        if part is None:
+            log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
         for name, b in built.items():
             for dtype, line in ptxas_lines(b.log):
-                log(f"#   ptxas {name} {dtype}: {line}")
+                if part is None:
+                    log(f"#   ptxas {name} {dtype}: {line}")
                 results[name].setdefault("ptxas", []).append(f"{dtype}: {line}")
             results[name]["ptxas_summary"] = ptxas_summary(b.log)
     except Exception:
@@ -2531,9 +3065,18 @@ def main() -> int:
         print("chip_smoke: FAILED in set-up/build", file=sys.stderr)
         return 1
 
+    import shutil
+    import tempfile
+
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    parts = [] if part is not None else start_parts(selected, run_dir)
+    go = part["go"] if part is not None else os.path.join(run_dir, "go")
+    # this process's own phases
+    selected = [p for p in selected if not any(p in phases for phases, _, _ in parts)]
+
     # the CPU side of every cross-check, in worker processes beside the
     # card's phases
-    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS + 4, mp_context=mp.get_context("spawn"))
+    pool = cf.ProcessPoolExecutor(CPU_REF_WORKERS, mp_context=mp.get_context("spawn"))
     # the constrained phase's and the closed loops' CPU runs are the
     # longest: they start first, and the others keep their order
     cpu_refs = {(p, "float64"): pool.submit(cpu_reference, p, "float64")
@@ -2545,12 +3088,17 @@ def main() -> int:
     # the solver_options phase's check lanes: needed after the constrained
     # phase, so queued after the controller phases' runs
     if "solver_options" in selected:
-        cpu_refs[("solver_options", "float64")] = pool.submit(
-            cpu_reference, "solver_options", "float64")
-    # the one-lane host runs on the card in processes of their own
-    # (card_job), from host_loop on
+        cpu_refs.update({(f"solver_options:{name}", "float64"): pool.submit(
+            cpu_reference, f"solver_options:{name}", "float64")
+            for name in dict(OPTION_RUNS, **EXACT_RUNS) if name != "default"})
+    if "debug" in selected:
+        cpu_refs[("debug", "float64")] = pool.submit(cpu_reference, "debug", "float64")
+    # the one-lane host runs and the loops' check lanes on the card in
+    # processes of their own (card_job)
     card_pool = cf.ProcessPoolExecutor(CARD_WORKERS, mp_context=mp.get_context("spawn"))
     card_jobs = {}
+    # the aot phase's two processes, started with host_loop's card jobs
+    aot_pool = cf.ThreadPoolExecutor(1)
     enmpc = Path("enmpc", ew, eprob, sweep_cf_cuda, "rk4_quad_stage_hess",
                  "riccati_kkt_enmpc", ENMPC_U_TOL)
     nmpc_dis = Path("nmpc_dis", dw, dprob, sweep_map_cuda, "map_stage_jac",
@@ -2578,22 +3126,43 @@ def main() -> int:
               ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches, cpu_refs)),
               ("cstr_exact", lambda: slice_phase(dev, xprob, launches, cpu_refs,
                                                  exact=True)),
-              ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs)),
-              ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs)),
+              ("cstr_loop", lambda: loop_phase(dev, cstr_loop, launches, cpu_refs, card_jobs)),
+              ("lmpc_loop", lambda: loop_phase(dev, lmpc_loop, launches, cpu_refs, card_jobs)),
               ("clb", lambda: clb_phase(dev, launches)),
+              ("mesh", lambda: mesh_phase(dev, launches)),
               ("constrained", lambda: constrained_phase(dev, launches, results, cpu_refs)),
               ("solver_options", lambda: options_phase(dev, launches, cpu_refs)),
+              ("debug", lambda: debug_phase(dev, cpu_refs)),
               # host_loop before enmpc_loop: enmpc_loop's CPU reference (64
               # lanes) and the hand-off's warmup reference finish beside it
               # instead of being waited for (119 s and 39 s on the H100
               # in the other order)
               ("host_loop", lambda: host_loop_phase(dev, launches, card_pool)),
-              ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs)),
-              ("enmpc_handoff", lambda: loop_phase(dev, enmpc_handoff, launches, cpu_refs)))
+              ("enmpc_loop", lambda: loop_phase(dev, enmpc_loop, launches, cpu_refs, card_jobs)),
+              ("enmpc_handoff", lambda: loop_phase(dev, enmpc_handoff, launches, cpu_refs,
+                                                     card_jobs)),
+              ("aot", lambda: aot_phase(card_jobs["aot"])))
+    started = False
     try:
         for name, phase in phases:
             if name not in selected:
                 continue
+            if not started and name not in ALONE:
+                # the phases that run alone are over: the parts start theirs
+                started = True
+                if part is None:
+                    open(go, "w").close()
+                elif not wait_for(go, PART_WAIT_S):
+                    failures.append("the main process's kernel phases did not end")
+                    break
+                log(f"# phases {name}..{selected[-1]} start at {time.time() - t_start:.1f} s")
+                for n in LOOP_CHECK_JOBS:
+                    if n in selected:
+                        card_jobs[("loop_check", n)] = card_pool.submit(
+                            card_job, "loop_check", n, {"cstr_loop": LOOP_NSIM,
+                                                        "enmpc_loop": ENMPC_NSIM}[n])
+            if "aot" in selected and "aot" not in card_jobs and name in ("host_loop", "aot"):
+                card_jobs["aot"] = aot_pool.submit(aot_jobs)
             if ("enmpc_handoff" in selected and name in ("host_loop", "enmpc_handoff")
                     and ("enmpc_handoff_warmup", "float64") not in cpu_refs):
                 # the hand-off's host warmup, on the card (f32, a process of
@@ -2610,10 +3179,26 @@ def main() -> int:
             except Exception:
                 traceback.print_exc()
                 failures.append(f"{name} phase raised")
-            log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
+            log(f"# phase {name}: {time.perf_counter() - t0:.1f} s (ends at "
+                f"{time.time() - t_start:.1f} s)")
+        if part is None:
+            open(go, "w").close()
+            join_parts(parts, t_start, failures, launches, results)
     finally:
+        stop_parts(parts)
+        shutil.rmtree(run_dir, ignore_errors=True)
         pool.shutdown(cancel_futures=True)
         card_pool.shutdown(cancel_futures=True)
+        aot_pool.shutdown(cancel_futures=True)
+    if part is not None:
+        tmp = part["out"] + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(dict(failures=failures, launches=launches, results=results), f,
+                      default=lambda o: o.item() if hasattr(o, "item") else str(o))
+        os.rename(tmp, part["out"])
+        return 1 if failures else 0
+    log(f"# the smoke's processes: {cpu_seconds():.1f} s of CPU in "
+        f"{time.time() - t_start:.1f} s of wall")
 
     def entry(name, res, n_launch):
         r32, r64 = res.get("float32", {}), res.get("float64", {})
@@ -2650,6 +3235,10 @@ def main() -> int:
             # on the nmpc_dis path, at (50, 8, 2), and on the exact-Hessian
             # CSTR path, at the CSTR path's shapes
             k["launches_by_path"] = {"cstr": launches["riccati_kkt"],
+                                     "mesh": launches.get("riccati_kkt_mesh_mesh", 0),
+                                     "mesh_unsharded": launches.get(
+                                         "riccati_kkt_mesh_unsharded", 0),
+                                     "dryrun": launches.get("riccati_kkt_dryrun", 0),
                                      "enmpc": launches["riccati_kkt_enmpc"],
                                      "nmpc_dis": launches["riccati_kkt_nmpc_dis"],
                                      "cstr_exact": launches["riccati_kkt_cstr_exact"],
@@ -2707,13 +3296,18 @@ def main() -> int:
         if name == "rk4_quad_stage_hess":
             # kernel 4 on the ENMPC flagship loop's OCP solves too
             k["launches_by_path"] = {"enmpc": launches["rk4_quad_stage_hess"],
+                                     "dryrun": launches.get("rk4_quad_stage_hess_dryrun", 0),
                                      "enmpc_loop": launches["rk4_quad_stage_hess_enmpc_loop"],
                                      "enmpc_handoff": launches.get(
                                          "rk4_quad_stage_hess_enmpc_handoff", 0)}
         if name == "stage_sweep":
-            # the Gauss-Newton build, checked against its plain version; no
-            # path of the smoke launches it
-            k["gauss_newton_build"] = entry(name, results["stage_sweep_gn"], 0)
+            # the Gauss-Newton build, checked against its plain version; the
+            # solver_options phase's autotune run launches it when "fused"
+            # wins the probe
+            gn_launches = launches.get("stage_sweep_options_autotune", 0)
+            k["gauss_newton_build"] = entry(name, results["stage_sweep_gn"], gn_launches)
+            k["gauss_newton_build"]["launches_by_path"] = {
+                "solver_options_autotune": gn_launches}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -12,5 +12,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 from mpc_code_tpu_torch import config
+from mpc_code_tpu_torch import ops
+from mpc_code_tpu_torch import models
+from mpc_code_tpu_torch import solver
 
-__all__ = ["config", "__version__"]
+__all__ = ["config", "ops", "models", "solver", "__version__"]

@@ -74,12 +74,17 @@ class PipelineSolve:
 
 def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", parallel=False,
                  mu_strategy="monotone", ls_mode="adaptive", ls_parallel=False,
-                 sweep_every=1, dual_init="zero", **overrides):
+                 sweep_every=1, dual_init="zero", batch_hint=None, impl=None,
+                 **overrides):
     """``(cfg, model, socp, solve)`` for the bench configuration on
     ``device`` (default the card), with the OCP Hessian ``hessian``, the
     solver options ``parallel``, ``mu_strategy`` (pass 1's), ``ls_mode``,
     ``ls_parallel``, ``sweep_every`` and ``dual_init`` (``SolverOptions``'s
-    fields), and the config fields ``overrides``.  ``solve`` is a
+    fields), and the config fields ``overrides``.  ``batch_hint`` reaches
+    ``build_structured_ocp`` (the sweep autotune under
+    ``MPC_TPU_SWEEP_AUTOTUNE=1``); ``impl`` (default the OCP's
+    ``sweep_impl``) is the solvers' Gauss-Newton route, 'split' or
+    'fused'.  ``solve`` is a
     ``PipelineSolve``.  With ``Collocation=True`` the config's tracking
     cost 0.5 (dx'Q dx + du'R du) becomes the collocation form's ``f_coll``,
     which leaves its stage-state argument unused."""
@@ -96,14 +101,15 @@ def make_problem(device=None, Nh=N, Mx=MX, hessian="gauss_newton", parallel=Fals
         cfg = cfg.replace(stage_cost=StageCost(f_coll=f_coll))
     model = build_model(cfg)
     socp = build_structured_ocp(cfg, model, build_stage_cost(cfg.stage_cost),
-                                build_terminal_cost(cfg), device=device)
+                                build_terminal_cost(cfg), device=device,
+                                batch_hint=batch_hint)
 
     def solver(mu):
         return make_structured_solver(socp, SolverOptions(
             max_iter=MAXIT_R, tol=1e-3, constr_viol_tol=1e-3, mu_init=1e-1,
             hessian=hessian, mu_strategy=mu, ls_mode=ls_mode, ls_parallel=ls_parallel,
             sweep_every=sweep_every, dual_init=dual_init, track_best=True),
-            parallel=parallel)
+            parallel=parallel, impl=impl)
 
     solve = solver(mu_strategy)
     rescue = solve if mu_strategy == "monotone" else solver("monotone")

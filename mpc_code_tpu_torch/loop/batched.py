@@ -30,8 +30,9 @@ loop.final_state)`` after a ``ClosedLoop`` warmup).  Modifier adaptation
 MPC_code.py:829-874) runs in the step per lane.  There is no ``lax.scan``: :func:`run_traced` is
 a host loop over the steps on device tensors, and
 :func:`run_traced_checkpointed` the same loop in segments with an NPZ
-checkpoint after each.  JAX's ``batch_hint`` picks
-a TPU sweep layout and has no counterpart here.
+checkpoint after each.  ``batch_hint``, the expected batch, reaches
+``build_structured_ocp``, where it engages the sweep autotune
+(``ops/sweep_autotune.py``) under ``MPC_TPU_SWEEP_AUTOTUNE=1``.
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ def _mv(M, v):
 
 def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
                   use_structured: Optional[bool] = None, device=None,
-                  target_dtype=None) -> Callable:
+                  target_dtype=None, batch_hint: Optional[int] = None) -> Callable:
     """Build ``step(carry, inp=None, mark=None) -> (MPCCarry, MPCStepOut)``.
 
     ``inp`` is the :class:`StepInput` of this instant, shared by every lane
@@ -124,7 +125,9 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
     dtype the steady-state target is solved in; its answer is cast back.
     ``mark(name)``, if given, is called after each
     phase of the step ("estimate", "target", "ocp", "plant"), so that a
-    caller can time them.
+    caller can time them.  ``batch_hint``: the batch the step will be
+    called with, for the structured OCP's sweep autotune (JAX
+    ``loop/batched.py:100-104``).
     """
     dev = resolve_device(device)
     nx, nu, nd, N = cfg.nx, cfg.nu, cfg.nd, cfg.N
@@ -166,7 +169,8 @@ def make_mpc_step(cfg: MPCConfig, ysp=None, usp=None, xsp=None,
             build_structured_ocp, make_structured_solver,
         )
 
-        socp = build_structured_ocp(cfg, model, f_obj, vfin, device=dev)
+        socp = build_structured_ocp(cfg, model, f_obj, vfin, device=dev,
+                                    batch_hint=batch_hint)
         struct_solve = make_structured_solver(socp, cfg.sol_opts_dyn)
         ns_s = socp.ns
         nup = socp.nxa - nx - ns_s

@@ -7,10 +7,16 @@ headers.  A build is keyed by a hash of every source it reads, the
 generated header (if any), the ``-D`` defines and the compiler flags; it
 goes into ``mpc_code_tpu_torch/_build/<name>-<hash>/`` at first use and is
 reused from there.  Nothing is built when a module is imported.
+
+``NVCC_RUNS`` counts the compiler's runs in this process.  ``recording()``
+collects the libraries that the code inside it built or loaded, and
+``load_prebuilt`` installs a library copied from elsewhere (an AOT
+artifact, ``utils/aot.py``) so that its first use runs no compiler.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +34,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _LOADED: dict = {}
 _LOCK = threading.Lock()
+NVCC_RUNS = 0
+_RECORDERS: list = []
 
 
 def nvcc_path() -> str:
@@ -50,6 +58,68 @@ class BuiltLibrary:
         self.log = log
 
 
+def used(built: BuiltLibrary) -> BuiltLibrary:
+    """Note ``built`` in every open ``recording()`` and return it: the
+    wrappers call it on the libraries they keep, so that a recording sees
+    each library its block used."""
+    if _RECORDERS:
+        with _LOCK:
+            for seen in _RECORDERS:
+                seen[os.path.basename(os.path.dirname(built.path))] = os.path.dirname(built.path)
+    return built
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, as ``{<name>-<key>: build directory}``, every library
+    that ``build`` returns (built, loaded from disk or already loaded) or
+    a wrapper notes as ``used`` inside the block."""
+    seen: dict = {}
+    with _LOCK:
+        _RECORDERS.append(seen)
+    try:
+        yield seen
+    finally:
+        with _LOCK:
+            _RECORDERS.remove(seen)
+
+
+def _load(key: str, out_dir: str, so_path: str) -> BuiltLibrary:
+    log_path = os.path.join(out_dir, "build.log")
+    log = open(log_path).read() if os.path.exists(log_path) else ""
+    built = BuiltLibrary(ctypes.CDLL(so_path), so_path, log)
+    with _LOCK:
+        _LOADED.setdefault(key, built)
+        return _LOADED[key]
+
+
+def load_prebuilt(src_dir: str) -> BuiltLibrary:
+    """Install the build directory ``src_dir`` (``<name>-<key>``, as
+    ``build`` writes it: the library, its generated headers and the
+    compiler's report) into ``BUILD_DIR`` and load it, so that ``build``
+    of the same key returns it without running ``nvcc``.  The copy goes
+    through a temporary directory and a rename, so concurrent loaders
+    never see half a library."""
+    base = os.path.basename(os.path.normpath(src_dir))
+    name, key = base.rsplit("-", 1)
+    with _LOCK:
+        if key in _LOADED:
+            return _LOADED[key]
+    out_dir = os.path.join(BUILD_DIR, base)
+    so_path = os.path.join(out_dir, f"lib{name}.so")
+    if not os.path.exists(so_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out_dir}.{os.getpid()}.{threading.get_ident()}.tmp"
+        shutil.copytree(src_dir, tmp)
+        try:
+            os.rename(tmp, out_dir)
+        except OSError:          # another process installed it first
+            shutil.rmtree(tmp, ignore_errors=True)
+    if not os.path.exists(so_path):
+        raise OSError(f"{src_dir} holds no lib{name}.so")
+    return _load(key, out_dir, so_path)
+
+
 def build(name: str, source: str, defines: dict | None = None,
           generated: dict | None = None) -> BuiltLibrary:
     """Compile ``csrc/<source>`` into a shared library and load it.
@@ -57,6 +127,7 @@ def build(name: str, source: str, defines: dict | None = None,
     ``defines`` become ``-D`` flags; ``generated`` maps file names to the
     text of headers written into the build directory (which is on the
     include path).  Returns the cached library when the key was built."""
+    global NVCC_RUNS
     defines = dict(defines or {})
     generated = dict(generated or {})
     h = hashlib.sha256()
@@ -68,10 +139,9 @@ def build(name: str, source: str, defines: dict | None = None,
     dflags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + dflags + [source]).encode())
     key = h.hexdigest()[:20]
-
     with _LOCK:
         if key in _LOADED:
-            return _LOADED[key]
+            return used(_LOADED[key])
     out_dir = os.path.join(BUILD_DIR, f"{name}-{key}")
     so_path = os.path.join(out_dir, f"lib{name}.so")
     log_path = os.path.join(out_dir, "build.log")
@@ -85,17 +155,15 @@ def build(name: str, source: str, defines: dict | None = None,
                + ["-I", CSRC_DIR, "-I", out_dir, "-o", tmp,
                   os.path.join(CSRC_DIR, source)])
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        with _LOCK:
+            NVCC_RUNS += 1
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {source} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         with open(log_path, "w") as f:
             f.write(proc.stderr)
         os.replace(tmp, so_path)
-    log = open(log_path).read() if os.path.exists(log_path) else ""
-    built = BuiltLibrary(ctypes.CDLL(so_path), so_path, log)
-    with _LOCK:
-        _LOADED.setdefault(key, built)
-        return _LOADED[key]
+    return used(_load(key, out_dir, so_path))
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -86,7 +86,9 @@ class LaneSweep:
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
             self._libs[dims] = built
-        return self._libs[dims]
+        from mpc_code_tpu_torch.ops.cuda_build import used
+
+        return used(self._libs[dims])
 
     def check(self, *args):
         """The inputs by name, B, N and the build key.  Raises on a bad

@@ -22,6 +22,9 @@ per iteration and per line-search trial.
 Small linear algebra goes through ``ops/smalllin.py``: a lane whose
 Cholesky factorisation or LU solve fails comes back as NaN, as
 ``jnp.linalg`` gives, and never stops the batch.
+
+``SolverOptions.debug`` prints JAX's per-iteration line for every lane;
+``kkt_error`` is JAX's test oracle of a result's residuals.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from torch.func import grad, jacrev, vmap
 from mpc_code_tpu_torch.config import SolverOptions
 from mpc_code_tpu_torch.ops.smalllin import chol, solve_lu
 from mpc_code_tpu_torch.solver.nlp import (
-    IPMResult, NLP, STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED,
+    IPMResult, NLP, STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED, debug_lines,
 )
 
 _INF = 1e18          # bounds beyond this are treated as absent (IPOPT: 1e19)
@@ -85,13 +88,12 @@ def make_solver(nlp: NLP, opts: SolverOptions = SolverOptions()) -> Callable:
     leading B; the bounds are given for one lane, (nw,) and (ng,), or with a
     leading B.  The solve runs on the device of ``w0`` in its dtype (f32 or
     f64).  ``hessian='gauss_newton'`` is accepted and, as in the JAX
-    package, this dense path always uses the exact Lagrangian Hessian."""
+    package, this dense path always uses the exact Lagrangian Hessian.
+    ``opts.debug`` prints JAX's line (ipm.py:490-494) for every lane at
+    every iteration, in lane order."""
     if opts.hessian not in ("exact", "gauss_newton"):
         raise ValueError(f"unknown hessian {opts.hessian!r}: "
                          "use 'exact' or 'gauss_newton'")
-    if opts.debug:
-        raise NotImplementedError("debug printing is not ported yet "
-                                  "(ROADMAP Queue 1 item 29)")
     nw, ng = nlp.nw, nlp.ng
     nz = nw + ng
 
@@ -424,6 +426,12 @@ def make_solver(nlp: NLP, opts: SolverOptions = SolverOptions()) -> Callable:
                 torch.clamp(torch.minimum(_KAPPA_MU * mu, mu ** _THETA_MU),
                             min=opts.tol / 10.0),
                 mu)
+            if opts.debug:
+                debug_lines(
+                    "it={it} mu={mu:.2e} a={a:.2e} ad={ad:.2e} amax={am:.2e} acc={acc} "
+                    "|dw|={ndw:.2e} nu={nu:.2e} dlt={d:.1e} kkt={k:.3e} feas={f:.2e}",
+                    it=st["it"], mu=mu, a=alpha, ad=alpha_dual, am=alpha_max, acc=accepted,
+                    ndw=dw.abs().amax(1), nu=nu, d=delta_w, k=e_0, f=feas)
             return dict(w=w_n, s=s_n, y=y_n, zl=zl_n, zu=zu_n, mu=mu_n, nu=nu,
                         delta=delta_n, it=st["it"] + 1, done=e_0 <= opts.tol,
                         kkt0=e_0, feas=feas)
@@ -452,3 +460,27 @@ def make_solver(nlp: NLP, opts: SolverOptions = SolverOptions()) -> Callable:
                          feas_err=feas_u)
 
     return solve
+
+
+def kkt_error(nlp: NLP, res: IPMResult, p, lbw, ubw, lbg, ubg) -> dict:
+    """Unscaled feasibility of a result's lanes (JAX ipm.py:539-548, the
+    test oracle of solver correctness): per lane the largest violation of
+    the constraint bounds (``feas_g``) and of the box (``feas_box``), and
+    the solver's own KKT error (``kkt``), each (B,).  ``p`` has a leading
+    B on every entry; the bounds are given for one lane or per lane."""
+    w = res.w
+    kw = dict(dtype=w.dtype, device=w.device)
+    Bsz = w.shape[0]
+
+    def T(a, n):
+        a = torch.as_tensor(a, **kw)
+        return a.reshape(-1, n).expand(Bsz, n) if n else a.new_zeros((Bsz, 0))
+
+    p = {k: torch.as_tensor(v, **kw) for k, v in p.items()}
+    g = vmap(nlp.g)(w, p) if nlp.ng > 0 else w.new_zeros((Bsz, 0))
+    lbw, ubw, lbg, ubg = T(lbw, nlp.nw), T(ubw, nlp.nw), T(lbg, nlp.ng), T(ubg, nlp.ng)
+    feas = torch.maximum(_amax0(torch.clamp(g - ubg, min=0.0)),
+                         _amax0(torch.clamp(lbg - g, min=0.0)))
+    box = torch.maximum(_amax0(torch.clamp(w - ubw, min=0.0)),
+                        _amax0(torch.clamp(lbw - w, min=0.0)))
+    return {"feas_g": feas, "feas_box": box, "kkt": res.kkt_err}

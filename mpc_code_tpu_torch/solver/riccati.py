@@ -21,9 +21,8 @@ costate initial defect multipliers (``dual_init``); the associative-scan
 Riccati (``parallel=True``, ``riccati_parallel``); best-iterate
 bookkeeping and the closed loop's cross-solve dual/barrier warm start
 (``solve(..., ws=)``: the previous step's multipliers and barrier, shifted
-one stage and rescaled to the new objective scaling).  Only
-``SolverOptions.debug`` raises ``NotImplementedError`` (ROADMAP Queue 1
-item 29); what JAX refuses raises JAX's ``ValueError``.
+one stage and rescaled to the new objective scaling), and the debug
+printing.  What JAX refuses raises JAX's ``ValueError``.
 
 Layout.  The JAX solver is written for one lane and batched with ``vmap``;
 here every solver function takes an explicit leading batch dimension B.
@@ -58,6 +57,16 @@ recursion's Jacobian (where the OCP has no ``stage_dyn_jac``) come from
 the generic map ``dyn``, as in JAX.  The rest is IPM algebra on whole
 tensors.
 
+Under Gauss-Newton an OCP that has both a dynamics sweep and a lowering
+(the continuous map without u_prev) can take its stage derivatives by
+either route: ``"split"`` (the dynamics sweep plus the cost and rows by
+``torch.func``, the default) or ``"fused"`` (the fused stage sweep's
+Gauss-Newton build).  ``make_structured_solver(..., impl=)`` picks one;
+``build_structured_ocp(..., batch_hint=B)`` under
+``MPC_TPU_SWEEP_AUTOTUNE=1`` times both at B lanes and records the faster
+as the OCP's ``sweep_impl`` (``ops/sweep_autotune.py``).
+``SolverOptions.debug`` prints JAX's per-iteration line for every lane.
+
 The JAX ``lax.while_loop`` under ``vmap`` runs until every lane is done and
 freezes each lane as soon as its own condition ``(~done) & (it < cap)`` is
 false; the masked loop here does the same, so per-lane ``iters`` and
@@ -68,6 +77,8 @@ search, at most 12 a pass).
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -82,7 +93,7 @@ from mpc_code_tpu_torch.device import resolve_device
 from mpc_code_tpu_torch.models.model import ModelFns
 from mpc_code_tpu_torch.ops.smalllin import cho_solve, chol, solve_lu
 from mpc_code_tpu_torch.solver.nlp import (
-    STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED,
+    STATUS_ACCEPTABLE, STATUS_INFEASIBLE, STATUS_SOLVED, debug_lines,
 )
 from mpc_code_tpu_torch.solver.riccati_kernel import riccati_kkt
 
@@ -103,13 +114,10 @@ def _ls_exp(j: int) -> int:
     """The ladder's exponent e(j)."""
     return j + max(j - _LS_FINE, 0)
 
+
 # per-lane rank of each entry of the parameter dict p
 PARAM_NDIM = {"x0": 1, "xs": 1, "us": 1, "d": 1, "um1": 1, "t": 0,
               "lam": 2, "px": 2, "py": 2}
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def batch_params(p: dict, Bsz: int, dtype, device, ndim: Optional[dict] = None) -> dict:
@@ -238,6 +246,7 @@ class StructuredOCP:
     tc_target: Optional[Callable] = None   # p -> (B, n_tc) scaled x_N target
     n_eq: int = 0                # user stage equality rows (H_eq)
     eq: Optional[Callable] = None          # (xa, u, pk) -> (n_eq,) h rows
+    sweep_impl: str = "split"    # Gauss-Newton stage derivatives: "split" | "fused"
 
 
 # the per-point parameters of the lowered stage cost and rows, in order
@@ -294,12 +303,19 @@ def _dense(op, a, b):
 
 def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
                          device=None, stagewise_px: bool = False,
-                         n_colloc_newton: int = 8) -> StructuredOCP:
+                         n_colloc_newton: int = 8,
+                         batch_hint: Optional[int] = None) -> StructuredOCP:
     """Map the reference OCP (opt_dyn / opt_dyn_CM form) onto the stagewise
     structure.
 
     Uses the parameter dict {x0, xs, us, d, um1, t, lam, px (N,npx),
     py (N,npy)}.  Runs on ``device`` (default ``cuda``).
+
+    ``batch_hint``: the batch the solver built from this OCP will run.
+    With ``MPC_TPU_SWEEP_AUTOTUNE=1`` and a hint, the Gauss-Newton stage
+    derivatives' two routes are timed on this OCP at that batch (cached,
+    ``ops/sweep_autotune.py``) and the faster becomes ``sweep_impl`` (JAX
+    riccati.py:617-631).
 
     Collocation (opt_dyn_CM, Control_Calc.py:264-567) is condensed exactly
     within each stage: the 2-point Gauss-Legendre stage states S = [s1; s2]
@@ -736,7 +752,13 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         Bm = _dense(torch.mul, Ju, s_u[None, :] / s_x[:, None])
         return dval, A, Bm
 
-    return StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep, **exact)
+    socp = StructuredOCP(**common, stage_dyn_jac=stage_dyn_jac, sweep=sweep, **exact)
+    if os.environ.get("MPC_TPU_SWEEP_AUTOTUNE", "0") == "1" and batch_hint is not None:
+        from mpc_code_tpu_torch.ops.sweep_autotune import autotune_sweep_impl
+
+        socp = dataclasses.replace(socp, sweep_impl=autotune_sweep_impl(
+            cfg, socp, int(batch_hint), verbose=True))
+    return socp
 
 
 def make_stage_derivs(s: StructuredOCP, hessian: str = "exact",
@@ -1078,7 +1100,7 @@ def riccati_parallel(Hs, q, A, B, rd, PN, pN, *, nxa):
 
 
 def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions(),
-                           parallel: bool = False) -> Callable:
+                           parallel: bool = False, impl: Optional[str] = None) -> Callable:
     """Build ``solve(p, X0, U0, max_iter=None, ws=None) -> StructResult``
     for a batch.
 
@@ -1093,7 +1115,16 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     ``parallel=True`` takes the associative-scan Riccati
     (``riccati_parallel``) in place of the Riccati KKT kernel, with a
     permanent 1e-6 floor on the regularisation of the whole stage Hessian
-    (JAX riccati.py:1103-1117, 1584-1589)."""
+    (JAX riccati.py:1103-1117, 1584-1589).
+
+    ``impl`` (default the OCP's ``sweep_impl``) is the Gauss-Newton stage
+    derivatives' route: ``"split"`` or ``"fused"`` (the fused stage
+    sweep's Gauss-Newton build; the OCP needs a lowering).  ``opts.debug``
+    prints JAX's line (riccati.py:2020-2026) for every lane at every
+    step, in lane order, copying its values to the host."""
+    impl = s.sweep_impl if impl is None else impl
+    if impl not in ("split", "fused"):
+        raise ValueError(f"unknown impl {impl!r}: use 'split' or 'fused'")
     if opts.mu_strategy not in ("monotone", "adaptive", "mehrotra"):
         raise ValueError(f"unknown mu_strategy {opts.mu_strategy!r}: "
                          "use 'monotone', 'adaptive' or 'mehrotra'")
@@ -1112,9 +1143,14 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         raise ValueError("TermCons / stage equalities (H_eq) are not "
                          "supported with the parallel-scan Riccati variant; "
                          "use the sequential default")
-    if opts.debug:
-        raise _todo("debug printing", "Queue 1 item 29")
     exact = opts.hessian == "exact"
+    if impl == "fused" and not exact:
+        from mpc_code_tpu_torch.ops.sweep_autotune import fused_applies
+
+        if not fused_applies(s):
+            raise ValueError("impl='fused' needs an OCP whose stage functions the "
+                             "fused stage sweep lowers (the continuous map without "
+                             "u_prev, slacks or user rows)")
     mehrotra = opts.mu_strategy == "mehrotra"
     ls_adaptive = opts.ls_mode == "adaptive"
     # ls_parallel only chooses how backtracking evaluates its trials
@@ -1138,16 +1174,17 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     # ContForm, the u_prev augmentation and the slack, G_ineq and H_eq
     # forms) takes every output from make_stage_derivs vmapped over the B*N
     # points, as JAX does outside any Pallas kernel (JAX riccati.py:
-    # 1150-1155, 1396-1398).
+    # 1150-1155, 1396-1398).  Under Gauss-Newton impl='fused' takes the
+    # fused stage sweep's Gauss-Newton build in place of the split sweep.
     fast_cf = s.stage_cf is not None and not exact
-    split = (s.stage_dyn_jac is not None and not exact) or fast_cf
+    split = ((s.stage_dyn_jac is not None and not exact) or fast_cf) and impl == "split"
     fused = None
     v_stage = v_full = None
     if split:
         if ni or eqcons or not fast_cf:
             v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
                                              skip_cost=fast_cf))
-    elif s.lowering is not None:
+    elif s.lowering is not None and (exact or impl == "fused"):
         from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
 
         fused = make_stage_sweep(s, opts.hessian)
@@ -1673,11 +1710,12 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                                      torch.clamp(st["acap"] * 0.25, min=0.5 ** _MAX_BACKTRACK),
                                      torch.ones_like(psi0))
                 alpha = alpha_max * acap_n
+                accepted = torch.ones_like(solvable)
                 psi_keep = psi0_c
             else:
-                alpha = line_search(X, U, S, Z, dX, dU, dS, dZ, q, g_extra, pN_g, bgS,
-                                    mu, nu_pen, psi0, c_norm, slack_tol, alpha_max,
-                                    st["kkt0"] < 1e-5, (r_d, r_i, r_T, r_h))
+                alpha, accepted = line_search(
+                    X, U, S, Z, dX, dU, dS, dZ, q, g_extra, pN_g, bgS, mu, nu_pen, psi0,
+                    c_norm, slack_tol, alpha_max, st["kkt0"] < 1e-5, (r_d, r_i, r_T, r_h))
                 acap_n, psi_keep = st["acap"], st["psi_prev"]
             alpha = torch.where(solvable, alpha, torch.zeros_like(psi0))
             delta = st["delta"]
@@ -1701,6 +1739,15 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             zu_n = torch.where(huz, torch.minimum(torch.maximum(
                 zu + ad_z * dzu, mu_z / (ks_sig * gu_n)), ks_sig * mu_z / gu_n), 0.0)
 
+            if opts.debug:
+                debug_lines(
+                    "it={it} mu={mu:.2e} a={a:.2e} amax={am:.2e} acc={acc} slv={slv} "
+                    "|dX|={ndx:.2e} |dU|={ndu:.2e} nupen={np:.2e} psi0={p0:.3e} "
+                    "kkt={k:.3e} feas={f:.2e} done={d}",
+                    it=st["it"], mu=mu, a=alpha, am=alpha_max, acc=accepted, slv=solvable,
+                    ndx=dX.abs().flatten(1).amax(1), ndu=dU.abs().flatten(1).amax(1),
+                    np=nu_pen, p0=psi0, k=e_0, f=feas, d=done_now)
+
             new = dict(X=X_n, U=U_n, S=S_n, lam=lam + a_x * dlam,
                        nus=nus + a_x * dnu, zl=zl_n, zu=zu_n, mu=mu,
                        xi=xi + _lane(alpha, xi) * (xi_new - xi),
@@ -1721,7 +1768,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             first alpha_max 0.5^e(j), e(j) = j + max(j - 4, 0), j < 12, whose
             trial point lowers the merit enough (Armijo), or, where the merit
             overflowed, the residuals by 1%; alpha_max 0.5^20 when none does,
-            alpha_max at once near the optimum."""
+            alpha_max at once near the optimum.  Returns (alpha, accepted)."""
             # the a = 0 point's residuals are those of the sweep: no rollout
             c_norm_capped = capped(*res0)
             psi0_finite = torch.isfinite(psi0)
@@ -1764,8 +1811,9 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                 oks = trial_ok(alphas)
                 any_ok = oks.any(0)
                 first = alphas.gather(0, oks.to(torch.uint8).argmax(0)[None])[0]
-                return torch.where(near_opt, alpha_max,
-                                   torch.where(any_ok, first, fallback))
+                return (torch.where(near_opt, alpha_max,
+                                    torch.where(any_ok, first, fallback)),
+                        any_ok | near_opt)
             # the trips of JAX's while loop under vmap: every lane's trial at
             # once, a lane's alpha fixed when it is accepted; the loop ends
             # when every lane is, after at most _LS_TRIPS trips, at one host
@@ -1779,7 +1827,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                 searching = ~accepted
                 alpha = torch.where(searching, a, alpha)
                 accepted = accepted | (searching & trial_ok(a[None])[0])
-            return torch.where(accepted, alpha, fallback)
+            return torch.where(accepted, alpha, fallback), accepted
 
         it_cap = opts.max_iter if max_iter is None else int(max_iter)
         while True:

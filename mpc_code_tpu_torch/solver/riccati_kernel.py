@@ -174,7 +174,9 @@ def build_kernel(nxa, nu):
                 raise RuntimeError("launch_geometry disagrees with the shared "
                                    "memory layout of riccati_kkt.cu")
         _LIBS[key] = built
-    return _LIBS[key]
+    from mpc_code_tpu_torch.ops.cuda_build import used
+
+    return used(_LIBS[key])
 
 
 def riccati_kkt(Hs, q, A, B, rd, PN, pN, delta, *, nxa, nu):

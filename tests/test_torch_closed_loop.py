@@ -179,12 +179,13 @@ def test_dense_loop_matches_jax():
         assert np.abs(got - ref).max() <= 1e-8, hk
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(capsys):
     """The host loop, the hand-off from the host ``MHERuntime``, modifier
-    adaptation, collocation and every structured-solver option (item 21:
-    the associative-scan Riccati, ``mu_strategy='adaptive'``) run since
-    they were ported; what is still unported raises with its ROADMAP item:
-    ``SolverOptions.debug`` (item 29)."""
+    adaptation, collocation, every structured-solver option (item 21: the
+    associative-scan Riccati, ``mu_strategy='adaptive'``) and since item
+    29 ``SolverOptions.debug`` run: nothing of the host loop is refused any
+    more.  ``debug=True`` on the target's options builds the loop, and a
+    step prints JAX's per-iteration line of the dense IPM."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples.nmpc import make_config
     from mpc_code_tpu_torch.loop import ClosedLoop
@@ -198,8 +199,14 @@ def test_unported_features_raise():
     assert callable(make_structured_solver(socp, cfg.sol_opts_dyn, parallel=True))
     assert callable(make_mpc_step(cfg.replace(sol_opts_dyn=SolverOptions(mu_strategy="adaptive")),
                                   device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 29"):
-        ClosedLoop(cfg.replace(sol_opts_ss=SolverOptions(debug=True)), device="cpu")
+    capsys.readouterr()
+    # one step, its OCP capped at one iteration (the target's lines are read)
+    loop = ClosedLoop(cfg.replace(Nsim=1, sol_opts_ss=SolverOptions(debug=True),
+                                  sol_opts_dyn=SolverOptions(max_iter=1)), device="cpu")
+    loop.run()
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("it=")]
+    assert lines[0].startswith("it=0 mu=") and " kkt=" in lines[0] and " feas=" in lines[0]
+    assert len(lines) == int(loop.step_stats[0]["ss_iters"])   # one lane
 
 
 def test_host_entry_points_default_to_the_card():

@@ -45,6 +45,56 @@ def test_port_never_imports_jax():
     assert not bad, bad
 
 
+def _jax_inits():
+    """(dotted package, __all__) of every ``__init__.py`` of the JAX package."""
+    root = os.path.join(ROOT, "mpc_code_tpu")
+    for d, _, files in os.walk(root):
+        if "__init__.py" not in files:
+            continue
+        with open(os.path.join(d, "__init__.py")) as f:
+            tree = ast.parse(f.read())
+        names = []
+        for node in tree.body:
+            if (isinstance(node, ast.Assign)
+                    and any(getattr(t, "id", None) == "__all__" for t in node.targets)):
+                names = ast.literal_eval(node.value)
+        rel = os.path.relpath(d, ROOT).replace(os.sep, ".")
+        yield rel, names
+
+
+def test_port_exports_every_public_name_of_the_jax_packages():
+    """A user's ``from mpc_code_tpu.<pkg> import <name>`` has its
+    counterpart ``from mpc_code_tpu_torch.<pkg> import <name>``; the top
+    level, like JAX's, imports config, ops, models and solver and builds
+    nothing."""
+    import importlib
+
+    seen = 0
+    for pkg, names in _jax_inits():
+        port = importlib.import_module(pkg.replace("mpc_code_tpu", "mpc_code_tpu_torch", 1))
+        missing = [n for n in names if not hasattr(port, n)]
+        assert not missing, (pkg, missing)
+        seen += len(names)
+    assert seen >= 40
+    import mpc_code_tpu_torch
+
+    assert {"config", "ops", "models", "solver"} <= set(mpc_code_tpu_torch.__all__)
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Every ``.py`` of ``mpc_code_tpu/`` has a counterpart path in
+    ``mpc_code_tpu_torch/``, but ``ops/sweep_pallas.py``, whose three Pallas
+    kernels are CUDA sources in ``mpc_code_tpu_torch/csrc/``."""
+    jroot, proot = (os.path.join(ROOT, p) for p in ("mpc_code_tpu", "mpc_code_tpu_torch"))
+    rels = sorted(os.path.relpath(os.path.join(d, f), jroot)
+                  for d, _, files in os.walk(jroot) for f in files if f.endswith(".py"))
+    assert len(rels) > 40
+    missing = [r for r in rels if not os.path.exists(os.path.join(proot, r))]
+    assert missing == [os.path.join("ops", "sweep_pallas.py")]
+    for cu in ("rk4_stage_jac.cu", "map_stage_jac.cu", "rk4_quad_stage_hess.cu"):
+        assert os.path.exists(os.path.join(proot, "csrc", cu))
+
+
 def _dataclasses(mod):
     return {n: c for n, c in vars(mod).items()
             if isinstance(c, type) and dataclasses.is_dataclass(c)
@@ -114,12 +164,13 @@ def test_entry_points_default_to_the_card():
     assert build_structured_ocp(*args, device="cpu").device.type == "cpu"
 
 
-def test_unported_options_raise_with_roadmap_item():
+def test_unported_options_raise_with_roadmap_item(capsys):
     """Every option of the structured solver builds since item 21 (the
     associative scan, the barrier strategies, backtracking, stale sweeps,
     costate duals, the exact Hessian of the discrete map with the u_prev
-    augmentation); what JAX refuses raises JAX's ValueError, and the debug
-    printing, still unported, names its ROADMAP item (29)."""
+    augmentation) and, since item 29, ``debug=True``, which prints JAX's
+    per-iteration line: no option names a ROADMAP item any more.  What JAX
+    refuses raises JAX's ValueError."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.examples import nmpc_dis
     from mpc_code_tpu_torch.examples.nmpc import make_config
@@ -148,5 +199,13 @@ def test_unported_options_raise_with_roadmap_item():
     for kw in (dict(mu_strategy="loqo"), dict(ls_mode="filter"), dict(hessian="bfgs")):
         with pytest.raises(ValueError, match="unknown"):
             make_structured_solver(socp, SolverOptions(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 29"):
-        make_structured_solver(socp, SolverOptions(debug=True))
+    from mpc_code_tpu_torch.examples.bench_workload import bench_params
+
+    capsys.readouterr()
+    x0 = torch.tensor([[0.5, 330.0, 0.6]], dtype=torch.float64)
+    make_structured_solver(socp, SolverOptions(debug=True, max_iter=1))(
+        bench_params(cfg, x0, cfg.N), x0[:, None].expand(1, cfg.N + 1, 3),
+        torch.tensor([[300.0, 0.1]], dtype=torch.float64).expand(1, cfg.N, 2))
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and lines[0].startswith("it=0 mu=1.00e-01 a=")
+    assert " kkt=" in lines[0] and lines[0].endswith(("done=False", "done=True"))
