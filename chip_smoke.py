@@ -24,8 +24,10 @@ It never imports JAX or the JAX package.  Phases:
    nu=1), the discrete map's stage-Jacobian sweep and the Riccati KKT
    solve at the quadruple tank's (N=50, nxa=8, nu=2), the fused stage
    sweep at the exact-Hessian CSTR path's (N=50, nz=5, ni=2; the Riccati
-   KKT solve has the CSTR path's shapes there), in its exact build and in
-   its Gauss-Newton build, the Riccati KKT solve at the LMPC loop's
+   KKT solve has the CSTR path's shapes there) and at the exact runs' of
+   phase 11 (the quadruple tank's discrete map with u_prev, N=50, nz=10,
+   ni=4; ENMPC's ContForm, N=25, nz=3; the CSTR with DUForm, N=50, nz=7),
+   each in its exact build and in its Gauss-Newton build, the Riccati KKT solve at the LMPC loop's
    (N=50, nxa=5, nu=2), the bench port's (N=20, nxa=3, nu=2, 1024
    lanes) and the structured MHE's (N=11, nxa=4, nu=4); an f32 sweep
    (kernels 1, 3, 5) must also lie
@@ -101,9 +103,9 @@ It never imports JAX or the JAX package.  Phases:
    option of the structured solver (``parallel=True``, the 'adaptive' and
    'mehrotra' barriers, backtracking sequential and in one batched
    rollout, ``sweep_every=2``, costate duals), then three OCPs under the
-   exact Hessian through the generic ``torch.func`` stage derivatives (the
-   nmpc_dis and ENMPC workloads with the examples' exact Hessian, the
-   CSTR with DUForm): solves/s, ok_fraction, iterations and every
+   exact Hessian through kernel 5's builds of their forms (the nmpc_dis
+   and ENMPC workloads with the examples' exact Hessian, the CSTR with
+   DUForm): solves/s, ok_fraction, iterations and every
    kernel's launches against the solver's own counts; 8 lanes of each run
    in f64 on the card held to the CPU's f64 run; and the autotune run: the
    sweep autotune's probe of the two Gauss-Newton routes (kernel 1 with
@@ -155,8 +157,9 @@ It never imports JAX or the JAX package.  Phases:
    ``{"ok": true, "device": {...}}``.
 
 The kernel phases and phase 3 run alone on the card.  From there on
-three processes share it: this one (phases 4-10 and the debug phase),
-one for phase 11's solver options and one for phases 13, 12, 14 and 15
+three processes share it: this one (phases 4-8, 10 and the debug phase),
+one for phase 9 (the bench port, the mesh) and phase 11's solver options
+and one for phases 13, 12, 14 and 15
 (``PARTS``; each started as ``python3 chip_smoke.py --part ...`` with CPU
 workers of its own), and the check lanes of phases 7 and 12 run in
 processes of their own beside them.  Any failed phase exits non-zero without the last line.
@@ -711,58 +714,128 @@ def stage_sweep_inputs(dtype, device, socp, seed=5):
     third state on the guard's lower bound at every stage, 1 its first
     state on its lower bound and 2 its third on its upper bound (ties,
     F1); those states have unit scale, so the bound is exact in the
-    working dtype."""
+    working dtype.  With DUForm (nxa = 5) the u_prev slots follow the
+    state, drawn as the inputs are, after every other draw."""
     import torch
 
     from mpc_code_tpu_torch.examples.bench_workload import N, XHI, XLO
 
     rng = np.random.default_rng(seed)
     low = socp.lowering
-    X = rng.uniform(XLO, XHI, size=(B, N, 3)) / socp.sxa
+    X = rng.uniform(XLO, XHI, size=(B, N, 3)) / socp.sxa[:3]
     X[0, :, 2] = float(low.clip_lo[2])
     X[1, :, 0] = float(low.clip_lo[0])
     X[2, :, 2] = float(low.clip_hi[2])
     U = rng.uniform([295.0, 0.0], [305.0, 0.25], size=(B, N, 2)) / socp.su
-    arrs = [X, U, rng.normal(size=(B, N, 3)), rng.normal(size=(B, N, 2)) * 0.1,
+    arrs = [X, U, rng.normal(size=(B, N, socp.nxa)), rng.normal(size=(B, N, 2)) * 0.1,
             rng.normal(size=(B, N, 3)) * 1e-3, rng.normal(size=(B, N, 2)) * 1e-3,
             np.zeros(B), rng.uniform(0.5, 1.0, B),
             np.array([0.874317, 325.0, 0.6528]) + rng.normal(size=(B, 3)) * 1e-2,
             np.array([300.157, 0.1]) + rng.normal(size=(B, 2)) * 1e-3,
             np.stack([np.zeros(B), rng.uniform(0.08, 0.12, B)], 1),
             np.tile([300.157, 0.1], (B, 1)), rng.normal(size=(B, 4)) * 1e-2]
+    if socp.nxa > 3:
+        up = rng.uniform([295.0, 0.0], [305.0, 0.25], size=(B, N, 2)) / socp.sxa[3:]
+        arrs[0] = np.concatenate([X, up], -1)
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], [0, 1, 2]
 
 
-def stage_sweep_kernel_phase(dev, xprob, results):
-    """Kernel 5 (the fused stage sweep) against its plain version at the
-    exact-Hessian CSTR path's shapes: the exact build the path launches,
-    then the Gauss-Newton build (``"gauss_newton"``), which the solver
-    launches for a Gauss-Newton OCP without a split dynamics sweep."""
+def nmpc_dis_sweep_inputs(dtype, device, socp, seed=6):
+    """Inputs of the fused stage sweep at the quadruple tank's exact
+    shapes (N=50, nxa=8, nu=2, ni=4), in the workload's boxes: valve
+    states, u_prev and inputs over [30, 50], levels 1-2 over [6, 14] and
+    3-4 over [0.5, 3] (with these inflows no tank drains to 0 inside the
+    map), multipliers of the size the solves meet, small parameters.
+    Scenario 0 has level 1 and scenario 1 level 2 exactly on the clip
+    bound 20 at every stage (ties, F1; the level's scale is 20, so the
+    bound is exact in the working dtype)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = socp.N
+    x = np.concatenate([rng.uniform(30.0, 50.0, size=(B, N, 2)),
+                        rng.uniform(6.0, 14.0, size=(B, N, 2)),
+                        rng.uniform(0.5, 3.0, size=(B, N, 2)),
+                        rng.uniform(30.0, 50.0, size=(B, N, 2))], -1)
+    x[0, :, 2] = 20.0
+    x[1, :, 3] = 20.0
+    U = rng.uniform(30.0, 50.0, size=(B, N, 2))
+    arrs = [x / socp.sxa, U / socp.su, rng.normal(size=(B, N, 8)),
+            rng.normal(size=(B, N, 4)) * 0.1, rng.normal(size=(B, N, 6)) * 1e-3,
+            rng.normal(size=(B, N, 2)) * 1e-3, rng.uniform(0.0, 6000.0, B),
+            rng.uniform(0.5, 1.0, B), rng.uniform(5.0, 15.0, size=(B, 6)),
+            rng.uniform(30.0, 50.0, size=(B, 2)), rng.uniform(-0.5, 0.5, size=(B, 2)),
+            rng.uniform(30.0, 50.0, size=(B, 2)), rng.normal(size=(B, 4)) * 1e-2]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], [0, 1]
+
+
+def enmpc_sweep_inputs(dtype, device, socp, seed=7):
+    """Inputs of the fused stage sweep at the ENMPC path's exact shapes
+    (ContForm, N=25, nxa=2, nu=1, ni=0): states and inputs over their
+    boxes, the kernel 4 check's parameters, each lane's target near the
+    economic optimum."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = socp.N
+    arrs = [rng.uniform(0.0, 1.0, size=(B, N, 2)) / socp.sxa,
+            rng.uniform(0.0, 2.0, size=(B, N, 1)) / socp.su, rng.normal(size=(B, N, 2)),
+            np.zeros((B, N, 0)), rng.normal(size=(B, N, 2)) * 1e-3,
+            rng.normal(size=(B, N, 2)) * 1e-3, np.zeros(B), rng.uniform(0.5, 1.0, B),
+            rng.uniform([0.4, 0.4], [0.6, 0.5], size=(B, 2)),
+            rng.uniform(0.8, 1.3, size=(B, 1)), rng.uniform(-0.05, 0.05, size=(B, 2)),
+            rng.uniform(0.8, 1.3, size=(B, 1)), rng.normal(size=(B, 2)) * 1e-2]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
+
+
+# Kernel 5's builds: the exact-Hessian CSTR (the continuous map, since PR
+# 5) and the three forms the fused stage sweep has lowered since PR 14,
+# each at its path's shapes: the quadruple tank's discrete map with the
+# u_prev augmentation, ENMPC's ContForm and the CSTR with DUForm.  Each in
+# its exact build (results key ``<build>``) and its Gauss-Newton build
+# (``<build>_gn``).  build -> (problem key, inputs, the path it serves)
+STAGE_BUILDS = {"stage_sweep": ("cstr_exact", stage_sweep_inputs, "cstr_exact"),
+                "stage_sweep_nmpc_dis": ("nmpc_dis", nmpc_dis_sweep_inputs,
+                                         "solver_options_nmpc_dis_exact"),
+                "stage_sweep_enmpc": ("enmpc", enmpc_sweep_inputs,
+                                      "solver_options_enmpc_exact"),
+                "stage_sweep_cstr_du": ("cstr_du", stage_sweep_inputs,
+                                        "solver_options_cstr_du_exact")}
+
+
+def stage_sweep_kernel_phase(dev, xprobs, results):
+    """Kernel 5 (the fused stage sweep) against its plain version at each
+    build's path's shapes (STAGE_BUILDS): the exact build the path
+    launches, then the Gauss-Newton build (``"gauss_newton"``), which the
+    solver launches for a Gauss-Newton OCP with ``impl="fused"``.
+    ``xprobs``: problem key -> (cfg, socp)."""
     import torch
 
     from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     failures = []
-    cfg, _, socp, _ = xprob
-    dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
-    for hessian, key in (("exact", "stage_sweep"), ("gauss_newton", "stage_sweep_gn")):
-        sweep = sk.make_stage_sweep(socp, hessian)
-        ptx = results[key].get("ptxas_summary", {})
-        for dtype in (torch.float64, torch.float32):
-            failures += stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx,
-                                          results[key])
+    for build, (pkey, inputs, _) in STAGE_BUILDS.items():
+        cfg, socp = xprobs[pkey]
+        dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
+        for hessian, key in (("exact", build), ("gauss_newton", build + "_gn")):
+            sweep = sk.make_stage_sweep(socp, hessian)
+            ptx = results[key].get("ptxas_summary", {})
+            for dtype in (torch.float64, torch.float32):
+                failures += stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx,
+                                              results[key], inputs)
     return failures
 
 
-def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out):
-    """One build of kernel 5 against its plain version in one dtype; the
-    numbers go into ``out[dtype name]``.  Returns the failures."""
+def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs):
+    """One build of kernel 5 against its plain version in one dtype, on
+    ``inputs(dtype, dev, socp)``; the numbers go into ``out[dtype name]``.
+    Returns the failures."""
     import torch
 
     from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     tname = str(dtype).replace("torch.", "")
-    arrs, tie = stage_sweep_inputs(dtype, dev, socp)
+    arrs, tie = inputs(dtype, dev, socp)
     got = sweep(*arrs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()            # host-bound: seconds per call
@@ -771,8 +844,8 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out):
     plain_ms = (time.perf_counter() - t0) * 1e3
     errs = [nerr(g, r) for g, r in zip(got, ref)]
     err = max(errs)
-    err_tie = max(nerr(g[tie], r[tie]) for g, r in zip(got, ref))
-    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    err_tie = max((nerr(g[tie], r[tie]) for g, r in zip(got, ref)), default=0.0)
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g.numel())
     finite = all(bool(g.isfinite().all()) for g in got)
     sym = float((got[0] - got[0].transpose(-1, -2)).abs().max())
     # each f32 result against the plain version in f64 on the same inputs
@@ -784,10 +857,10 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out):
     planes = sweep.pack(*arrs)
     ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
     wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
-    byt = sk.stage_bytes(B, cfg.N, *dims, cfg.ny * cfg.nu, arrs[0].element_size())
+    byt = sk.stage_bytes(B, socp.N, *dims, cfg.ny * cfg.nu, arrs[0].element_size())
     ops_lane = sweep.ops_per_lane(*dims)
     t_b = byt / H100_BYTES_PER_S * 1e3
-    t_o = B * cfg.N * ops_lane / H100_FLOPS[tname] * 1e3
+    t_o = B * socp.N * ops_lane / H100_FLOPS[tname] * 1e3
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32["stage_sweep"]
     log(f"# kernel {key} ({sweep.hessian}) {tname}: max_norm_err={err:.3e} per output "
         f"(H, gc, A, B, E, ival, dval) {['%.2e' % e for e in errs]} "
@@ -2293,13 +2366,14 @@ def constrained_phase(dev, launches, results, cpu_refs):
 # of the slice phase on its first OPTIONS_B lanes in f32 under each option
 # of the structured solver (OPTION_RUNS, make_problem's arguments; "default"
 # is the slice phase's settings at the same lanes, the yardstick), then
-# three OCPs under the exact Hessian, whose stage derivatives come from the
-# generic torch.func route (EXACT_RUNS: the nmpc_dis and ENMPC workloads
-# with the examples' exact Hessian, the bench's CSTR with DUForm).  Kernel
+# three OCPs under the exact Hessian, whose stage derivatives come from
+# kernel 5's builds of their forms (EXACT_RUNS: the nmpc_dis and ENMPC
+# workloads with the examples' exact Hessian, the bench's CSTR with DUForm;
+# the generic torch.func route before PR 14).  Kernel
 # launches are held to the solver's own counts: kernel 2 once a pass (twice
 # under Mehrotra, none under parallel=True, K a sweep under sweep_every=K),
 # kernel 1 once a sweep (and once more a solve for costate duals); on the
-# exact routes kernel 2 once a pass and no sweep kernel.  OPTIONS_CHECK
+# exact runs kernels 5 and 2 once a pass and no other kernel.  OPTIONS_CHECK
 # lanes of every run but "default" (the slice phase checks it) are solved
 # in f64 on the card to OPTIONS_CHECK_OPTS and held to the CPU's f64 run:
 # statuses and iterations equal, X and U to OPTIONS_F64_TOL.  The exact
@@ -2461,9 +2535,9 @@ def options_phase(dev, launches, cpu_refs):
         # each run after an untimed short one at OPTIONS_WARMUP lanes: the
         # card's first use of what the run calls (cuBLAS and cuSOLVER
         # handles, the kernels' libraries) stays out of its time
-        generic = name in ("nmpc_dis_exact", "enmpc_exact")
+        workload_run = name in ("nmpc_dis_exact", "enmpc_exact")
         run_b = EXACT_B if name in EXACT_RUNS else OPTIONS_B
-        if generic:
+        if workload_run:
             wl, prob = options_workload(name, dev)
             wl.run_pipeline(prob, wl.draw_lanes(OPTIONS_WARMUP, dev))
             prob = prob._replace(ocp_solve=counted(prob.ocp_solve, True))
@@ -2490,7 +2564,7 @@ def options_phase(dev, launches, cpu_refs):
         torch.cuda.reset_peak_memory_stats(dev)
         for m in mods.values():
             m.LAUNCHES = 0
-        if generic:
+        if workload_run:
             out = wl.run_pipeline(prob, lanes)
             status, iters, times = out["status"], out["iters"], out["times"]
         else:
@@ -2500,8 +2574,9 @@ def options_phase(dev, launches, cpu_refs):
         for k, n in got.items():
             launches[f"{k}_options_{name}"] = n
         if name.endswith("_exact"):
+            # kernel 5's build of the run's form and kernel 2, once a pass each
             want = dict.fromkeys(mods, 0)
-            want["riccati_kkt"] = sum(p for p, _ in calls)
+            want["riccati_kkt"] = want["stage_sweep"] = sum(p for p, _ in calls)
         else:
             # the autotune's "fused" winner: kernel 5's Gauss-Newton build
             # where kernel 1 launched
@@ -2557,8 +2632,9 @@ def options_phase(dev, launches, cpu_refs):
 # launch none); ``aggregate_metrics`` over NCCL equal to the host's count;
 # then ``entry.dryrun_multichip(1)`` (the linear CSTR at N=4, then Ex_ENMPC
 # at N=3 with the MHE at N_mhe=3), kernel 2's launches equal to its OCP
-# and MHE solvers' passes (kernel 4 idle: the example's ContForm OCP runs
-# the exact Hessian, by the generic torch.func route).  The card is one
+# and MHE solvers' passes, and kernel 5's (its ContForm build) to the OCP
+# solver's (kernel 4 idle: the example's ContForm OCP runs the exact
+# Hessian).  The card is one
 # H100: only a one-rank mesh is checked here.
 MESH_B, MESH_STEPS = 1024, 5
 MESH_U_TOL = 1e-6
@@ -2599,6 +2675,7 @@ def mesh_phase(dev, launches):
         aggregate_metrics, make_closed_loop_runner, make_mesh,
     )
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     failures, report = [], {}
     mesh = make_mesh(1)
@@ -2643,27 +2720,31 @@ def mesh_phase(dev, launches):
         if agg != host:
             failures.append(f"mesh: aggregate_metrics {agg} against the host's {host}")
         # the one-rank dry run of the entry point
-        rk.LAUNCHES = sweep_cf_cuda.LAUNCHES = 0
+        rk.LAUNCHES = sweep_cf_cuda.LAUNCHES = sk.LAUNCHES = 0
         t0 = time.perf_counter()
         (_, lin), (_, mhe) = entry.dryrun_multichip(1)
         torch.cuda.synchronize()
         want_k2 = run_passes(lin) + run_passes(mhe) + sum(
             solver_passes(mhe.mhe_iters[k], mhe.mhe_status[k])
             for k in range(mhe.mhe_iters.shape[0]))
-        # kernel 4 is the ContForm OCP's sweep under Gauss-Newton only: the
-        # example's exact Hessian takes the generic torch.func route
-        want_k4 = run_passes(mhe) if enmpc_config().sol_opts_dyn.hessian != "exact" else 0
+        # the ContForm OCP's sweep: kernel 4 under Gauss-Newton, kernel 5's
+        # ContForm build under the example's exact Hessian, once a pass
+        exact = enmpc_config().sol_opts_dyn.hessian == "exact"
+        want_k4, want_k5 = (0, run_passes(mhe)) if exact else (run_passes(mhe), 0)
         report["dryrun"] = dict(seconds=time.perf_counter() - t0, riccati_kkt=rk.LAUNCHES,
                                 expected_riccati_kkt=want_k2,
                                 rk4_quad_stage_hess=sweep_cf_cuda.LAUNCHES,
                                 expected_rk4_quad_stage_hess=want_k4,
+                                stage_sweep=sk.LAUNCHES, expected_stage_sweep=want_k5,
                                 u_lin=lin.u.cpu().numpy().tolist(),
                                 u_enmpc=mhe.u.cpu().numpy().tolist())
         launches["riccati_kkt_dryrun"] = rk.LAUNCHES
         launches["rk4_quad_stage_hess_dryrun"] = sweep_cf_cuda.LAUNCHES
-        if rk.LAUNCHES != want_k2 or sweep_cf_cuda.LAUNCHES != want_k4:
-            failures.append(f"mesh dryrun: launches {rk.LAUNCHES} / {sweep_cf_cuda.LAUNCHES}"
-                            f", expected {want_k2} / {want_k4}")
+        launches["stage_sweep_dryrun"] = sk.LAUNCHES
+        got = (rk.LAUNCHES, sweep_cf_cuda.LAUNCHES, sk.LAUNCHES)
+        if got != (want_k2, want_k4, want_k5):
+            failures.append(f"mesh dryrun: launches of kernels 2, 4, 5 {got}, expected "
+                            f"{(want_k2, want_k4, want_k5)}")
         for o in (lin, mhe):
             if not (torch.isfinite(o.u).all() and (o.status_dyn != 2).all()):
                 failures.append("mesh dryrun: a non-finite or infeasible lane")
@@ -2866,7 +2947,10 @@ PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
 # 1,051-1,117 s of the 1,200 s limit on the H100 (PERF.md section 4).
 ALONE = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel", "enmpc_mhe kernel",
          "stage_sweep kernel", "slice")
-PARTS = (("solver_options",), ("host_loop", "enmpc_loop", "enmpc_handoff", "aot"))
+# clb and mesh went to the solver_options part in PR 14, when kernel 5's
+# new builds lengthened the build and the kernel phases before the parts
+PARTS = (("clb", "mesh", "solver_options"),
+         ("host_loop", "enmpc_loop", "enmpc_handoff", "aot"))
 PART_WAIT_S = 1100             # a part's run, from this process's start, at most
 # the closed loops whose check lanes (from step 0) run on the card in a
 # process of their own from the end of the kernel phases
@@ -3009,7 +3093,8 @@ def main() -> int:
     dev = torch.device("cuda")
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
-            "map_stage_jac", "riccati_kkt_nmpc_dis", "stage_sweep", "stage_sweep_gn",
+            "map_stage_jac", "riccati_kkt_nmpc_dis",
+            *(build + suffix for build in STAGE_BUILDS for suffix in ("", "_gn")),
             "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
             "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe", "riccati_kkt_soft")
     results = {k: {} for k in keys}
@@ -3027,12 +3112,16 @@ def main() -> int:
         dprob = dw.make_problem(dev)
         xprob = make_problem(dev, hessian="exact")
         ec, dc, xsocp = eprob.cfg, dprob.cfg, xprob[2]
+        duprob = make_problem(dev, **EXACT_RUNS["cstr_du_exact"])
+        # kernel 5's builds' OCPs (STAGE_BUILDS): each path's own
+        xprobs = {"cstr_exact": (cfg, xsocp), "nmpc_dis": (dc, dprob.socp),
+                  "enmpc": (ec, eprob.socp), "cstr_du": (duprob[0], duprob[2])}
         lsocp, csocp = linear_ocp(lw.make_config()), linear_ocp(cb.make_config())
         msocp = mw.mhe_ocp(mw.make_config(), dev)
         ssocp = make_problem(dev, **constrained_runs()["soft"])[2]
         sweep = socp.sweep
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(11) as ex:
+        with cf.ThreadPoolExecutor(9 + 2 * len(STAGE_BUILDS)) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -3047,10 +3136,12 @@ def main() -> int:
                 "riccati_kkt_lmpc": ex.submit(rk.build_kernel, lsocp.nxa, lsocp.nu),
                 "riccati_kkt_enmpc_mhe": ex.submit(rk.build_kernel, msocp.nxa, msocp.nu),
                 "riccati_kkt_soft": ex.submit(rk.build_kernel, ssocp.nxa, ssocp.nu),
-                **{key: ex.submit(sk.make_stage_sweep(xsocp, hessian).build,
-                                  xsocp.nxa, xsocp.nu, xsocp.ni, cfg.nd, cfg.npx, cfg.npy)
-                   for key, hessian in (("stage_sweep", "exact"),
-                                        ("stage_sweep_gn", "gauss_newton"))}}
+                **{build + suffix: ex.submit(
+                    sk.make_stage_sweep(xprobs[pkey][1], hessian).build, xprobs[pkey][1].nxa,
+                    xprobs[pkey][1].nu, xprobs[pkey][1].ni, xprobs[pkey][0].nd,
+                    xprobs[pkey][0].npx, xprobs[pkey][0].npy)
+                   for build, (pkey, _, _) in STAGE_BUILDS.items()
+                   for suffix, hessian in (("", "exact"), ("_gn", "gauss_newton"))}}
             built = {name: j.result() for name, j in jobs.items()}
         if part is None:
             log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
@@ -3120,7 +3211,7 @@ def main() -> int:
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
               ("lmpc kernel", lambda: lmpc_kernel_phase(dev, lsocp, csocp, results)),
               ("enmpc_mhe kernel", lambda: enmpc_mhe_kernel_phase(dev, msocp, results)),
-              ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprob, results)),
+              ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprobs, results)),
               ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
               ("nmpc_dis", lambda: controller_phase(dev, nmpc_dis, launches, cpu_refs)),
@@ -3308,6 +3399,25 @@ def main() -> int:
             k["gauss_newton_build"] = entry(name, results["stage_sweep_gn"], gn_launches)
             k["gauss_newton_build"]["launches_by_path"] = {
                 "solver_options_autotune": gn_launches}
+            # the builds of the forms lowered since PR 14, at their paths'
+            # shapes: each exact build's launches on its solver_options run
+            # (and ContForm's on the mesh phase's dry run); no path launches
+            # their Gauss-Newton builds
+            k["builds"] = {}
+            for build, (_, _, path) in STAGE_BUILDS.items():
+                if build == "stage_sweep":
+                    continue
+                by_path = {path: launches.get(path.replace("solver_options_",
+                                                           "stage_sweep_options_"), 0)}
+                if build == "stage_sweep_enmpc":
+                    by_path["dryrun"] = launches.get("stage_sweep_dryrun", 0)
+                k["builds"][build] = dict(
+                    entry(name, results[build], sum(by_path.values())),
+                    launches_by_path=by_path,
+                    gauss_newton_build=entry(name, results[build + "_gn"], 0))
+            k["launches_by_path"] = {"cstr_exact": launches["stage_sweep"], **{
+                p: v["launches_by_path"].get(p, 0) for v in k["builds"].values()
+                for p in v["launches_by_path"]}}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

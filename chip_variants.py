@@ -4,9 +4,9 @@
 Run from the repository root on a machine with one NVIDIA H100 and the
 CUDA toolkit:
 
-    python3 chip_variants.py [k1k3] [k5] [k2]
+    python3 chip_variants.py [k1k3] [k5] [k5build] [k2]
 
-with no argument it runs all three groups.  Each variant is a committed
+with no argument it runs k1k3, k5 and k2.  Each variant is a committed
 kernel source with one textual change, built into its own directory; it
 prints nvcc's ptxas registers and spills for each, and times each against
 the committed kernel in turns (committed, variant, variant, committed;
@@ -28,6 +28,12 @@ variant computes the same function.
 - ``k5``, kernel 5 (``csrc/stage_sweep.cu``), f64: ``px`` kept live across
   the RK4 sub-steps; the running sum and H's accumulator in registers; a
   lane in one thread (no split), all in registers;
+- ``k5build``, kernel 5's quadruple-tank builds (the discrete map with
+  the u_prev augmentation, nz = 10, exact and Gauss-Newton): nvcc's
+  seconds and ptxas's registers and spills of the committed source and of
+  variants (one dtype alone; the lane split over 1, 2 or 4 threads; the
+  lane's work in a function of its own), compiled at once, not timed on
+  the card;
 - ``k2``, kernel 2 (``csrc/riccati_kkt.cu``), f32 and f64: outputs written
   stage by stage (S = 1) instead of buffered.
 
@@ -139,15 +145,40 @@ K13_VARIANTS = {
             ("__global__ void __launch_bounds__(THREADS)", "__global__ void")]},
     },
 }
+K5_F64_LAYOUT = ("template <> struct Layout<double> { static constexpr int SPLIT = 2; "
+                 "static constexpr bool SMEM = true; };")
+K5_F32_LAYOUT = ("template <class T> struct Layout { static constexpr int SPLIT = 1; "
+                 "static constexpr bool SMEM = false; };")
 K5_VARIANTS = {
     "px live across the sub-steps": {"stage_sweep.cu": [
-        ("pxe[i] = pxp[i * L + l];", "pxe[i] = px[i];")]},
+        ("pxe[i] = o.px[i * L + l];", "pxe[i] = px[i];")]},
     "sum and accumulator in registers": {"stage_sweep.cu": [
-        ("static constexpr int SPLIT = 2; static constexpr bool SMEM = true;",
-         "static constexpr int SPLIT = 2; static constexpr bool SMEM = false;")]},
+        (K5_F64_LAYOUT, K5_F64_LAYOUT.replace("SMEM = true", "SMEM = false"))]},
     "one thread per lane": {"stage_sweep.cu": [
-        ("static constexpr int SPLIT = 2; static constexpr bool SMEM = true;",
-         "static constexpr int SPLIT = 1; static constexpr bool SMEM = false;")]},
+        (K5_F64_LAYOUT, K5_F64_LAYOUT.replace("SPLIT = 2", "SPLIT = 1")
+         .replace("SMEM = true", "SMEM = false"))]},
+}
+# kernel 5's quadruple-tank build (the discrete map with u_prev, nz = 10):
+# one dtype alone, the lane split, the lanes' work not inlined into the
+# kernel; built by nvcc in parallel and timed (k5build)
+_K5_NO_F64 = ("  return launch<double>(X, U, lam, nus, px, py, ts, sfs, xs, us, ds, um1, lamy,\n"
+              "                        H, gc, A, B, E, ival, dval, L, N, Bsz, stream);",
+              "  return 1;")
+_K5_NO_F32 = ("  return launch<float>(X, U, lam, nus, px, py, ts, sfs, xs, us, ds, um1, lamy,\n"
+              "                       H, gc, A, B, E, ival, dval, L, N, Bsz, stream);",
+              "  return 1;")
+K5_BUILD_VARIANTS = {
+    "float32 only": [_K5_NO_F64],
+    "float64 only": [_K5_NO_F32],
+    "float32 only, lane split over 2": [
+        _K5_NO_F64, (K5_F32_LAYOUT, K5_F32_LAYOUT.replace("SPLIT = 1", "SPLIT = 2"))],
+    "float32 only, lane split over 4": [
+        _K5_NO_F64, (K5_F32_LAYOUT, K5_F32_LAYOUT.replace("SPLIT = 1", "SPLIT = 4"))],
+    "float64 only, lane split over 4": [
+        _K5_NO_F32, (K5_F64_LAYOUT, K5_F64_LAYOUT.replace("SPLIT = 2", "SPLIT = 4"))],
+    "lane work not inlined": [
+        ("__device__ __forceinline__ void lane_sweep(",
+         "__device__ __noinline__ void lane_sweep(")],
 }
 K2_VARIANTS = {
     "outputs stage by stage (S = 1)": {"riccati_kkt.cu": [
@@ -363,6 +394,44 @@ def k5(cs, dev, csrc, tmp):
               f"committed_ms={c:.4f} max_abs_diff={diff:.2e}")
 
 
+def k5build(cs, dev, csrc, tmp):
+    """nvcc's seconds and ptxas's registers and spills for kernel 5's
+    quadruple-tank builds (exact and Gauss-Newton) and K5_BUILD_VARIANTS
+    of the exact one, all compiled at once (8 at a time)."""
+    import concurrent.futures as cf
+    import time
+
+    from mpc_code_tpu_torch.examples import nmpc_dis_workload as dw
+    from mpc_code_tpu_torch.ops import cuda_build
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    prob = dw.make_problem(dev)
+    s, cfg = prob.socp, prob.cfg
+    dims = (s.nxa, s.nu, s.ni, cfg.nd, cfg.npx, cfg.npy)
+    jobs = {"committed": ("exact", []), "committed, Gauss-Newton": ("gauss_newton", [])}
+    jobs.update({name: ("exact", pairs) for name, pairs in K5_BUILD_VARIANTS.items()})
+
+    def compile_one(name, hessian, pairs):
+        d = variant_dir(csrc, {"stage_sweep.cu": pairs} if pairs else {}, tmp,
+                        "k5build " + name)
+        with open(os.path.join(d, "mpc_stage_gen.cuh"), "w") as f:
+            f.write(sk.make_stage_sweep(s, hessian).source(*dims))
+        cmd = ([cuda_build.nvcc_path()] + cuda_build.ARCH_FLAGS + cuda_build.NVCC_FLAGS
+               + ["-I", d, "-o", os.path.join(d, "libk5.so"),
+                  os.path.join(d, "stage_sweep.cu")])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return time.perf_counter() - t0, proc.returncode, proc.stderr
+
+    with cf.ThreadPoolExecutor(8) as ex:
+        futs = {name: ex.submit(compile_one, name, h, pairs)
+                for name, (h, pairs) in jobs.items()}
+        for name, fut in futs.items():
+            sec, rc, log = fut.result()
+            print(f"# stage_sweep nmpc_dis [{name}]: nvcc {sec:.1f} s, exit {rc}; ptxas "
+                  f"{cs.ptxas_summary(log)}")
+
+
 def k2(cs, dev, csrc, tmp):
     import torch
 
@@ -415,7 +484,7 @@ def main() -> int:
         print("chip_variants: no CUDA device is available", file=sys.stderr)
         return 2
     groups = sys.argv[1:] or ["k1k3", "k5", "k2"]
-    run = {"k1k3": k1k3, "k5": k5, "k2": k2}
+    run = {"k1k3": k1k3, "k5": k5, "k5build": k5build, "k2": k2}
     if set(groups) - set(run):
         print(f"chip_variants: groups are {sorted(run)}, got {groups}", file=sys.stderr)
         return 2

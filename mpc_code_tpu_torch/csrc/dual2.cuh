@@ -30,6 +30,7 @@
 
 template <class T, int NZ, int H0 = 0, int HN = NZ * (NZ + 1) / 2>
 struct Dual2 {
+  static constexpr int NT = NZ;                   // first-order tangents
   static constexpr int NP = NZ * (NZ + 1) / 2;   // the whole triangle
   static constexpr int NH = HN;                   // the entries kept
   static_assert(H0 >= 0 && HN >= 1 && H0 + HN <= NP, "slice outside the triangle");

@@ -66,6 +66,11 @@ class LaneSweep:
             return self.plain(*args)
         return self.launch(*args)
 
+    def launcher(self, dims, dtype):
+        """The C launcher for ``dtype`` in the library built for ``dims``."""
+        lib = self.build(*dims).lib
+        return getattr(lib, self.kernel + ("_f32" if dtype == torch.float32 else "_f64"))
+
     def build(self, *dims):
         if dims not in self._libs:
             from mpc_code_tpu_torch.ops.cuda_build import build
@@ -164,8 +169,7 @@ class LaneSweep:
         x = args[0]
         outs = [torch.empty((Bsz, N) + tuple(shape), dtype=x.dtype, device=x.device)
                 for shape in self.out_dims(*dims)]
-        lib = self.build(*dims).lib
-        fn = getattr(lib, self.kernel + ("_f32" if x.dtype == torch.float32 else "_f64"))
+        fn = self.launcher(dims, x.dtype)
         st = (ctypes.c_longlong * len(strides))(*strides)
         ptrs = [a.data_ptr() for a in list(named.values()) + outs]
         return Bound(fn, ptrs + [st, Bsz * N, N, stream_ptr(x.device)], outs, x.device)
@@ -205,8 +209,7 @@ class LaneSweep:
         L = planes.Bsz * planes.N
         outs = [torch.empty(self.out_shape(r, L), dtype=dtype, device=dev)
                 for r in self.out_rows(*planes.dims[:2])]
-        lib = self.build(*planes.dims).lib
-        fn = getattr(lib, self.kernel + ("_f32" if dtype == torch.float32 else "_f64"))
+        fn = self.launcher(planes.dims, dtype)
         with torch.cuda.device(dev):
             rc = fn(*[a.data_ptr() for a in ins + outs], L, planes.N, planes.Bsz,
                     stream_ptr(dev))

@@ -4,11 +4,14 @@ Port of ``mpc_code_tpu/ops/sweep_autotune.py``.  JAX's autotune picks, on
 the actual model at the hinted batch, the fastest of its implementations
 of the dynamics sweep.  In the port the real choice is between two
 routes to the structured solver's Gauss-Newton stage derivatives of a
-continuous model that the fused stage sweep lowers (``StageLowering``):
+shooting OCP with a dynamics sweep that the fused stage sweep lowers
+(``StageLowering``: the continuous or the discrete map, with or without
+the u_prev augmentation):
 
-- ``"split"``: the RK4 stage-Jacobian sweep (kernel 1,
-  ``ops/sweep_cuda.py``) plus the stage cost's Hessian and gradient and
-  the inequality rows' Jacobian by ``torch.func`` (the default route);
+- ``"split"``: the dynamics sweep (kernel 1, ``ops/sweep_cuda.py``, or
+  for a discrete map kernel 3, ``ops/sweep_map_cuda.py``) plus the stage
+  cost's Hessian and gradient and the inequality rows' Jacobian by
+  ``torch.func`` (the default route);
 - ``"fused"``: the fused stage sweep's Gauss-Newton build (kernel 5,
   ``solver/sweep_kernel.py::make_stage_sweep(s, "gauss_newton")``): every
   output in one launch.
@@ -20,10 +23,12 @@ of two), records the faster as the OCP's ``sweep_impl`` (the solver's
 ``MPC_TPU_AOT_CACHE``'s directory, keyed by a content hash of the model
 function, the stage cost, Mx, the guard's bounds, the shapes, the device,
 the torch version and the port's source, so a new toolchain or card
-probes again.  Where ``"fused"`` does not apply (no lowering: DUForm, a
-``LinearModel``, ContForm, collocation, user rows) it returns ``"split"``
-without a probe.  There is no fallback: on the card both candidates are
-kernels, and one that fails to build or launch raises.  ``PROBES``
+probes again.  Where ``"fused"`` does not apply (no lowering: a
+``LinearModel``, collocation, slacks, user rows; or no split dynamics
+sweep to weigh it against: ContForm, whose Gauss-Newton route is kernel
+4's joint sweep) it returns ``"split"`` without a probe.  There is no
+fallback: on the card both candidates are kernels, and one that fails to
+build or launch raises.  ``PROBES``
 counts the probes that timed the candidates (a cached answer adds none),
 and ``LAST_TIMES`` holds the last probe's seconds by candidate.
 """
@@ -91,7 +96,7 @@ def probe_inputs(cfg, s, batch, device, dtype, seed=0):
     def mid(lo, hi):
         lo, hi = np.asarray(lo, float), np.asarray(hi, float)
         ok = (lo > -1e18) & (hi < 1e18)
-        return np.where(ok, 0.5 * (lo + hi), 0.0)
+        return 0.5 * (np.where(ok, lo, 0.0) + np.where(ok, hi, 0.0))
 
     kw = dict(dtype=dtype, device=device)
     X = torch.as_tensor(mid(s.lbx, s.ubx) + 0.1 * rng.normal(size=(batch, N, nxa)), **kw)
@@ -122,7 +127,8 @@ def autotune_sweep_impl(cfg, s, batch: int, device=None, verbose: bool = False) 
     dtype = torch.float32 if dev.type == "cuda" else torch.float64
     low = s.lowering
     dev_tag = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type)
-    key = content_hash(low.ode, low.cost, low.ineq, low.Mx, low.clip_lo, low.clip_hi,
+    key = content_hash(low.kind, low.ode, low.fmap, low.cost, low.ineq, low.Mx,
+                       low.clip_lo, low.clip_hi, low.nup,
                        int(batch), s.N, s.nxa, s.nu, s.ni, cfg.npx, cfg.nd, cfg.npy,
                        dev_tag, str(dtype), torch.__version__, _source_tree_hash())
     path = _cache_path()

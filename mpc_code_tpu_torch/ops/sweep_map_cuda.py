@@ -38,11 +38,13 @@ from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
 LAUNCHES = 0
 
 
-def map_program(f: Callable, nx: int, nu: int, nd=None, npx=None) -> Program:
-    """The map ``f(x, u, d, t, px)`` lowered with x, u carrying tangents."""
+def map_program(f: Callable, nx: int, nu: int, nd=None, npx=None, order=1) -> Program:
+    """The map ``f(x, u, d, t, px)`` lowered with x, u carrying first-order
+    tangents (``order=2``: and second-order ones, for the fused stage
+    sweep's exact Hessian)."""
     return Program(f, (Arg("x", "dual", nx), Arg("u", "dual", nu),
                        Arg("d", "vec", nd), Arg("t", "scalar"), Arg("px", "vec", npx)),
-                   nz=nx + nu, out_dim=nx, what="discrete map")
+                   nz=nx + nu, out_dim=nx, order=order, what="discrete map")
 
 
 def emit_map_source(f: Callable, nx: int, nu: int, nd: int, npx: int) -> str:

@@ -39,15 +39,16 @@ sweep (``ops/sweep_map_cuda.py``), both through
 ``StructuredOCP.stage_dyn_jac``, or, for a ContForm OCP, the joint
 dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
 ``StructuredOCP.stage_cf``, which also gives the stage cost's value,
-gradient and Hessian), or, under the exact Hessian of the continuous map
-without u_prev, the fused generic stage-derivative sweep
-(``solver/sweep_kernel.py``: every output of ``make_stage_derivs`` in one
-pass), and the Riccati KKT solve (``solver/riccati_kernel.py``).  A
-linear model has no derivative kernel, in JAX as here, nor has a
-collocated OCP (the Newton solve inside each stage), nor has the exact
-Hessian of the discrete map, ContForm or the u_prev augmentation (JAX's
-fused sweep is opt-in, its default the generic route): their stage
-derivatives come from ``make_stage_derivs`` by ``torch.func``, and the
+gradient and Hessian), or, under the exact Hessian, the fused generic
+stage-derivative sweep (``solver/sweep_kernel.py``: every output of
+``make_stage_derivs`` in one pass) of the shooting forms it lowers: the
+continuous map, the discrete map and ContForm, each with or without the
+u_prev augmentation (ContForm has none); and the Riccati KKT solve
+(``solver/riccati_kernel.py``).  A linear model has no derivative
+kernel, in JAX as here, nor has a collocated OCP (the Newton solve
+inside each stage), nor has the exact Hessian of the forms with shared
+slacks or user rows (G_ineq, H_eq): their stage derivatives come from
+``make_stage_derivs`` by ``torch.func``, as JAX's default route, and the
 Riccati KKT solve is their one kernel.  With TermCons or H_eq the KKT
 solve is the bordered recursion ``riccati_bordered``, and under
 ``parallel=True`` the associative scan ``riccati_parallel``, both in plain
@@ -58,7 +59,7 @@ the generic map ``dyn``, as in JAX.  The rest is IPM algebra on whole
 tensors.
 
 Under Gauss-Newton an OCP that has both a dynamics sweep and a lowering
-(the continuous map without u_prev) can take its stage derivatives by
+(the continuous or the discrete map) can take its stage derivatives by
 either route: ``"split"`` (the dynamics sweep plus the cost and rows by
 ``torch.func``, the default) or ``"fused"`` (the fused stage sweep's
 Gauss-Newton build).  ``make_structured_solver(..., impl=)`` picks one;
@@ -207,10 +208,11 @@ class StructuredOCP:
     route: the exact Lagrangian Hessian traverses it by ``torch.func``, as
     JAX does, and the line search, the stale sub-steps and the costate
     recursion evaluate it.  ``lowering`` is what the fused stage sweep's
-    code generator needs, given only for the continuous map without the
-    u_prev augmentation, slacks or user rows.  A ``LinearModel``, a
-    collocated OCP and a ContForm OCP with slacks have neither a sweep nor
-    a lowering.  ``ns`` shared slacks ride the tails of xa and u (``nu_ctrl``
+    code generator needs, given for the continuous map, the discrete map
+    and ContForm, with or without the u_prev augmentation, and without
+    slacks or user rows.  A ``LinearModel``, a collocated OCP and a
+    ContForm OCP with slacks have neither a sweep nor a lowering.  ``ns``
+    shared slacks ride the tails of xa and u (``nu_ctrl``
     inputs before them); ``n_tc`` terminal equality rows hold x_N[:n_tc]
     at ``tc_target(p)`` (B, n_tc); ``eq`` gives the ``n_eq`` stage
     equality rows on one point.
@@ -249,27 +251,46 @@ class StructuredOCP:
     sweep_impl: str = "split"    # Gauss-Newton stage derivatives: "split" | "fused"
 
 
-# the per-point parameters of the lowered stage cost and rows, in order
+# the per-point parameters of the lowered stage cost and rows, in order;
+# an OCP with the u_prev augmentation also takes "k0" (the stage-0 flag:
+# Delta-u reads the parameter um1 there and the carried slots after it)
 POINT_ARGS = ("t", "xs", "us", "d", "um1", "lam", "py", "py0")
 
 
 class StageLowering(NamedTuple):
-    """The raw (unscaled) stage functions of a continuous-shooting OCP in
-    the form the fused stage sweep (``solver/sweep_kernel.py``) lowers to
-    CUDA: the user ODE ``ode(x, t, u, d, px)`` with its RK4 sub-steps, the
-    interval, the guard's bounds, ``Bd`` (None unless offree='lin') and
-    LinPar; the stage cost and rows as ``f(xa, u, *POINT_ARGS)``."""
-    ode: Callable
+    """The raw (unscaled) stage functions of a shooting OCP in the form the
+    fused stage sweep (``solver/sweep_kernel.py``) lowers to CUDA.
+    ``kind`` names the one-interval step:
+
+    - ``"rk4"``: ``Mx`` RK4 sub-steps of the user ODE ``ode(x, t, u, d,
+      px)`` on the guarded state (``clip_lo``, ``clip_hi``), then ``+ Bd
+      d`` (``Bd`` None unless offree='lin') and ``+ px`` under LinPar;
+    - ``"map"``: the user discrete map ``fmap(x, u, d, t, px)``, then the
+      same terms;
+    - ``"cf"``: ContForm, ``Mx`` RK4 sub-steps of ``ode(x, t, u, d, px,
+      xs, us, py)`` together with the quadrature ``quad(...)`` of the stage
+      cost, which is the stage cost (``cost`` is None).
+
+    The stage cost and rows are ``f(xa, u, *point_args)``.  ``nup`` is the
+    width of the u_prev augmentation (0 or nu): the state's tail carries
+    u_{k-1}, the map copies u into it (B's identity block, scaled by su /
+    sxa), and the cost and rows read it through ``point_args``' ``k0``."""
+    ode: Optional[Callable]
     Mx: int
     h: float
     clip_lo: Optional[np.ndarray]
     clip_hi: Optional[np.ndarray]
     Bd: Optional[np.ndarray]
     lin_par: bool
-    cost: Callable
+    cost: Optional[Callable]
     ineq: Optional[Callable]
     nx: int
     ny: int
+    kind: str = "rk4"
+    fmap: Optional[Callable] = None
+    quad: Optional[Callable] = None
+    nup: int = 0
+    point_args: tuple = POINT_ARGS
 
 
 class StructResult(NamedTuple):
@@ -629,6 +650,35 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
                   n_tc=n_tc, tc_target=tc_target if n_tc else None,
                   n_eq=nh_user, eq=eq_s if nh_user else None)
 
+    # the stage cost and rows in the raw forms the fused stage sweep
+    # lowers (StageLowering), on the shooting forms without slacks or user
+    # rows (JAX's generic route takes those); with the u_prev augmentation
+    # they also read the stage-0 flag
+    lowered = not (colloc or slacks or ng_user or nh_user)
+    if du_coupled:
+        point_args = POINT_ARGS + ("k0",)
+
+        def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0, k0):
+            return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
+                                        py=py, py0=py0, k0=k0))
+
+        def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0, k0):
+            return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
+                                        py=py, py0=py0, k0=k0))
+    else:
+        point_args = POINT_ARGS
+
+        def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
+            return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
+                                        py=py, py0=py0))
+
+        def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0):
+            return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
+                                        py=py, py0=py0))
+
+    lowering_common = dict(h=h, ineq=ineq_at if ni else None, nx=nx, ny=ny, nup=nup,
+                           point_args=point_args)
+
     if colloc:
         # no sweep kernel: every stage derivative comes from torch.func
         # through the condensed step (JAX riccati.py:604, the fast sweep
@@ -656,12 +706,17 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             return (_dense(torch.div, xf, s_x), A, Bm, qv, _dense(torch.mul, gq, s_z),
                     _dense(torch.mul, Hq, s_z[:, None] * s_z[None, :]))
 
-        # the generic map beside the sweep: the exact Hessian's route (JAX
-        # riccati.py:1150-1155, make_stage_derivs through _cont_step, :331-341,
-        # 376-380), the line search's trial rollouts and the costate
-        # recursion's Jacobian (JAX :1273-1279)
+        # the generic map beside the sweep: the line search's trial rollouts
+        # and the costate recursion's Jacobian (JAX :1273-1279).  Under the
+        # exact Hessian the fused stage sweep integrates the state and the
+        # quadrature together, as _cont_step does (JAX riccati.py:329-333,
+        # 376-380), with lam's and the rows' terms
+        low = (StageLowering(kind="cf", ode=_ode, quad=_quad, Mx=int(Mx_c),
+                             clip_lo=None, clip_hi=None, Bd=None, lin_par=False,
+                             cost=None, **lowering_common)
+               if lowered else None)
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
-                             stage_cf=stage_cf, dyn=dyn_s)
+                             stage_cf=stage_cf, dyn=dyn_s, lowering=low)
 
     m = cfg.model
     if isinstance(m, LinearModel):
@@ -681,7 +736,8 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     # 376-390, dyn_s :559-560): the model's step (RK4 on the guarded state,
     # + Bd d, + px; or the discrete map), then the u_prev and slack slots.
     # The exact Lagrangian Hessian traverses it by torch.func, as JAX's
-    # generic make_stage_derivs does, unless the fused stage sweep lowers it
+    # generic make_stage_derivs does, where the fused stage sweep does not
+    # lower it (slacks, user rows)
     exact = dict(dyn=dyn_s)
     if isinstance(m, DiscreteModel):
         from mpc_code_tpu_torch.ops.integrators import map_stage_jac
@@ -690,6 +746,11 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
 
         def run_sweep(x, u, p):
             return sweep(x, u, p["px"], p["t"], p["d"])
+
+        if lowered:
+            exact["lowering"] = StageLowering(
+                kind="map", ode=None, fmap=m.Fx, Mx=1, clip_lo=None, clip_hi=None,
+                Bd=Bd, lin_par=lin_par, cost=cost_at, **lowering_common)
     else:
         from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
 
@@ -704,22 +765,11 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             hb = torch.full((x.shape[0],), h, dtype=x.dtype, device=x.device)
             return sweep(x, u, p["px"], p["t"], hb, p["d"])
 
-        if not (du_coupled or slacks or ng_user or nh_user):
-            # the stage functions the fused stage sweep lowers, in their raw
-            # forms: the continuous map without the u_prev augmentation
-            # (JAX's generic route takes the rest)
-            def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
-                return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
-                                            lam=lam, py=py, py0=py0))
-
-            def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0):
-                return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1,
-                                            lam=lam, py=py, py0=py0))
-
+        if lowered:
             exact["lowering"] = StageLowering(
-                ode=_ode, Mx=int(m.Mx), h=h, clip_lo=m.clip_lo,
+                kind="rk4", ode=_ode, Mx=int(m.Mx), clip_lo=m.clip_lo,
                 clip_hi=m.clip_hi, Bd=Bd, lin_par=lin_par, cost=cost_at,
-                ineq=ineq_at if ni else None, nx=nx, ny=ny)
+                **lowering_common)
 
     def stage_dyn_jac(Xs, Us, p):
         s_x, s_u = _t(sxa, Xs), _t(su, Us)
@@ -1149,8 +1199,9 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
         if not fused_applies(s):
             raise ValueError("impl='fused' needs an OCP whose stage functions the "
-                             "fused stage sweep lowers (the continuous map without "
-                             "u_prev, slacks or user rows)")
+                             "fused stage sweep lowers beside a split dynamics sweep "
+                             "(the continuous or the discrete map, without slacks "
+                             "or user rows)")
     mehrotra = opts.mu_strategy == "mehrotra"
     ls_adaptive = opts.ls_mode == "adaptive"
     # ls_parallel only chooses how backtracking evaluates its trials
@@ -1166,16 +1217,17 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     # Gauss-Newton: the split sweep, dynamics from their kernel and the
     # cost and rows by torch.func; ContForm's joint sweep also gives the
     # stage cost's value, gradient and Hessian (JAX fast_cf, riccati.py:
-    # 1150-1154).  Otherwise, where the OCP has a lowering, every output
-    # comes from the fused stage sweep, with the iterate's multipliers (JAX
-    # riccati.py:1394-1400); the card has no other path for it, so it
-    # always launches its kernel there.  The rest (a LinearModel, a
-    # collocated OCP, and under the exact Hessian the discrete map,
-    # ContForm, the u_prev augmentation and the slack, G_ineq and H_eq
-    # forms) takes every output from make_stage_derivs vmapped over the B*N
-    # points, as JAX does outside any Pallas kernel (JAX riccati.py:
-    # 1150-1155, 1396-1398).  Under Gauss-Newton impl='fused' takes the
-    # fused stage sweep's Gauss-Newton build in place of the split sweep.
+    # 1150-1154).  Otherwise, where the OCP has a lowering (the continuous
+    # map, the discrete map and ContForm, with or without u_prev), every
+    # output comes from the fused stage sweep, with the iterate's
+    # multipliers (JAX riccati.py:1394-1400); the card has no other path
+    # for it, so it always launches its kernel there.  The rest (a
+    # LinearModel, a collocated OCP, and under the exact Hessian the
+    # slack, G_ineq and H_eq forms) takes every output from
+    # make_stage_derivs vmapped over the B*N points, as JAX does outside
+    # any Pallas kernel (JAX riccati.py:1150-1155, 1396-1398).  Under
+    # Gauss-Newton impl='fused' takes the fused stage sweep's Gauss-Newton
+    # build in place of the split sweep.
     fast_cf = s.stage_cf is not None and not exact
     split = ((s.stage_dyn_jac is not None and not exact) or fast_cf) and impl == "split"
     fused = None

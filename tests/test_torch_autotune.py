@@ -10,8 +10,9 @@ never writes ``os.environ``.  ``"fused"`` (the fused stage sweep's
 Gauss-Newton build, here its plain version) equals ``"split"`` (the
 dynamics sweep plus ``torch.func``) on 4 lanes, and both equal JAX's
 Gauss-Newton solve (its split sweep, jitted for one lane).  Where the
-fused sweep does not lower the OCP (DUForm) the answer is ``"split"``
-without a probe.
+fused sweep does not lower the OCP (the soft output bounds' slacks) the
+answer is ``"split"`` without a probe; the u_prev augmentation (DUForm),
+lowered since the fused sweep took it, is probed.
 """
 
 import dataclasses as dc
@@ -72,14 +73,18 @@ def test_autotune_engages_only_with_the_knob_and_a_hint(cache, monkeypatch):
     cfg, _, socp, _ = _problem(batch_hint=8)
     assert sa.PROBES == n0 + 1
     assert socp.sweep_impl == sa.autotune_sweep_impl(cfg, socp, 8)
-    # DUForm (the u_prev augmentation): no lowering, 'split' without a probe
-    du = _problem(batch_hint=8, DUForm=True)[2]
-    assert du.lowering is None and du.sweep_impl == "split" and sa.PROBES == n0 + 1
+    # the shared slacks: no lowering, 'split' without a probe
+    soft = _problem(batch_hint=8, slacks=True, Ws=10.0 * np.eye(4))[2]
+    assert soft.lowering is None and soft.sweep_impl == "split" and sa.PROBES == n0 + 1
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.solver.riccati import make_structured_solver
 
     with pytest.raises(ValueError, match="impl='fused' needs"):
-        make_structured_solver(du, SolverOptions(**OPTS), impl="fused")
+        make_structured_solver(soft, SolverOptions(**OPTS), impl="fused")
+    # DUForm (the u_prev augmentation): lowered, so probed
+    du = _problem(batch_hint=8, DUForm=True)[2]
+    assert du.lowering.nup == 2 and du.sweep_impl in ("split", "fused")
+    assert sa.PROBES == n0 + 2
     with pytest.raises(ValueError, match="unknown impl"):
         make_structured_solver(socp, SolverOptions(**OPTS), impl="pallas")
 

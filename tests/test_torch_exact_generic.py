@@ -3,10 +3,12 @@ u_prev augmentation in the port's structured solver against the JAX
 package's, CPU, f64, and the examples' own solver options in the batched
 step.
 
-Each OCP has the scaled one-interval map ``dyn`` and no lowering, so the
-exact Hessian takes every stage derivative from ``make_stage_derivs`` by
-``torch.func``, vmapped over the B*N points: JAX's default route
-(``mpc_code_tpu/solver/riccati.py:973-1070``, ``:1396-1398``).  Three
+Each OCP has the scaled one-interval map ``dyn`` and, since the fused
+stage sweep lowers these forms, a lowering: the exact Hessian takes every
+stage derivative from kernel 5's wrapper, whose plain version on CPU
+tensors is ``make_stage_derivs`` by ``torch.func``, vmapped over the B*N
+points: JAX's default route (``mpc_code_tpu/solver/riccati.py:973-1070``,
+``:1396-1398``).  Three
 lanes, tol 1e-8, JAX jitted once per case for one lane and run lane by
 lane; statuses and iterations equal, X and U within 1e-8 (normalised
 ``|a-b|/(1+|b|)``):
@@ -166,8 +168,8 @@ def _both(case, **opts):
 @pytest.mark.parametrize("case", ["nmpc_dis", "enmpc", "cstr_du"])
 def test_exact_generic_route_matches_jax(case):
     ps, js, r, jr = _both(case)
-    # the generic route: a map and no lowering for the fused stage sweep
-    assert ps.dyn is not None and ps.lowering is None
+    # the fused stage sweep's route: a map and a lowering of the form
+    assert ps.dyn is not None and ps.lowering is not None
     assert (ps.nxa, ps.nu, ps.ni) == (js.nxa, js.nu, js.ni)
     for i, j in enumerate(jr):
         assert int(r.status[i]) == int(j.status) == 0, (case, i)
