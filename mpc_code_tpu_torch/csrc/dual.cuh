@@ -41,6 +41,30 @@ template <class T> __device__ __forceinline__ T mpc_val(T a) { return a; }
 template <class T, int NZ>
 __device__ __forceinline__ T mpc_val(const Dual<T, NZ>& a) { return a.v; }
 
+// ----- comparisons, on the values ----------------------------------------
+// (numbers whose components are themselves Dual, as collocation's third
+// derivatives use, compare and select by these)
+#define MPC_DUAL_CMP(OP)                                                           \
+  template <class T, int NZ>                                                       \
+  __device__ __forceinline__ bool operator OP(const Dual<T, NZ>& a, const Dual<T, NZ>& b) { \
+    return a.v OP b.v;                                                             \
+  }                                                                                \
+  template <class T, int NZ>                                                       \
+  __device__ __forceinline__ bool operator OP(const Dual<T, NZ>& a, T b) {         \
+    return a.v OP b;                                                               \
+  }                                                                                \
+  template <class T, int NZ>                                                       \
+  __device__ __forceinline__ bool operator OP(T a, const Dual<T, NZ>& b) {         \
+    return a OP b.v;                                                               \
+  }
+MPC_DUAL_CMP(<)
+MPC_DUAL_CMP(<=)
+MPC_DUAL_CMP(>)
+MPC_DUAL_CMP(>=)
+MPC_DUAL_CMP(==)
+MPC_DUAL_CMP(!=)
+#undef MPC_DUAL_CMP
+
 // ----- arithmetic --------------------------------------------------------
 template <class T, int NZ>
 __device__ __forceinline__ Dual<T, NZ> operator+(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
@@ -177,6 +201,12 @@ __device__ __forceinline__ Dual<T, NZ> mpc_pow(const Dual<T, NZ>& a, T c) {
 #pragma unroll
   for (int i = 0; i < NZ; ++i) r.d[i] = g * a.d[i];
   return r;
+}
+// the exponent is a literal (the code generator lowers pow by a constant):
+// its tangents are zero
+template <class T, int NZ>
+__device__ __forceinline__ Dual<T, NZ> mpc_pow(const Dual<T, NZ>& a, const Dual<T, NZ>& c) {
+  return mpc_pow(a, c.v);
 }
 
 // ----- max / min with JAX's tie rule and NaN propagation -----------------

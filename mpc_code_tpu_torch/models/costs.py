@@ -31,6 +31,12 @@ def xQx(x, Q):
     return x @ (_w(Q).to(x) @ x)
 
 
+def _abs(x):
+    """|x| with JAX's derivative at 0, +1 (``jnp.abs``'s rule; ``torch.abs``
+    has 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def build_stage_cost(sc: StageCost) -> Callable:
     """F_obj(x, u, y, xs, us, ys) — LP, QP or user form."""
     if sc.r_x is not None:
@@ -38,8 +44,8 @@ def build_stage_cost(sc: StageCost) -> Callable:
         r_u = _w(sc.r_u if sc.r_u is not None else sc.r_Du)
 
         def f_obj(x, u, y, xs, us, ys):
-            return (torch.sum(r_x.to(x) @ torch.abs(x))
-                    + torch.sum(r_u.to(u) @ torch.abs(u)))
+            return (torch.sum(r_x.to(x) @ _abs(x))
+                    + torch.sum(r_u.to(u) @ _abs(u)))
 
         return f_obj
     if sc.Q is not None:
@@ -63,7 +69,7 @@ def build_ss_cost(ssc: SSCost) -> Callable:
         r_u = _w(ssc.rss_u if ssc.rss_u is not None else ssc.rss_Du)
 
         def f(x, u, y, xsp, usp, ysp):
-            return torch.sum(r_y.to(y) @ y) + torch.sum(r_u.to(u) @ torch.abs(u))
+            return torch.sum(r_y.to(y) @ y) + torch.sum(r_u.to(u) @ _abs(u))
 
         return f
     if ssc.Qss is not None:

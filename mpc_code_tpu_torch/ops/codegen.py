@@ -9,10 +9,13 @@ forward-mode dual numbers (``csrc/dual.cuh``, ``csrc/dual2.cuh``).
 What it lowers: integer indexing and slices of inputs and intermediates,
 whole-vector use of an input, elementwise ``+ - * /``, negation, ``exp``,
 ``log``, ``sqrt``, ``pow`` by a scalar, ``maximum``/``minimum``,
-comparisons, ``where``, ``stack`` and ``cat`` over dim 0, ``@`` (a
+``abs`` (as ``where(a >= 0, a, -a)``: JAX's derivative, +1 at 0, where
+``torch.abs`` has 0), comparisons, ``where``, ``stack`` and ``cat`` over dim 0, ``@`` (a
 captured constant matrix or vector times a vector, a matrix input times a
-vector, or a dot product of two vectors, written as literal multiply-adds)
-and ``.to(...)`` (the cast of a captured constant).  Any other op raises ``NotImplementedError`` naming
+vector, or a dot product of two vectors, written as literal multiply-adds),
+``.sum()`` of a vector (left to right), ``.reshape(-1)`` and
+``torch.atleast_1d`` (a scalar becomes a vector of one component) and
+``.to(...)`` (the cast of a captured constant).  Any other op raises ``NotImplementedError`` naming
 it.  The statements are the ones the compiler would keep: ``a * 1``,
 ``a / 1``, ``a - 0`` and ``a + 0`` (exact but for the sign of a zero) are
 folded, ``a * 0`` only when ``a`` is a literal too (``inf * 0`` and
@@ -60,9 +63,10 @@ _MATMUL = {operator.matmul, torch.matmul}
 # are built from several threads at once
 _TRACE_LOCK = threading.Lock()
 SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, exp, log, "
-             "sqrt, pow by a scalar, maximum, minimum, comparisons, where, "
+             "sqrt, pow by a scalar, maximum, minimum, abs, comparisons, where, "
              "stack and cat over dim 0, matmul with a constant, of a matrix "
-             "input by a vector or a dot product, .to()")
+             "input by a vector or a dot product, sum of a vector, "
+             "reshape(-1), atleast_1d, .to()")
 
 
 class Arg(NamedTuple):
@@ -265,6 +269,13 @@ class Program:
         # compare, select
         return self._emit(name, expr, dual, 1 + ((self.nz + self.np2) if dual else 0))
 
+    def _abs(self, name, a):
+        if _is_num(a):
+            return abs(float(a))
+        ge = self._emit(f"{name}__ge", f"(mpc_val({a.expr}) >= S(0.0))", False, 1)
+        neg = self._unary(f"{name}__neg", "-", a)
+        return self._select(name, f"mpc_where({ge.expr}, {a.expr}, {neg.expr})", a.dual)
+
     # ----- elementwise over vectors -------------------------------------
     def _map(self, name, fn, *vals):
         vals = [self._vec(v) for v in vals]
@@ -347,6 +358,25 @@ class Program:
         if n.kwargs:
             raise NotImplementedError(
                 f"op {_op_name(n)!r} with keyword arguments {dict(n.kwargs)}")
+        if (meth and tgt == "sum") or (call and tgt is torch.sum):
+            if len(n.args) != 1:
+                raise NotImplementedError("sum is supported only over a whole vector")
+            v = self._vec(self._value(env, n.args[0]))
+            if not isinstance(v, list):
+                return v
+            acc = 0.0
+            for k, c in enumerate(v):
+                acc = self._bin(f"{name}__s{k}", "+", acc, c)
+            return acc
+        if (meth and tgt == "reshape") or (call and tgt is torch.atleast_1d):
+            shape = n.args[1:] if meth else (-1,)
+            if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+                shape = tuple(shape[0])
+            if tuple(shape) != (-1,) or (call and len(n.args) != 1):
+                raise NotImplementedError(
+                    "reshape is supported only as reshape(-1), atleast_1d of one value")
+            v = self._vec(self._value(env, n.args[0]))
+            return v if isinstance(v, list) else [v]
         if call and tgt is operator.getitem:
             base, idx = self._value(env, n.args[0]), n.args[1]
             if isinstance(base, _Input) and isinstance(idx, int):
@@ -371,6 +401,8 @@ class Program:
         if (call and tgt in _UNARY) or (meth and tgt in _METHODS):
             fn = _UNARY[tgt] if call else _METHODS[tgt]
             return self._map(name, lambda nm, x: self._unary(nm, fn, x), args[0])
+        if (call and tgt is torch.abs) or (meth and tgt == "abs"):
+            return self._map(name, self._abs, args[0])
         if call and tgt in _POW:
             a, c = args
             if not _is_num(c):

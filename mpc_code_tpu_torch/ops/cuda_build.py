@@ -120,6 +120,22 @@ def load_prebuilt(src_dir: str) -> BuiltLibrary:
     return _load(key, out_dir, so_path)
 
 
+def build_key(source: str, defines: dict | None = None,
+              generated: dict | None = None) -> str:
+    """The key ``build`` files a library under: a hash of every source in
+    ``csrc/``, the generated headers, the flags and the source's name."""
+    generated = dict(generated or {})
+    h = hashlib.sha256()
+    for fn in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(fn.encode() + b"\0" + f.read() + b"\0")
+    for fn in sorted(generated):
+        h.update(fn.encode() + b"\0" + generated[fn].encode() + b"\0")
+    dflags = [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + dflags + [source]).encode())
+    return h.hexdigest()[:20]
+
+
 def build(name: str, source: str, defines: dict | None = None,
           generated: dict | None = None) -> BuiltLibrary:
     """Compile ``csrc/<source>`` into a shared library and load it.
@@ -130,18 +146,13 @@ def build(name: str, source: str, defines: dict | None = None,
     global NVCC_RUNS
     defines = dict(defines or {})
     generated = dict(generated or {})
-    h = hashlib.sha256()
-    for fn in sorted(os.listdir(CSRC_DIR)):
-        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
-            h.update(fn.encode() + b"\0" + f.read() + b"\0")
-    for fn in sorted(generated):
-        h.update(fn.encode() + b"\0" + generated[fn].encode() + b"\0")
     dflags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + dflags + [source]).encode())
-    key = h.hexdigest()[:20]
+    key = build_key(source, defines, generated)
+    # used() takes the lock itself: a hit is noted after it is released
     with _LOCK:
-        if key in _LOADED:
-            return used(_LOADED[key])
+        hit = _LOADED.get(key)
+    if hit is not None:
+        return used(hit)
     out_dir = os.path.join(BUILD_DIR, f"{name}-{key}")
     so_path = os.path.join(out_dir, f"lib{name}.so")
     log_path = os.path.join(out_dir, "build.log")

@@ -6,7 +6,7 @@ of the dynamics sweep.  In the port the real choice is between two
 routes to the structured solver's Gauss-Newton stage derivatives of a
 shooting OCP with a dynamics sweep that the fused stage sweep lowers
 (``StageLowering``: the continuous or the discrete map, with or without
-the u_prev augmentation):
+the u_prev augmentation, the shared slacks and the user rows):
 
 - ``"split"``: the dynamics sweep (kernel 1, ``ops/sweep_cuda.py``, or
   for a discrete map kernel 3, ``ops/sweep_map_cuda.py``) plus the stage
@@ -23,10 +23,11 @@ of two), records the faster as the OCP's ``sweep_impl`` (the solver's
 ``MPC_TPU_AOT_CACHE``'s directory, keyed by a content hash of the model
 function, the stage cost, Mx, the guard's bounds, the shapes, the device,
 the torch version and the port's source, so a new toolchain or card
-probes again.  Where ``"fused"`` does not apply (no lowering: a
-``LinearModel``, collocation, slacks, user rows; or no split dynamics
-sweep to weigh it against: ContForm, whose Gauss-Newton route is kernel
-4's joint sweep) it returns ``"split"`` without a probe.  There is no
+probes again.  Where there is no split dynamics sweep to weigh the fused
+sweep against (a ``LinearModel``, collocation and ContForm with slacks,
+which take the fused sweep under either Hessian; ContForm, whose
+Gauss-Newton route is kernel 4's joint sweep) or no lowering, it returns
+``"split"`` without a probe.  There is no
 fallback: on the card both candidates are kernels, and one that fails to
 build or launch raises.  ``PROBES``
 counts the probes that timed the candidates (a cached answer adds none),
@@ -56,8 +57,8 @@ def _cache_path() -> str:
 
 def fused_applies(s) -> bool:
     """Whether the fused stage sweep can take the OCP's Gauss-Newton
-    derivatives in place of the split route."""
-    return s.lowering is not None and s.stage_dyn_jac is not None and s.n_eq == 0
+    derivatives in place of the split route: an OCP with both."""
+    return s.lowering is not None and s.stage_dyn_jac is not None
 
 
 def candidates(s):
@@ -79,7 +80,8 @@ def candidates(s):
         return v_stage(Zs, pk) + s.stage_dyn_jac(X, U, p)
 
     def fused_route(X, U, p, pk, lam, nus):
-        return fused(*fused.inputs(X, U, p, lam, nus))
+        mu_h = lam.new_zeros(lam.shape[:2] + (s.n_eq,))
+        return fused(*fused.inputs(X, U, p, lam, nus, mu_h))
 
     return {"split": split, "fused": fused_route}
 
@@ -127,8 +129,8 @@ def autotune_sweep_impl(cfg, s, batch: int, device=None, verbose: bool = False) 
     dtype = torch.float32 if dev.type == "cuda" else torch.float64
     low = s.lowering
     dev_tag = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type)
-    key = content_hash(low.kind, low.ode, low.fmap, low.cost, low.ineq, low.Mx,
-                       low.clip_lo, low.clip_hi, low.nup,
+    key = content_hash(low.kind, low.ode, low.fmap, low.cost, low.ineq, low.eq, low.Mx,
+                       low.clip_lo, low.clip_hi, low.nup, low.ns,
                        int(batch), s.N, s.nxa, s.nu, s.ni, cfg.npx, cfg.nd, cfg.npy,
                        dev_tag, str(dtype), torch.__version__, _source_tree_hash())
     path = _cache_path()

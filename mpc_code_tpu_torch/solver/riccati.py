@@ -39,24 +39,24 @@ sweep (``ops/sweep_map_cuda.py``), both through
 ``StructuredOCP.stage_dyn_jac``, or, for a ContForm OCP, the joint
 dynamics-and-quadrature sweep (``ops/sweep_cf_cuda.py``, through
 ``StructuredOCP.stage_cf``, which also gives the stage cost's value,
-gradient and Hessian), or, under the exact Hessian, the fused generic
-stage-derivative sweep (``solver/sweep_kernel.py``: every output of
-``make_stage_derivs`` in one pass) of the shooting forms it lowers: the
-continuous map, the discrete map and ContForm, each with or without the
-u_prev augmentation (ContForm has none); and the Riccati KKT solve
-(``solver/riccati_kernel.py``).  A linear model has no derivative
-kernel, in JAX as here, nor has a collocated OCP (the Newton solve
-inside each stage), nor has the exact Hessian of the forms with shared
-slacks or user rows (G_ineq, H_eq): their stage derivatives come from
-``make_stage_derivs`` by ``torch.func``, as JAX's default route, and the
-Riccati KKT solve is their one kernel.  With TermCons or H_eq the KKT
-solve is the bordered recursion ``riccati_bordered``, and under
-``parallel=True`` the associative scan ``riccati_parallel``, both in plain
-PyTorch as JAX has no Pallas kernel for them.  The line search's trial
-points, the stale-derivative sub-steps' values and the costate
-recursion's Jacobian (where the OCP has no ``stage_dyn_jac``) come from
-the generic map ``dyn``, as in JAX.  The rest is IPM algebra on whole
-tensors.
+gradient and Hessian), or the fused generic stage-derivative sweep
+(``solver/sweep_kernel.py``: every output of ``make_stage_derivs`` in one
+pass) wherever JAX's fast sweep is off: under the exact Hessian on every
+form, and under either Hessian on the forms without a split sweep (a
+``LinearModel``, whose affine step it lowers as a map, a collocated OCP,
+ContForm with slacks); and the Riccati KKT solve
+(``solver/riccati_kernel.py``).  Every form ``build_structured_ocp``
+builds has the fused sweep's lowering (``StageLowering``), with the
+shared slacks and the user rows (G_ineq, H_eq); only an OCP built
+elsewhere without one (the MHE's window, ``ocp/mhe.py``) takes its stage
+derivatives from ``make_stage_derivs`` by ``torch.func``.  With TermCons
+or H_eq the KKT solve is the bordered recursion ``riccati_bordered``,
+and under ``parallel=True`` the associative scan ``riccati_parallel``,
+both in plain PyTorch as JAX has no Pallas kernel for them.  The line
+search's trial points, the stale-derivative sub-steps' values and the
+costate recursion's Jacobian (where the OCP has no ``stage_dyn_jac``)
+come from the generic map ``dyn``, as in JAX.  The rest is IPM algebra on
+whole tensors.
 
 Under Gauss-Newton an OCP that has both a dynamics sweep and a lowering
 (the continuous or the discrete map) can take its stage derivatives by
@@ -208,10 +208,9 @@ class StructuredOCP:
     route: the exact Lagrangian Hessian traverses it by ``torch.func``, as
     JAX does, and the line search, the stale sub-steps and the costate
     recursion evaluate it.  ``lowering`` is what the fused stage sweep's
-    code generator needs, given for the continuous map, the discrete map
-    and ContForm, with or without the u_prev augmentation, and without
-    slacks or user rows.  A ``LinearModel``, a collocated OCP and a
-    ContForm OCP with slacks have neither a sweep nor a lowering.  ``ns``
+    code generator needs, given for every form ``build_structured_ocp``
+    builds.  A ``LinearModel``, a collocated OCP and a ContForm OCP with
+    slacks have no split sweep.  ``ns``
     shared slacks ride the tails of xa and u (``nu_ctrl``
     inputs before them); ``n_tc`` terminal equality rows hold x_N[:n_tc]
     at ``tc_target(p)`` (B, n_tc); ``eq`` gives the ``n_eq`` stage
@@ -252,29 +251,42 @@ class StructuredOCP:
 
 
 # the per-point parameters of the lowered stage cost and rows, in order;
-# an OCP with the u_prev augmentation also takes "k0" (the stage-0 flag:
-# Delta-u reads the parameter um1 there and the carried slots after it)
+# after them "px" where user rows read it, "s_coll" (the collocation stage
+# states) and "k0" (the stage-0 flag: Delta-u reads the parameter um1 there
+# and the carried slots after it; the slacks are the input slots there)
 POINT_ARGS = ("t", "xs", "us", "d", "um1", "lam", "py", "py0")
 
 
 class StageLowering(NamedTuple):
-    """The raw (unscaled) stage functions of a shooting OCP in the form the
-    fused stage sweep (``solver/sweep_kernel.py``) lowers to CUDA.
-    ``kind`` names the one-interval step:
+    """The raw (unscaled) stage functions of an OCP in the form the fused
+    stage sweep (``solver/sweep_kernel.py``) lowers to CUDA.  ``kind``
+    names the one-interval step:
 
     - ``"rk4"``: ``Mx`` RK4 sub-steps of the user ODE ``ode(x, t, u, d,
       px)`` on the guarded state (``clip_lo``, ``clip_hi``), then ``+ Bd
       d`` (``Bd`` None unless offree='lin') and ``+ px`` under LinPar;
-    - ``"map"``: the user discrete map ``fmap(x, u, d, t, px)``, then the
-      same terms;
+    - ``"map"``: the discrete map ``fmap(x, u, d, t, px)``, then the same
+      terms: the user's map of a ``DiscreteModel``, or a ``LinearModel``'s
+      affine step with its own ``Bd d`` and ``px`` (``Bd`` None, ``lin_par``
+      False);
     - ``"cf"``: ContForm, ``Mx`` RK4 sub-steps of ``ode(x, t, u, d, px,
       xs, us, py)`` together with the quadrature ``quad(...)`` of the stage
-      cost, which is the stage cost (``cost`` is None).
+      cost, which is the stage cost (``cost`` is then the slack penalty, or
+      None);
+    - ``"coll"``: the 2-point Gauss-Legendre collocation step of the raw
+      ODE ``ode(x, t, u, d, px)`` (no guard), ``n_newton`` Newton steps on
+      values and one differentiable step; px is stage 0's unless
+      ``stagewise_px``.  The stage states S reach the cost and the rows as
+      the point argument ``"s_coll"``.
 
-    The stage cost and rows are ``f(xa, u, *point_args)``.  ``nup`` is the
-    width of the u_prev augmentation (0 or nu): the state's tail carries
-    u_{k-1}, the map copies u into it (B's identity block, scaled by su /
-    sxa), and the cost and rows read it through ``point_args``' ``k0``."""
+    The stage cost and the inequality (``ineq``) and equality (``eq``)
+    rows are ``f(xa, u, *point_args)``.  ``nup`` is the width of the
+    u_prev augmentation (0 or nu): the state's tail carries u_{k-1}, the
+    map copies u into it (B's identity block, scaled by su / sxa), and the
+    cost and rows read it through ``point_args``' ``k0``.  ``ns`` shared
+    slacks follow in the state and in the input: the map writes the input
+    slots at stage 0 and carries the state's after it.  ``eq`` has
+    ``n_eq`` rows."""
     ode: Optional[Callable]
     Mx: int
     h: float
@@ -291,6 +303,22 @@ class StageLowering(NamedTuple):
     quad: Optional[Callable] = None
     nup: int = 0
     point_args: tuple = POINT_ARGS
+    ns: int = 0
+    eq: Optional[Callable] = None
+    n_eq: int = 0
+    n_newton: int = 0
+    stagewise_px: bool = False
+
+
+def _point_fn(raw, names):
+    """``raw(xa, u, pk)`` as a function of ``(xa, u, *names)``, ``pk`` the
+    dict of those names: the signature the code generator traces."""
+    args = ", ".join(names)
+    fields = ", ".join(f"{n}={n}" for n in names)
+    scope = {}
+    exec(f"def bind(raw):\n    def at(xa, u, {args}):\n"
+         f"        return raw(xa, u, dict({fields}))\n    return at\n", scope)
+    return scope["bind"](raw)
 
 
 class StructResult(NamedTuple):
@@ -382,7 +410,9 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
           if slacks else 0)
     if slacks and cfg.Ws is None:
         raise ValueError("slacks=True requires Ws")
-    Ws = np.asarray(cfg.Ws, float)[:ns, :ns] if slacks else None
+    # an f64 CPU tensor cast at call time, as the model's matrices are
+    # (what torch.fx records for the code generator: a constant matrix)
+    Ws_t = torch.as_tensor(np.asarray(cfg.Ws, float)[:ns, :ns]) if slacks else None
     sl_h_off = 2 * ny + (ng_user if slacks_g else 0)
     # ContForm wins over Collocation: the reference's ContForm branch never
     # emits the collocation equations (Control_Calc.py:428-436)
@@ -499,6 +529,20 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             parts.append(slack_of(xa, ua, pk))
         return torch.cat(parts) if len(parts) > 1 else xn
 
+    def coll_S(x, u, pk):
+        """The collocation stage states: the point argument ``s_coll``
+        where the fused stage sweep's step has computed them, else the
+        condensed Newton solve."""
+        return pk["s_coll"] if "s_coll" in pk else _coll_S(x, u, pk)
+
+    def slack_cost(xa, ua, pk):
+        # the real penalty once (stage 0), a decoupled PD dummy on the
+        # unused input slots after it; sums of products, as torch.func's
+        # Hessian of a dot product leaves f32 (F4)
+        s_in = ua[nu:]
+        return torch.where(pk["k0"], N * (s_in * (Ws_t.to(s_in) @ s_in)).sum(),
+                           0.5 * (s_in * s_in).sum())
+
     def raw_cost(xa, ua, pk):
         x, u = split(xa, ua)
         if cont_form:
@@ -518,19 +562,14 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             if colloc:
                 # the collocation-aware objective F_obj(..., ds)
                 # (Control_Calc.py:458-464, 483)
-                dS = _coll_S(x, u, pk)
+                dS = coll_S(x, u, pk)
                 if qform:
                     dS = dS - torch.cat([pk["xs"], pk["xs"]])
                 val = f_obj(dx, du, dy, pk["xs"], us_obj, ys, dS)
             else:
                 val = f_obj(dx, du, dy, pk["xs"], us_obj, ys)
         if slacks:
-            # the real penalty once (stage 0), a decoupled PD dummy on the
-            # unused input slots after it; sums of products, as torch.func's
-            # Hessian of a dot product leaves f32 (F4)
-            s_in = ua[nu:]
-            val = val + torch.where(pk["k0"], N * (s_in * (_t(Ws, s_in) @ s_in)).sum(),
-                                    0.5 * (s_in * s_in).sum())
+            val = val + slack_cost(xa, ua, pk)
         return val
 
     def raw_ineq(xa, ua, pk):
@@ -557,7 +596,7 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         if ni_coll:
             # the state box on the condensed stage states s1, s2
             # (Control_Calc.py:552-556)
-            rows.append(_coll_S(x, u, pk))
+            rows.append(coll_S(x, u, pk))
         return torch.cat(rows)
 
     def raw_eq(xa, ua, pk):
@@ -650,46 +689,44 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
                   n_tc=n_tc, tc_target=tc_target if n_tc else None,
                   n_eq=nh_user, eq=eq_s if nh_user else None)
 
-    # the stage cost and rows in the raw forms the fused stage sweep
-    # lowers (StageLowering), on the shooting forms without slacks or user
-    # rows (JAX's generic route takes those); with the u_prev augmentation
-    # they also read the stage-0 flag
-    lowered = not (colloc or slacks or ng_user or nh_user)
-    if du_coupled:
-        point_args = POINT_ARGS + ("k0",)
-
-        def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0, k0):
-            return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
-                                        py=py, py0=py0, k0=k0))
-
-        def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0, k0):
-            return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
-                                        py=py, py0=py0, k0=k0))
-    else:
-        point_args = POINT_ARGS
-
-        def cost_at(xa, u, t, xs, us, d, um1, lam, py, py0):
-            return raw_cost(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
-                                        py=py, py0=py0))
-
-        def ineq_at(xa, u, t, xs, us, d, um1, lam, py, py0):
-            return raw_ineq(xa, u, dict(t=t, xs=xs, us=us, d=d, um1=um1, lam=lam,
-                                        py=py, py0=py0))
-
-    lowering_common = dict(h=h, ineq=ineq_at if ni else None, nx=nx, ny=ny, nup=nup,
-                           point_args=point_args)
+    # the stage cost and rows in the raw forms the fused stage sweep lowers
+    # (StageLowering), on every form: the point's parameters they read are
+    # POINT_ARGS, px where user rows read it, the collocation stage states
+    # s_coll (computed once by the step) and the stage-0 flag k0 where the
+    # u_prev slots or the slacks are read
+    point_args = (POINT_ARGS + (("px",) if ng_user or nh_user else ())
+                  + (("s_coll",) if colloc else ())
+                  + (("k0",) if du_coupled or slacks else ()))
+    lowering_common = dict(
+        h=h, ineq=_point_fn(raw_ineq, point_args) if ni else None,
+        eq=_point_fn(raw_eq, point_args) if nh_user else None, n_eq=nh_user, nx=nx, ny=ny,
+        nup=nup, ns=ns, point_args=point_args)
+    cost_at = _point_fn(raw_cost, point_args)
 
     if colloc:
-        # no sweep kernel: every stage derivative comes from torch.func
-        # through the condensed step (JAX riccati.py:604, the fast sweep
-        # is for shooting only)
-        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
+        # no split sweep: every stage derivative comes from the fused stage
+        # sweep, which runs the condensed step (JAX riccati.py:604, the
+        # fast sweep is for shooting only; JAX's make_stage_sweep takes it)
+        def _coll_ode(xx, tt, uu, dd, pp):
+            return user_fx_coll(xx, uu, dd, tt, pp)
+
+        low = StageLowering(kind="coll", ode=_coll_ode, Mx=1, clip_lo=None, clip_hi=None,
+                            Bd=None, lin_par=False, cost=cost_at,
+                            n_newton=int(n_colloc_newton), stagewise_px=bool(stagewise_px),
+                            **lowering_common)
+        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s, lowering=low)
 
     if cont_form:
+        # the quadrature is the stage cost; the slack penalty, if any, is
+        # the lowered cost beside it
+        low = StageLowering(kind="cf", ode=_ode, quad=_quad, Mx=int(Mx_c),
+                            clip_lo=None, clip_hi=None, Bd=None, lin_par=False,
+                            cost=_point_fn(slack_cost, point_args) if slacks else None,
+                            **lowering_common)
         if slacks:
             # the slack augmentation keeps JAX's generic route (JAX
-            # riccati.py:686-690): no joint sweep
-            return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
+            # riccati.py:686-690): no joint sweep, the fused stage sweep
+            return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s, lowering=low)
         # the joint rollout sweep: dynamics Jacobians and the quadrature
         # cost's gradient and Hessian from one pass (JAX riccati.py:686-715)
         sweep_cf = rk4_quad_stage_hess(_ode, _quad, Mx_c)
@@ -711,20 +748,23 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         # exact Hessian the fused stage sweep integrates the state and the
         # quadrature together, as _cont_step does (JAX riccati.py:329-333,
         # 376-380), with lam's and the rows' terms
-        low = (StageLowering(kind="cf", ode=_ode, quad=_quad, Mx=int(Mx_c),
-                             clip_lo=None, clip_hi=None, Bd=None, lin_par=False,
-                             cost=None, **lowering_common)
-               if lowered else None)
         return StructuredOCP(**common, stage_dyn_jac=None, sweep=sweep_cf,
                              stage_cf=stage_cf, dyn=dyn_s, lowering=low)
 
     m = cfg.model
     if isinstance(m, LinearModel):
         # no dynamics sweep: JAX takes its fast sweep only for the
-        # continuous and discrete forms (JAX riccati.py:604-606), and the
-        # solver differentiates this generic map (JAX dyn, :376-389, scaled
-        # as dyn_s, :411-414) by torch.func
-        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s)
+        # continuous and discrete forms (JAX riccati.py:604-606), so the
+        # fused stage sweep takes every stage derivative, as JAX's
+        # make_stage_sweep does; the affine step (with its Bd d and its
+        # px, which the linear form always adds) is lowered as a map
+        def _lin_step(xx, uu, dd, tt, pp):
+            return model.fx(xx, uu, h, dd, tt, pp)
+
+        low = StageLowering(kind="map", ode=None, fmap=_lin_step, Mx=1, clip_lo=None,
+                            clip_hi=None, Bd=None, lin_par=False, cost=cost_at,
+                            **lowering_common)
+        return StructuredOCP(**common, stage_dyn_jac=None, dyn=dyn_s, lowering=low)
 
     # the dynamics sweep: value and Jacobians of the model's step for all
     # stages in one pass; the augmented u_prev and slack rows have a
@@ -735,9 +775,7 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
     # the one-interval map beside the sweep, on every route (JAX riccati.py:
     # 376-390, dyn_s :559-560): the model's step (RK4 on the guarded state,
     # + Bd d, + px; or the discrete map), then the u_prev and slack slots.
-    # The exact Lagrangian Hessian traverses it by torch.func, as JAX's
-    # generic make_stage_derivs does, where the fused stage sweep does not
-    # lower it (slacks, user rows)
+    # The fused stage sweep lowers it with the cost and the rows
     exact = dict(dyn=dyn_s)
     if isinstance(m, DiscreteModel):
         from mpc_code_tpu_torch.ops.integrators import map_stage_jac
@@ -747,10 +785,9 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
         def run_sweep(x, u, p):
             return sweep(x, u, p["px"], p["t"], p["d"])
 
-        if lowered:
-            exact["lowering"] = StageLowering(
-                kind="map", ode=None, fmap=m.Fx, Mx=1, clip_lo=None, clip_hi=None,
-                Bd=Bd, lin_par=lin_par, cost=cost_at, **lowering_common)
+        exact["lowering"] = StageLowering(
+            kind="map", ode=None, fmap=m.Fx, Mx=1, clip_lo=None, clip_hi=None,
+            Bd=Bd, lin_par=lin_par, cost=cost_at, **lowering_common)
     else:
         from mpc_code_tpu_torch.ops.integrators import rk4_stage_jac
 
@@ -765,11 +802,10 @@ def build_structured_ocp(cfg: MPCConfig, model: ModelFns, f_obj, vfin,
             hb = torch.full((x.shape[0],), h, dtype=x.dtype, device=x.device)
             return sweep(x, u, p["px"], p["t"], hb, p["d"])
 
-        if lowered:
-            exact["lowering"] = StageLowering(
-                kind="rk4", ode=_ode, Mx=int(m.Mx), clip_lo=m.clip_lo,
-                clip_hi=m.clip_hi, Bd=Bd, lin_par=lin_par, cost=cost_at,
-                **lowering_common)
+        exact["lowering"] = StageLowering(
+            kind="rk4", ode=_ode, Mx=int(m.Mx), clip_lo=m.clip_lo,
+            clip_hi=m.clip_hi, Bd=Bd, lin_par=lin_par, cost=cost_at,
+            **lowering_common)
 
     def stage_dyn_jac(Xs, Us, p):
         s_x, s_u = _t(sxa, Xs), _t(su, Us)
@@ -1194,14 +1230,9 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                          "supported with the parallel-scan Riccati variant; "
                          "use the sequential default")
     exact = opts.hessian == "exact"
-    if impl == "fused" and not exact:
-        from mpc_code_tpu_torch.ops.sweep_autotune import fused_applies
-
-        if not fused_applies(s):
-            raise ValueError("impl='fused' needs an OCP whose stage functions the "
-                             "fused stage sweep lowers beside a split dynamics sweep "
-                             "(the continuous or the discrete map, without slacks "
-                             "or user rows)")
+    if impl == "fused" and not exact and s.lowering is None:
+        raise ValueError("impl='fused' needs an OCP whose stage functions the fused "
+                         "stage sweep lowers (StructuredOCP.lowering)")
     mehrotra = opts.mu_strategy == "mehrotra"
     ls_adaptive = opts.ls_mode == "adaptive"
     # ls_parallel only chooses how backtracking evaluates its trials
@@ -1213,21 +1244,19 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     ubz_np = np.concatenate([s.ubx, s.ubu, s.ubi])
     c_cnt = max(N * int((lbz_np > -1e18).sum() + (ubz_np < 1e18).sum()), 1)
 
-    # The route is chosen here, once, from the OCP's structure.
-    # Gauss-Newton: the split sweep, dynamics from their kernel and the
-    # cost and rows by torch.func; ContForm's joint sweep also gives the
-    # stage cost's value, gradient and Hessian (JAX fast_cf, riccati.py:
-    # 1150-1154).  Otherwise, where the OCP has a lowering (the continuous
-    # map, the discrete map and ContForm, with or without u_prev), every
-    # output comes from the fused stage sweep, with the iterate's
-    # multipliers (JAX riccati.py:1394-1400); the card has no other path
-    # for it, so it always launches its kernel there.  The rest (a
-    # LinearModel, a collocated OCP, and under the exact Hessian the
-    # slack, G_ineq and H_eq forms) takes every output from
-    # make_stage_derivs vmapped over the B*N points, as JAX does outside
-    # any Pallas kernel (JAX riccati.py:1150-1155, 1396-1398).  Under
-    # Gauss-Newton impl='fused' takes the fused stage sweep's Gauss-Newton
-    # build in place of the split sweep.
+    # The route is chosen here, once, from the OCP's structure, as JAX
+    # chooses it (JAX riccati.py:1150-1166).  Gauss-Newton on an OCP with a
+    # split sweep: the dynamics from their kernel and the cost and rows by
+    # torch.func; ContForm's joint sweep also gives the stage cost's value,
+    # gradient and Hessian (JAX fast_cf).  Everything else with a lowering
+    # (every form build_structured_ocp builds: the exact Hessian, and under
+    # Gauss-Newton a LinearModel, a collocated OCP and ContForm with slacks)
+    # takes every output from the fused stage sweep, with the iterate's
+    # multipliers (JAX make_stage_sweep, riccati.py:1394-1398); the card has
+    # no other path for it, so it always launches its kernel there.  An OCP
+    # without a lowering (the MHE's window) takes make_stage_derivs vmapped
+    # over the B*N points.  Under Gauss-Newton impl='fused' takes the fused
+    # stage sweep's Gauss-Newton build in place of the split sweep.
     fast_cf = s.stage_cf is not None and not exact
     split = ((s.stage_dyn_jac is not None and not exact) or fast_cf) and impl == "split"
     fused = None
@@ -1236,7 +1265,7 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
         if ni or eqcons or not fast_cf:
             v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
                                              skip_cost=fast_cf))
-    elif s.lowering is not None and (exact or impl == "fused"):
+    elif s.lowering is not None:
         from mpc_code_tpu_torch.solver.sweep_kernel import make_stage_sweep
 
         fused = make_stage_sweep(s, opts.hessian)
@@ -1443,8 +1472,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
             X, U = st["X"], st["U"]
             no_eq = (torch.zeros((Bsz, N, 0, nz), **kw), torch.zeros((Bsz, N, 0), **kw))
             if fused is not None:
-                return (fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"]))
-                        + no_eq + (None,))
+                mu_h = st["mu_h"] if eqcons else torch.zeros((Bsz, N, 0), **kw)
+                return fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"], mu_h)) + (None,)
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
             if v_full is not None:
                 mu_arg = (st["mu_h"].reshape(L, n_eq),) if eqcons else ()

@@ -4,39 +4,43 @@ Replaces ``mpc_code_tpu/solver/sweep_kernel.py::make_stage_sweep`` (its
 kernel body is built by ``_get_kernel_impl``), the Pallas program that runs
 every output of ``make_stage_derivs`` for all N stages of a batch: the
 structured solver's derivative sweep whenever it has no split dynamics
-sweep, which is whenever the Hessian is exact.  For every (scenario,
-stage) lane, at z = (xa, u) in scaled units and the iterate's multipliers
-lam and nus:
+sweep (the exact Hessian; a LinearModel, collocation and ContForm with
+slacks under either Hessian).  For every (scenario, stage) lane, at z =
+(xa, u) in scaled units and the iterate's multipliers lam, nus and mu_h:
 
-- ``H`` (nz, nz): ∇²(sf·c + lam·dyn + nus·ineq) under the exact Hessian,
-  ∇²(sf·c) under Gauss-Newton;
+- ``H`` (nz, nz): ∇²(sf·c + lam·dyn + nus·ineq + mu_h·eq) under the exact
+  Hessian, ∇²(sf·c) under Gauss-Newton;
 - ``gc`` (nz): ∇(sf·c);
 - ``A`` (nxa, nxa), ``B`` (nxa, nu) and ``dval`` (nxa): the one-interval
   map's Jacobians and value;
 - ``E`` (ni, nz) and ``ival`` (ni): the inequality rows' Jacobian and
-  value.
+  value;
+- ``Cz`` (n_eq, nz) and ``hval`` (n_eq): the stage equalities' (H_eq),
+  where the OCP has them.
 
 The OCP's functions reach the kernel through the code generator of
 ``ops/codegen.py``: ``emit_stage_source`` lowers the step (``StageLowering
-.kind``: the user ODE with its guard, RK4 sub-steps in the kernel; the
-user's discrete map, as kernel 3 lowers it, at order 2; or ContForm's ODE
-and quadrature, as kernel 4 lowers them), the stage cost and the
-inequality rows to scalar statements in a generated header, with the
-scales, weights, bounds, the interval and the u_prev width as literals;
-``csrc/stage_sweep.cu`` instantiates them with the second-order
-forward-mode ``Dual2`` of ``csrc/dual2.cuh``.  With the u_prev
-augmentation the step runs on the state's and the input's tangents alone
-and the kernel writes the augmentation's rows itself.  The TPU kernel's
-per-stage traces and (8, 128) tiles exist for Mosaic and have no
-counterpart here.
+.kind``: the user ODE with its guard, RK4 sub-steps in the kernel; a
+discrete map, the user's as kernel 3 lowers it or a linear model's affine
+step, at order 2; ContForm's ODE and quadrature, as kernel 4 lowers them;
+or the raw ODE for collocation's implicit step, whose Newton solve runs in
+the kernel), the stage cost and the inequality and equality rows to
+scalar statements in a generated header, with the scales, weights,
+bounds, the interval, the tableau and the u_prev and slack widths as
+literals; ``csrc/stage_sweep.cu`` instantiates them with the second-order
+forward-mode ``Dual2`` of ``csrc/dual2.cuh``.  The step runs on the
+state's and the model input's tangents alone, and the kernel writes the
+u_prev and slack rows itself.  The TPU kernel's per-stage traces and (8,
+128) tiles exist for Mosaic and have no counterpart here.
 
 What bounds the kernel on the H100, and how the design meets it: see the
 note at the top of ``csrc/stage_sweep.cu``.
 
 ``StageSweep.__call__`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; it runs the plain version (the vmapped
-``make_stage_derivs``) only for CPU tensors.  ``LAUNCHES`` counts kernel
-launches.
+``make_stage_derivs``) only for CPU tensors, after lowering the OCP's
+functions as a launch would, so that an OCP the kernel cannot take is
+refused on the CPU too.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -71,43 +75,68 @@ class BuiltPair(NamedTuple):
 
 class StagePrograms(NamedTuple):
     """The lowered functions of one stage: ``step`` the one-interval
-    step's programs (``(ode,)`` for "rk4", ``(fmap,)`` for "map", ``(ode,
-    quad)`` for "cf"), on the state and the input alone (nx + nu tangents),
-    ``cost`` the stage cost (None for "cf", whose cost is the quadrature)
-    and ``ineq`` the rows (None when ni = 0), on z = (xa, u)."""
+    step's programs (``(ode,)`` for "rk4" and "coll", ``(fmap,)`` for
+    "map", ``(ode, quad)`` for "cf"), on the state and the model's input
+    alone (nx + nu - ns tangents), ``cost`` the stage cost (for "cf" the
+    slack penalty beside the quadrature, or None) and ``ineq`` the
+    inequality rows (None when ni = 0), on z = (xa, u).  The equality rows
+    are ``eq_program``'s."""
     step: tuple
     cost: Optional[Program]
     ineq: Optional[Program]
+
+
+def _ode_program(ode, nx, nuc, nd, npx, order, u_kind="dual"):
+    """The ODE ``ode(x, t, u, d, px)`` with x (and u, unless ``u_kind`` is
+    'vec') carrying tangents."""
+    return Program(ode, (Arg("x", "dual", nx), Arg("t", "scalar"), Arg("u", u_kind, nuc),
+                         Arg("d", "vec", nd), Arg("px", "vec", npx)),
+                   nx + (nuc if u_kind == "dual" else 0), out_dim=nx, order=order,
+                   what="ODE")
 
 
 def stage_programs(low: StageLowering, nxa, nu, ni, nd, npx, npy,
                    order=2) -> StagePrograms:
     """The OCP's stage functions lowered with the state and the input
     carrying first- and second-order tangents; ``order=1`` counts the
-    step's (but ContForm's, whose quadrature is the cost) and the rows'
+    step's (but ContForm's, whose quadrature is the cost, and
+    collocation's, whose stage states the cost reads) and the rows'
     operations on first-order tangents only (the cost's stay second
     order)."""
     nz, nx = nxa + nu, low.nx
-    nzm = nx + nu
+    nuc = nu - low.ns
     if low.kind == "cf":
-        step = cf_programs(low.ode, low.quad, nx, nu, nd, npx, npy)
+        step = cf_programs(low.ode, low.quad, nx, nuc, nd, npx, npy)
     elif low.kind == "map":
-        step = (map_program(low.fmap, nx, nu, nd, npx, order=order),)
+        step = (map_program(low.fmap, nx, nuc, nd, npx, order=order),)
     else:
-        step = (Program(low.ode, (Arg("x", "dual", nx), Arg("t", "scalar"),
-                                  Arg("u", "dual", nu), Arg("d", "vec", nd),
-                                  Arg("px", "vec", npx)),
-                        nzm, out_dim=nx, order=order, what="ODE"),)
-    dims = dict(t=None, xs=nx, us=nu, d=nd, um1=nu, lam=(low.ny, nu),
-                py=npy, py0=npy, k0=None)
-    kinds = dict(t="scalar", k0="scalar", lam="mat")
-    pt = (Arg("xa", "dual", nxa), Arg("u", "dual", nu)) + tuple(
-        Arg(k, kinds.get(k, "vec"), dims[k]) for k in low.point_args)
+        step = (_ode_program(low.ode, nx, nuc, nd, npx, 2 if low.kind == "coll" else order),)
+    pt = _point_args(low, nxa, nu, nd, npx, npy)
     cost = (Program(low.cost, pt, nz, out_dim=None, order=2, what="stage cost")
             if low.cost is not None else None)
     ineq = (Program(low.ineq, pt, nz, out_dim=ni, order=order, what="inequality rows")
             if ni else None)
     return StagePrograms(step, cost, ineq)
+
+
+def _point_args(low: StageLowering, nxa, nu, nd, npx, npy) -> tuple:
+    """The arguments of the stage cost and rows: z = (xa, u), then the
+    point's parameters (``low.point_args``)."""
+    nx, nuc = low.nx, nu - low.ns
+    dims = dict(t=None, xs=nx, us=nuc, d=nd, um1=nuc, lam=(low.ny, nuc),
+                py=npy, py0=npy, px=npx, s_coll=2 * nx, k0=None)
+    kinds = dict(t="scalar", k0="scalar", lam="mat", s_coll="dual")
+    return (Arg("xa", "dual", nxa), Arg("u", "dual", nu)) + tuple(
+        Arg(k, kinds.get(k, "vec"), dims[k]) for k in low.point_args)
+
+
+def eq_program(low: StageLowering, nxa, nu, nd, npx, npy, order=2) -> Optional[Program]:
+    """The stage equality rows lowered as the inequality rows are (None
+    when n_eq = 0)."""
+    if not low.n_eq:
+        return None
+    return Program(low.eq, _point_args(low, nxa, nu, nd, npx, npy), nxa + nu,
+                   out_dim=low.n_eq, order=order, what="equality rows")
 
 
 def _bounds(b, n):
@@ -118,19 +147,31 @@ def _array(vals) -> str:
     return "{" + ", ".join(repr(float(v)) for v in (list(vals) or [1.0])) + "}"
 
 
-KINDS = {"rk4": 0, "map": 1, "cf": 2}
+KINDS = {"rk4": 0, "map": 1, "cf": 2, "coll": 3}
+
+
+def _coll_tableau():
+    """The 2-point Gauss-Legendre tableau of ``ocp/collocation.py``: the
+    inverse of its A and b~."""
+    from mpc_code_tpu_torch.ocp.collocation import _AD, _BT
+
+    return np.asarray(_AD, float), np.asarray(_BT, float)
 
 
 def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
                       nd, npx, npy) -> str:
     """Generated header ``mpc_stage_gen.cuh`` for ``csrc/stage_sweep.cu``:
     the step kind (``MPC_KIND``), the dimensions with the u_prev width
-    ``MPC_NUP``, the interval's RK4 steps, the scales, the step's functions
+    ``MPC_NUP``, the slack width ``MPC_NS`` and the equality rows'
+    ``MPC_NEQ``, the interval's RK4 steps, the scales, the step's functions
     (``mpc_rhs``, the traced ODE, and ``mpc_clip``, the guard from literal
     bounds, max then min per component, finite bounds only; or
-    ``mpc_map``; or ContForm's ``mpc_ode`` and ``mpc_quad``),
+    ``mpc_map``; or ContForm's ``mpc_ode`` and ``mpc_quad``; or for
+    collocation ``mpc_rhs`` with the tableau ``MPC_AD``, ``MPC_BT``, the
+    Newton steps ``MPC_NEWTON`` and ``MPC_PX0``, stage 0's px),
     ``mpc_terms`` (``+ Bd d``, then ``+ px`` under LinPar, as
-    ``models/model.py`` adds them), ``mpc_cost`` and ``mpc_ineq``."""
+    ``models/model.py`` adds them), ``mpc_cost``, ``mpc_ineq`` and
+    ``mpc_eq``."""
     progs = stage_programs(low, nxa, nu, ni, nd, npx, npy)
     nx = low.nx
     lo, hi = _bounds(low.clip_lo, nx), _bounds(low.clip_hi, nx)
@@ -150,6 +191,9 @@ def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
     if low.lin_par:
         terms += [f"  x[{i}] = x[{i}] + px[{i}];" for i in range(nx)]
     tpl = "template <class V, class S>\n__device__ __forceinline__ void"
+    rhs = (f"{tpl} mpc_rhs(const V* x, S t, const V* u, const S* d, "
+           f"const S* px, V* out) {{\n{progs.step[0].body}\n}}\n")
+    coll = ""
     if low.kind == "cf":
         cf_sig = ("const V* x, S t, const V* u, const S* d, const S* px, "
                   "const S* xs, const S* us, const S* py, V* out")
@@ -158,17 +202,21 @@ def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
     elif low.kind == "map":
         step = (f"{tpl} mpc_map(const V* x, const V* u, const S* d, S t, "
                 f"const S* px, V* out) {{\n{progs.step[0].body}\n}}\n")
+    elif low.kind == "coll":
+        step = rhs
+        ad, bt = _coll_tableau()
+        coll = (f"#define MPC_H {float(low.h)!r}\n#define MPC_NEWTON {low.n_newton}\n"
+                f"#define MPC_AD {{{_array(ad[0])}, {_array(ad[1])}}}\n"
+                f"#define MPC_BT {_array(bt)}\n")
     else:
-        step = (f"{tpl} mpc_rhs(const V* x, S t, const V* u, const S* d, "
-                f"const S* px, V* out) {{\n{progs.step[0].body}\n}}\n\n"
-                f"{tpl} mpc_clip(const V* x, V* xc) {{\n{chr(10).join(clip)}\n}}\n")
-    pt_sig = ("const V* xa, const V* u, S t, const S* xs, const S* us, "
+        step = rhs + f"\n{tpl} mpc_clip(const V* x, V* xc) {{\n{chr(10).join(clip)}\n}}\n"
+    pt_sig = ("const V* xa, const V* u, const V* s_coll, S t, const S* xs, const S* us, "
               "const S* d, const S* um1, const S* lam, const S* py, "
-              "const S* py0, bool k0, V* out")
-    cost_fn = ("" if progs.cost is None else
-               f"\n{tpl} mpc_cost({pt_sig}) {{\n{progs.cost.body}\n}}\n")
-    ineq_fn = ("" if progs.ineq is None else
-               f"\n{tpl} mpc_ineq({pt_sig}) {{\n{progs.ineq.body}\n}}\n")
+              "const S* py0, const S* px, bool k0, V* out")
+    eq = eq_program(low, nxa, nu, nd, npx, npy)
+    fns = "".join(f"\n{tpl} {name}({pt_sig}) {{\n{prog.body}\n}}\n"
+                  for name, prog in (("mpc_cost", progs.cost), ("mpc_ineq", progs.ineq),
+                                     ("mpc_eq", eq)) if prog is not None)
     dt = low.h / low.Mx
     return f"""// Generated by mpc_code_tpu_torch/solver/sweep_kernel.py.
 #pragma once
@@ -176,30 +224,79 @@ def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
 #define MPC_KIND_RK4 {KINDS["rk4"]}
 #define MPC_KIND_MAP {KINDS["map"]}
 #define MPC_KIND_CF {KINDS["cf"]}
+#define MPC_KIND_COLL {KINDS["coll"]}
 #define MPC_KIND {KINDS[low.kind]}
 #define MPC_NX {nx}
 #define MPC_NUP {low.nup}
+#define MPC_NS {low.ns}
 #define MPC_NXA {nxa}
 #define MPC_NU {nu}
 #define MPC_NI {ni}
+#define MPC_NEQ {low.n_eq}
 #define MPC_ND {nd}
 #define MPC_NPX {npx}
 #define MPC_NPY {npy}
-#define MPC_NLAM {low.ny * nu}
+#define MPC_NLAM {low.ny * (nu - low.ns)}
 #define MPC_MX {low.Mx}
 #define MPC_EXACT {int(hessian == "exact")}
+#define MPC_HAS_COST {int(progs.cost is not None)}
+#define MPC_PX0 {int(low.kind == "coll" and not low.stagewise_px)}
 #define MPC_DT {dt!r}
 #define MPC_DT2 {dt / 2!r}
 #define MPC_DT6 {dt / 6!r}
 #define MPC_SXA {_array(sxa)}
 #define MPC_SU {_array(su)}
 #define MPC_SI {_array(si)}
-
+{coll}
 {step}
 {tpl} mpc_terms(V* x, const S* d, const S* px) {{
 {chr(10).join(terms)}
 }}
-{cost_fn}{ineq_fn}"""
+{fns}"""
+
+
+def _lu_ops(n) -> int:
+    """LU with partial pivoting of (n, n): per column the compares, one
+    reciprocal, the multipliers and the update's multiply-adds."""
+    return sum((n - k - 1) + 1 + (n - k - 1) * (1 + 2 * (n - k - 1)) for k in range(n))
+
+
+def _solve_ops(n) -> int:
+    """One solve with the LU's factors: the two triangles and n divisions."""
+    return 2 * n * (n - 1) + n
+
+
+def _coll_ops(low: StageLowering, nuc, nd, npx) -> int:
+    """The collocation step's operations: ``n_newton`` Newton steps on
+    values (two ODE evaluations on first-order numbers over s, the
+    residual, the Jacobian's diagonal blocks, an LU and a solve), then the
+    differentiable step: two ODE evaluations on second-order numbers over
+    (s, u), the residual on those numbers, one LU, a solve for the value and
+    for each tangent with the Jacobian's first and second derivatives'
+    corrections, S = S* - G and x + b~'(S - x).  The second derivatives
+    come from two more ODE evaluations on second-order numbers over u
+    whose components carry one more tangent, counted as twice the
+    operations of those numbers (a value and a tangent each: a lower
+    count)."""
+    nx = low.nx
+    n2, nzm = 2 * nx, nx + nuc
+    npm = nzm * (nzm + 1) // 2
+    wm = 1 + nzm + npm
+    ode1 = _ode_program(low.ode, nx, nuc, nd, npx, 1, u_kind="vec").ops
+    ode2 = _ode_program(low.ode, nx, nuc, nd, npx, 2).ops
+    newton = 2 * ode1 + 7 * n2 + 2 * nx * nx + _lu_ops(n2) + _solve_ops(n2) + n2
+    # the corrections: one multiply-add a block entry for each u tangent of
+    # a first-order tangent and of each second-order entry's pair
+    u_terms = nuc + sum((i >= nx) + (j >= nx) for i in range(nzm) for j in range(i, nzm))
+    npu = nuc * (nuc + 1) // 2
+    ode_uu = Program(low.ode, (Arg("x", "dual", nx), Arg("t", "scalar"), Arg("u", "dual", nuc),
+                               Arg("d", "vec", nd), Arg("px", "vec", npx)),
+                     nuc, out_dim=nx, order=2, what="ODE").ops if nuc else 0
+    final = (2 * ode2 + 7 * n2 * wm + 2 * nx * nx + _lu_ops(n2)
+             + (1 + nzm + npm) * _solve_ops(n2) + u_terms * 2 * n2 * nx
+             + 2 * 2 * ode_uu + npu * n2
+             + n2 * wm + 5 * nx * wm)
+    return low.n_newton * newton + final
 
 
 def stage_ops_per_lane(low: StageLowering, hessian, nxa, nu, ni, nd, npx, npy) -> int:
@@ -207,30 +304,35 @@ def stage_ops_per_lane(low: StageLowering, hessian, nxa, nu, ni, nd, npx, npy) -
     and sqrt count as one each; a bound against a constant is a compare
     and a select per component): the cost and the rows once, on numbers
     with nz = nxa + nu first- and nz(nz+1)/2 second-order tangents; the
-    step on numbers with the nx + nu tangents of the state and the input
-    alone (the u_prev slots do not enter it): for "rk4" four ODE
-    evaluations with the guard and the RK4 combination (13 operations a
-    state) per sub-step, for "map" one evaluation of the map, for "cf" four
-    evaluations of the ODE and the quadrature and their RK4 combination (13
-    a state, 7 the quadrature) per sub-step; ``+ Bd d`` and ``+ px`` on the
-    values; the scalings (sf, 1/si, 1/sxa; the u_prev rows' value and B
-    entry); and the assembly of H's upper triangle (one product, then a
-    multiply-add for each inequality row and, on the step's block, each
-    dynamics row under the exact Hessian).  Under Gauss-Newton H is the
-    cost's Hessian alone, so the step and the rows need first-order
-    tangents only, but ContForm's step, whose quadrature is the cost."""
+    step on numbers with the nx + nu - ns tangents of the state and the
+    model's input alone (the u_prev and slack slots do not enter it): for
+    "rk4" four ODE evaluations with the guard and the RK4 combination (13
+    operations a state) per sub-step, for "map" one evaluation of the map,
+    for "cf" four evaluations of the ODE and the quadrature and their RK4
+    combination (13 a state, 7 the quadrature) per sub-step, for "coll"
+    the Newton solve and the implicit step (``_coll_ops``); ``+ Bd d`` and
+    ``+ px`` on the values; the scalings (sf, 1/si, 1/sxa; the u_prev and
+    slack rows' value and entry); and the assembly of H's upper triangle
+    (one product, then a multiply-add for each inequality and equality row
+    and, on the step's block, each dynamics row under the exact Hessian).
+    Under Gauss-Newton H is the cost's Hessian alone, so the step and the
+    rows need first-order tangents only, but ContForm's step, whose
+    quadrature is the cost, and collocation's, whose stage states the cost
+    reads."""
     exact = hessian == "exact"
-    cf = low.kind == "cf"
+    cf, coll = low.kind == "cf", low.kind == "coll"
     progs = stage_programs(low, nxa, nu, ni, nd, npx, npy, order=2 if exact else 1)
-    nx, nup = low.nx, low.nup
-    nz, nzm = nxa + nu, nx + nu
+    nx, nup, ns = low.nx, low.nup, low.ns
+    nz, nzm = nxa + nu, nx + nu - ns
     np2, npm = nz * (nz + 1) // 2, nzm * (nzm + 1) // 2
     width = 1 + nz + np2
     wrow = width if exact else 1 + nz          # the rows' numbers
-    wm = 1 + nzm + (npm if exact or cf else 0)  # the step's numbers
+    wm = 1 + nzm + (npm if exact or cf or coll else 0)  # the step's numbers
     if cf:
         ode, quad = progs.step
         step = low.Mx * (4 * (ode.ops + quad.ops) + (13 * nx + 7) * wm)
+    elif coll:
+        step = _coll_ops(low, nu - ns, nd, npx)
     elif low.kind == "map":
         step = progs.step[0].ops
     else:
@@ -238,32 +340,34 @@ def stage_ops_per_lane(low: StageLowering, hessian, nxa, nu, ni, nd, npx, npy) -
                        for v in b if v is not None and math.isfinite(v))
         step = low.Mx * (4 * (progs.step[0].ops + n_bounds * wm) + 13 * nx * wm)
     terms = (2 * nd * nx if low.Bd is not None else 0) + (nx if low.lin_par else 0)
-    scale = width + ni * wrow + nx * wm + 2 * nup
-    assembly = np2 + (2 * (ni * np2 + nx * npm) if exact else 0)
-    return ((progs.cost.ops if progs.cost is not None else 0)
-            + (progs.ineq.ops if progs.ineq is not None else 0)
+    scale = width + ni * wrow + nx * wm + 2 * (nup + ns)
+    assembly = np2 + (2 * ((ni + low.n_eq) * np2 + nx * npm) if exact else 0)
+    eq = eq_program(low, nxa, nu, nd, npx, npy, order=2 if exact else 1)
+    return (sum(p.ops for p in (progs.cost, progs.ineq, eq) if p is not None)
             + step + terms + scale + assembly)
 
 
-def stage_bytes(Bsz, N, nxa, nu, ni, nd, npx, npy, nlam, itemsize) -> int:
+def stage_bytes(Bsz, N, nxa, nu, ni, nd, npx, npy, nlam, itemsize, n_eq=0) -> int:
     """Bytes the function must move: each input read once, each output
     written once."""
     L = Bsz * N
     nz = nxa + nu
-    ins = (2 * nxa + nu + ni + npx + npy) * L + (2 + nxa + 2 * nu + nd + nlam) * Bsz
-    outs = (nz * nz + nz + nxa * nxa + nxa * nu + ni * nz + ni + nxa) * L
+    ins = (2 * nxa + nu + ni + n_eq + npx + npy) * L + (2 + nxa + 2 * nu + nd + nlam) * Bsz
+    outs = (nz * nz + nz + nxa * nxa + nxa * nu + (ni + n_eq) * (nz + 1) + nxa) * L
     return itemsize * (ins + outs)
 
 
 class StageSweep(LaneSweep):
-    """``F(X, U, lam, nus, px, py, t, sf, xs, us, d, um1, lamy) -> (H, gc,
-    A, B, E, ival, dval)`` for one OCP and Hessian mode: X, U, lam, nus,
-    px, py per stage (B, N, k), t and sf per scenario (B,), xs, us, d, um1
-    and the output-correction matrix ``lamy`` (B, ny*nu, row-major) per
-    scenario.  ``inputs`` builds these from the solver's iterate."""
+    """``F(X, U, lam, nus, px, py, mu_h, t, sf, xs, us, d, um1, lamy) ->
+    (H, gc, A, B, E, ival, dval, Cz, hval)`` for one OCP and Hessian mode:
+    X, U, lam, nus, px, py and the stage equalities' multipliers mu_h per
+    stage (B, N, k; mu_h zero-width, and Cz and hval empty, for an OCP
+    without them), t and sf per scenario (B,), xs, us, d, um1 and the
+    output-correction matrix ``lamy`` (B, ny*nu, row-major) per scenario.
+    ``inputs`` builds these from the solver's iterate."""
 
     kernel, header = "stage_sweep", "mpc_stage_gen.cuh"
-    stage_inputs = ("X", "U", "lam", "nus", "px", "py")
+    stage_inputs = ("X", "U", "lam", "nus", "px", "py", "mu_h")
     scalar_inputs = ("t", "sf")
     scenario_inputs = ("xs", "us", "d", "um1", "lamy")
 
@@ -273,39 +377,50 @@ class StageSweep(LaneSweep):
             raise ValueError(f"unknown hessian {hessian!r}")
         if s.lowering is None:
             raise ValueError("the fused stage sweep needs an OCP with a lowering "
-                             "(StructuredOCP.lowering): a shooting OCP without "
-                             "slacks or user rows")
+                             "(StructuredOCP.lowering)")
         self.derivs = make_stage_derivs(s, hessian)   # raises where unported
         self.s, self.hessian, self.low = s, hessian, s.lowering
+        self._src = {}
         self._v = vmap(self.derivs)
 
     @staticmethod
-    def inputs(Xs, Us, p, lam, nus):
+    def inputs(Xs, Us, p, lam, nus, mu_h):
         """The kernel's inputs at the solver's iterate: X[:, :N], U, the
-        batched parameter dict (with ``_sf``), lam and nus."""
-        return (Xs, Us, lam, nus, p["px"], p["py"], p["t"], p["_sf"], p["xs"],
+        batched parameter dict (with ``_sf``), lam, nus and mu_h."""
+        return (Xs, Us, lam, nus, p["px"], p["py"], mu_h, p["t"], p["_sf"], p["xs"],
                 p["us"], p["d"], p["um1"], p["lam"].reshape(Xs.shape[0], -1))
 
     def plain(self, *args):
         """The vmapped ``make_stage_derivs`` over blocks of at most
         PLAIN_BLOCK_LANES (scenario, stage) lanes: lanes are independent,
-        and a block bounds the memory its reverse-mode graph holds."""
+        and a block bounds the memory its reverse-mode graph holds.  The
+        outputs are contiguous (B, N, ...) tensors, as the kernel writes
+        them.  The OCP's functions are lowered first, as for a launch:
+        what the code generator cannot lower raises here too."""
+        names = self.stage_inputs + self.scalar_inputs + self.scenario_inputs
+        if len(args) != len(names):
+            raise TypeError(f"{self.kernel} takes {names}, got {len(args)} inputs")
+        self.source(*self.dims({k: a.shape[-1] for k, a in zip(names, args) if a.dim() > 1}))
         Bsz, N = args[0].shape[:2]
         step = max(1, PLAIN_BLOCK_LANES // N)
         parts = [self._plain_block(*[a[b0:b0 + step] for a in args])
                  for b0 in range(0, Bsz, step)]
         return tuple(torch.cat(p) for p in zip(*parts))
 
-    def _plain_block(self, X, U, lam, nus, px, py, t, sf, xs, us, d, um1, lamy):
+    def _plain_block(self, X, U, lam, nus, px, py, mu_h, t, sf, xs, us, d, um1, lamy):
         Bsz, N, nxa = X.shape
-        nu = U.shape[-1]
+        nuc = us.shape[-1]
         p = dict(xs=xs, us=us, d=d, um1=um1, t=t,
-                 lam=lamy.reshape(Bsz, -1, nu), px=px, py=py, _sf=sf)
+                 lam=lamy.reshape(Bsz, -1, nuc), px=px, py=py, _sf=sf)
         pk = stage_params(p, N)
         L = Bsz * N
-        Z = torch.cat([X, U], -1).reshape(L, nxa + nu)
-        out = self._v(Z, pk, lam.reshape(L, nxa), nus.reshape(L, nus.shape[-1]))
-        return tuple(o.reshape((Bsz, N) + tuple(o.shape[1:])) for o in out)
+        Z = torch.cat([X, U], -1).reshape(L, nxa + U.shape[-1])
+        n_eq = self.s.n_eq
+        mu_arg = (mu_h.reshape(L, n_eq),) if n_eq else ()
+        out = self._v(Z, pk, lam.reshape(L, nxa), nus.reshape(L, nus.shape[-1]), *mu_arg)
+        if not n_eq:     # make_stage_derivs returns Cz and hval only with rows
+            out += (Z.new_zeros(L, 0, Z.shape[-1]), Z.new_zeros(L, 0))
+        return tuple(o.reshape((Bsz, N) + tuple(o.shape[1:])).contiguous() for o in out)
 
     def build(self, *dims, dtypes=("f32", "f64")):
         """The kernel's libraries for ``dims``, one for each of ``dtypes``
@@ -348,9 +463,12 @@ class StageSweep(LaneSweep):
         return getattr(self.build(*dims, dtypes=(d,)).lib, f"{self.kernel}_{d}")
 
     def source(self, nxa, nu, ni, nd, npx, npy) -> str:
-        s = self.s
-        return emit_stage_source(self.low, s.sxa, s.su, s.si, self.hessian,
-                                 nxa, nu, ni, nd, npx, npy)
+        dims = (nxa, nu, ni, nd, npx, npy)
+        if dims not in self._src:
+            s = self.s
+            self._src[dims] = emit_stage_source(self.low, s.sxa, s.su, s.si, self.hessian,
+                                                *dims)
+        return self._src[dims]
 
     def ops_per_lane(self, nxa, nu, ni, nd, npx, npy) -> int:
         return stage_ops_per_lane(self.low, self.hessian, nxa, nu, ni, nd, npx, npy)
@@ -358,16 +476,18 @@ class StageSweep(LaneSweep):
     def dims(self, w):
         s = self.s
         nxa, nu, ni = w["X"], w["U"], w["nus"]
-        if ((nxa, nu, ni) != (s.nxa, s.nu, s.ni) or w["lam"] != nxa
-                or (w["xs"], w["us"], w["um1"]) != (self.low.nx, nu, nu)
-                or w["lamy"] != self.low.ny * nu):
+        nuc = nu - self.low.ns
+        if ((nxa, nu, ni, w["mu_h"]) != (s.nxa, s.nu, s.ni, s.n_eq) or w["lam"] != nxa
+                or (w["xs"], w["us"], w["um1"]) != (self.low.nx, nuc, nuc)
+                or w["lamy"] != self.low.ny * nuc):
             raise ValueError(f"inputs of widths {w} do not fit the OCP's "
-                             f"(nxa, nu, ni) = {(s.nxa, s.nu, s.ni)}")
+                             f"(nxa, nu, ni, n_eq) = {(s.nxa, s.nu, s.ni, s.n_eq)}")
         return (nxa, nu, ni, w["d"], w["px"], w["py"])
 
     def out_rows(self, nxa, nu):
-        nz, ni = nxa + nu, self.s.ni          # H, gc, A, B, E, ival, dval
-        return (nz * nz, nz, nxa * nxa, nxa * nu, ni * nz, ni, nxa)
+        # H, gc, A, B, E, ival, dval, Cz, hval
+        nz, ni, n_eq = nxa + nu, self.s.ni, self.s.n_eq
+        return (nz * nz, nz, nxa * nxa, nxa * nu, ni * nz, ni, nxa, n_eq * nz, n_eq)
 
     @staticmethod
     def out_shape(rows, L):
@@ -379,11 +499,12 @@ class StageSweep(LaneSweep):
         LAUNCHES += 1
 
     def launch(self, *args):
-        """The kernel's outputs as contiguous (B, N, ...) tensors."""
+        """The kernel's nine outputs as contiguous (B, N, ...) tensors."""
         planes = self.pack(*args)
         Bsz, N, (nxa, nu, ni) = planes.Bsz, planes.N, planes.dims[:3]
-        nz = nxa + nu
-        shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,))
+        nz, n_eq = nxa + nu, self.s.n_eq
+        shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,),
+                  (n_eq, nz), (n_eq,))
         return tuple(o.view((Bsz, N) + sh)
                      for o, sh in zip(self.launch_planes(planes), shapes))
 

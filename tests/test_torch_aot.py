@@ -224,3 +224,39 @@ def test_runner_auto_aot_key_and_refusals(tmp_path, monkeypatch):
         r1(x0s, make_step_inputs(small_cfg(N=4), 2))
     with pytest.raises(ValueError, match="exported for x0"):
         r1(x0s.astype(np.float32))
+
+
+def test_a_loaded_library_is_noted_inside_a_recording(tmp_path):
+    """F14 (ROADMAP Queue 3): ``cuda_build.build`` of a key this process
+    has loaded already, inside ``recording()`` (an AOT export), called
+    ``used()`` while it held the lock that ``used()`` takes again, and the
+    process stopped there (the bench port's runner on the card, once its
+    kernel-5 build was loaded before the export).  The build returns the
+    loaded library, and the recording notes it."""
+    import threading
+
+    from mpc_code_tpu_torch.ops import cuda_build
+
+    gen = {"mpc_stage_gen.cuh": "// a header no build writes\n"}
+    defines = {"MPC_DTYPE_BITS": "32"}
+    key = cuda_build.build_key("stage_sweep.cu", defines, gen)
+    lib_dir = tmp_path / f"stage_sweep-{key}"
+    loaded = cuda_build.BuiltLibrary(None, str(lib_dir / "libstage_sweep.so"), "")
+    cuda_build._LOADED[key] = loaded
+    out = {}
+
+    def run():
+        with cuda_build.recording() as seen:
+            out["lib"] = cuda_build.build("stage_sweep", "stage_sweep.cu", defines=defines,
+                                          generated=gen)
+            out["seen"] = dict(seen)
+
+    try:
+        worker = threading.Thread(target=run, daemon=True)
+        worker.start()
+        worker.join(30.0)
+        assert not worker.is_alive(), "build() did not return inside recording()"
+    finally:
+        cuda_build._LOADED.pop(key, None)
+    assert out["lib"] is loaded
+    assert out["seen"] == {lib_dir.name: str(lib_dir)}

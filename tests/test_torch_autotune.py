@@ -10,9 +10,10 @@ never writes ``os.environ``.  ``"fused"`` (the fused stage sweep's
 Gauss-Newton build, here its plain version) equals ``"split"`` (the
 dynamics sweep plus ``torch.func``) on 4 lanes, and both equal JAX's
 Gauss-Newton solve (its split sweep, jitted for one lane).  Where the
-fused sweep does not lower the OCP (the soft output bounds' slacks) the
-answer is ``"split"`` without a probe; the u_prev augmentation (DUForm),
-lowered since the fused sweep took it, is probed.
+fused sweep does not lower the OCP (an OCP without a lowering) the answer
+is ``"split"`` without a probe; the u_prev augmentation (DUForm) and the
+soft output bounds' slacks, lowered since the fused sweep took them, are
+probed.
 """
 
 import dataclasses as dc
@@ -73,18 +74,21 @@ def test_autotune_engages_only_with_the_knob_and_a_hint(cache, monkeypatch):
     cfg, _, socp, _ = _problem(batch_hint=8)
     assert sa.PROBES == n0 + 1
     assert socp.sweep_impl == sa.autotune_sweep_impl(cfg, socp, 8)
-    # the shared slacks: no lowering, 'split' without a probe
-    soft = _problem(batch_hint=8, slacks=True, Ws=10.0 * np.eye(4))[2]
-    assert soft.lowering is None and soft.sweep_impl == "split" and sa.PROBES == n0 + 1
+    # an OCP without a lowering: 'split' without a probe
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.solver.riccati import make_structured_solver
 
+    bare = dc.replace(socp, lowering=None)
+    assert sa.autotune_sweep_impl(cfg, bare, 8) == "split" and sa.PROBES == n0 + 1
     with pytest.raises(ValueError, match="impl='fused' needs"):
-        make_structured_solver(soft, SolverOptions(**OPTS), impl="fused")
-    # DUForm (the u_prev augmentation): lowered, so probed
+        make_structured_solver(bare, SolverOptions(**OPTS), impl="fused")
+    # DUForm (the u_prev augmentation) and the shared slacks: lowered, so probed
     du = _problem(batch_hint=8, DUForm=True)[2]
     assert du.lowering.nup == 2 and du.sweep_impl in ("split", "fused")
     assert sa.PROBES == n0 + 2
+    soft = _problem(batch_hint=8, slacks=True, Ws=10.0 * np.eye(4))[2]
+    assert soft.lowering.ns == 4 and soft.sweep_impl in ("split", "fused")
+    assert sa.PROBES == n0 + 3
     with pytest.raises(ValueError, match="unknown impl"):
         make_structured_solver(socp, SolverOptions(**OPTS), impl="pallas")
 

@@ -108,7 +108,8 @@ def test_condensed_stage_map_matches_jax(setup, stagewise_px):
     assert (ps.nxa, ps.nu, ps.ni) == (js.nxa, js.nu, js.ni) == (2, 1, 4)
     np.testing.assert_array_equal(ps.lbi, js.lbi)
     np.testing.assert_array_equal(ps.ubi, js.ubi)
-    assert ps.lowering is None and ps.stage_dyn_jac is None and ps.sweep is None
+    assert ps.stage_dyn_jac is None and ps.sweep is None
+    assert ps.lowering.kind == "coll" and ps.lowering.stagewise_px == stagewise_px
     p = _params(jcfg, 5)
     rng = np.random.default_rng(6)
     z = np.concatenate([rng.uniform(0.2, 0.8, (LANES, N, 2)),

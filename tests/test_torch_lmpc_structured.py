@@ -1,11 +1,13 @@
 """The port's structured OCP of a linear model against the JAX package, CPU, f64.
 
-A ``LinearModel`` has no derivative sweep (JAX ``riccati.py:604-606``):
+A ``LinearModel`` has no split dynamics sweep (JAX ``riccati.py:604-606``):
 ``build_structured_ocp`` gives its generic scaled map ``dyn`` (with the
-u_prev rows under DUForm) and ``make_structured_solver`` takes every stage
-derivative from ``make_stage_derivs`` vmapped over the B*N points, under
-either Hessian, with the Riccati KKT solve (its plain version here) once
-per iteration.
+u_prev rows under DUForm) and a lowering of its affine step as a map, and
+``make_structured_solver`` takes every stage derivative from the fused
+stage sweep (kernel 5; its plain version here, ``make_stage_derivs``
+vmapped over the B*N points), under either Hessian, as JAX's
+``make_stage_sweep`` takes them, with the Riccati KKT solve (its plain
+version here) once per iteration.
 
 - Cold solves of ``lmpc_wb`` (DUForm, nxa=6), ``lmpc_cstr`` (state and
   output bounds, nxa=3, ni=3; its lane from the example's ``x0_p`` is
@@ -21,9 +23,9 @@ per iteration.
   for bit on seeded points, on all four LMPC configs: the Lagrangian's
   ``lam.dyn`` and ``nu.ineq`` terms are linear, so their second
   derivatives are zeros.
-- The route is chosen from the OCP's structure: a linear model builds no
-  fused stage sweep under either Hessian, while the CSTR's continuous
-  model under the exact Hessian still does.
+- The route is chosen from the OCP's structure: a linear model builds the
+  fused stage sweep under either Hessian, and so does the CSTR's
+  continuous model under the exact Hessian.
 - In f32, ``lmpc_nlplant``'s OCP at its nominal point stops at the cap of
   10 with status 1 (KKT error 6.3e-3 against the 1e-3 tolerance; f64:
   status 0 in 3 iterations), and JAX's f32 solver does too (4.1e-3).
@@ -153,7 +155,8 @@ def test_exact_and_gauss_newton_derivatives_agree(name):
 
     jcfg, pcfg = _configs(name)
     socp = _port_ocp(pcfg)
-    assert socp.stage_dyn_jac is None and socp.lowering is None and socp.dyn is not None
+    assert socp.stage_dyn_jac is None and socp.dyn is not None
+    assert socp.lowering.kind == "map" and socp.lowering.lin_par is False
     B, nz = 2, socp.nxa + socp.nu
     p = batch_params({k: torch.as_tensor(v) for k, v in
                       _params(jcfg, np.asarray(jcfg.x0_m, float)).items()},
@@ -174,15 +177,19 @@ def test_exact_and_gauss_newton_derivatives_agree(name):
 
 @pytest.mark.parametrize("hess", HESS)
 def test_linear_model_takes_the_generic_route(hess, monkeypatch):
+    """The generic stage-derivative sweep: the fused stage sweep (kernel
+    5) of the Hessian asked for, as JAX's make_stage_sweep takes a
+    LinearModel's stage derivatives."""
     from mpc_code_tpu_torch.config import SolverOptions
     from mpc_code_tpu_torch.solver import riccati, sweep_kernel
 
-    def refuse(*a, **k):
-        raise AssertionError("the fused stage sweep was built")
-
-    monkeypatch.setattr(sweep_kernel, "make_stage_sweep", refuse)
+    built = []
+    inner = sweep_kernel.make_stage_sweep
+    monkeypatch.setattr(sweep_kernel, "make_stage_sweep",
+                        lambda s, h="exact": built.append(h) or inner(s, h))
     _, pcfg = _configs("lmpc_nlplant")
     riccati.make_structured_solver(_port_ocp(pcfg), SolverOptions(hessian=hess))
+    assert built == [hess]
 
 
 def test_continuous_model_under_exact_still_builds_the_fused_sweep(monkeypatch):

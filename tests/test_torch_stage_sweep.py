@@ -114,7 +114,8 @@ def sweeps():
         keep = (0, 1, 2, 3, 4, 5, 8)             # without Cz, hval
         T = {k: torch.tensor(v) for k, v in a.items()}
         got = make_stage_sweep(ps, hess)(
-            T["X"], T["U"], T["lam"], T["nus"], T["px"], T["py"], T["t"],
+            T["X"], T["U"], T["lam"], T["nus"], T["px"], T["py"],
+            torch.zeros((B, N, 0), dtype=torch.float64), T["t"],
             T["sf"], T["xs"], T["us"], T["d"], T["um1"], T["lamy"])
         out[hess] = ([np.asarray(jv[i]) for i in keep],
                      [np.asarray(jk[i]) for i in keep], [g.numpy() for g in got])

@@ -171,7 +171,8 @@ def forms():
         ref, res = _jax_derivs(js, jcfg, a), {}
         for hess in HESSIANS:
             got = make_stage_sweep(ps, hess)(
-                T["X"], T["U"], T["lam"], T["nus"], T["px"], T["py"], T["t"], T["sf"],
+                T["X"], T["U"], T["lam"], T["nus"], T["px"], T["py"],
+                torch.zeros(T["X"].shape[:2] + (0,), dtype=torch.float64), T["t"], T["sf"],
                 T["xs"], T["us"], T["d"], T["um1"], T["lamy"])
             res[hess] = (ref[hess], [g.numpy() for g in got])
         out[form] = dict(ps=ps, cfg=pcfg, a=a, res=res)
@@ -210,7 +211,7 @@ def test_u_prev_rows_and_the_exact_terms(forms, form):
     nx, nxa, nu = f["cfg"].nx, ps.nxa, ps.nu
     if nxa == nx:
         return
-    H, _, A, Bm, _, _, dval = ex
+    H, _, A, Bm, _, _, dval = ex[:7]
     np.testing.assert_allclose(dval[..., nx:], a["U"] * ps.su / ps.sxa[nx:], rtol=1e-15)
     assert not A[..., nx:, :].any() and not A[..., :, nx:].any()
     np.testing.assert_allclose(Bm[..., nx:, :], np.broadcast_to(
