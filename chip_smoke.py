@@ -29,9 +29,16 @@ It never imports JAX or the JAX package.  Phases:
    ni=4; ENMPC's ContForm, N=25, nz=3; the CSTR with DUForm, N=50, nz=7),
    each in its exact build and in its Gauss-Newton build, the Riccati KKT solve at the LMPC loop's
    (N=50, nxa=5, nu=2), the bench port's (N=20, nxa=3, nu=2, 1024
-   lanes) and the structured MHE's (N=11, nxa=4, nu=4); an f32 sweep
-   (kernels 1, 3, 5) must also lie
+   lanes) and the structured MHE's (N=11, nxa=4, nu=4); the
+   elementary functions: the ``elem`` ODE (every function the code
+   generator lowers, lanes on JAX's special points) through kernel 1, the
+   tanh map through kernel 3, Ex_ENMPC's ODE with a tanh and sigmoid
+   quadrature through kernel 4, the cart-pole's kernel 1 and kernel 2 at
+   (20, 4, 1), and kernel 5's exact builds of the elem OCP and the
+   cart-pole; an f32 sweep (kernels 1, 3, 5) must also lie
    no farther from the f64 plain version than twice its f32 plain version;
+   the plain versions of kernels 4 and 5 run in one block of lanes
+   (``card_plain``);
 3. CSTR slice phase: the bench workload through the port's entry points —
    batched cold solves of the CSTR NMPC OCP, B=16384, N=50, Mx=10, seed-0
    draws, pass-1 cap 12, one combined steady/coolhold rescue at 2x512
@@ -113,7 +120,12 @@ It never imports JAX or the JAX package.  Phases:
    cache, and the winner's route with the same checks; then the debug
    phase (``debug``): ``SolverOptions(debug=True)`` on 2 lanes of the
    CSTR structured solve and one dense target solve in f64, lanes x passes
-   lines, lane 0's numbers against the CPU f64 run's;
+   lines, lane 0's numbers against the CPU f64 run's; then the
+   cart-pole (``cartpole``): acados's pendulum on a cart (``sin``, ``cos``)
+   at N=20 on CARTPOLE_B lanes in f32 under the Gauss-Newton Hessian
+   (kernels 1 and 2) and the exact one (kernels 5 and 2): solves/s,
+   ok_fraction, iterations, launches against the solver's passes, 8 lanes
+   in f64 held to the CPU's f64 run (Gauss-Newton's after 8 passes);
 12. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
@@ -157,7 +169,8 @@ It never imports JAX or the JAX package.  Phases:
    ``{"ok": true, "device": {...}}``.
 
 The kernel phases and phase 3 run alone on the card.  From there on
-three processes share it: this one (phases 4-8, 10 and the debug phase),
+three processes share it: this one (phases 4-8, 10, the debug phase and
+the cart-pole),
 one for phase 9 (the bench port, the mesh) and phase 11's solver options
 and one for phases 13, 12, 14 and 15
 (``PARTS``; each started as ``python3 chip_smoke.py --part ...`` with CPU
@@ -549,7 +562,7 @@ def enmpc_kernel_phase(dev, eprob, results):
         got = sweep(*arrs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()            # host-bound: seconds per call
-        ref = sweep.plain(*arrs)
+        ref = card_plain(sweep, *arrs)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         errs = [nerr(g, r) for g, r in zip(got, ref)]
@@ -827,16 +840,427 @@ def enmpc_sweep_inputs(dtype, device, socp, cfg=None, seed=7):
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
 
 
+# ---------------------------------------------------------------------------
+# the elementary functions' models: ``elem`` (every function the code
+# generator lowers), the tanh map and quadrature, the cart-pole
+# ---------------------------------------------------------------------------
+
+
+def torch_fns():
+    """The functions the models below call, by name, in torch (the tests
+    hand in JAX's under the same names)."""
+    import types
+
+    import torch
+
+    return types.SimpleNamespace(
+        tanh=torch.tanh, sigmoid=torch.sigmoid, sin=torch.sin, cos=torch.cos, tan=torch.tan,
+        asin=torch.asin, acos=torch.acos, atan=torch.atan, atan2=torch.atan2,
+        sinh=torch.sinh, cosh=torch.cosh, log1p=torch.log1p, expm1=torch.expm1,
+        rsqrt=torch.rsqrt, reciprocal=torch.reciprocal, square=torch.square, sign=torch.sign,
+        clamp=torch.clamp, pow=torch.pow, erf=torch.erf, stack=torch.stack)
+
+
+def elem_ode(F):
+    """A small ODE (nx = 3, nu = 2) whose right side calls every function
+    the code generator lowers, each argument inside its domain on the
+    lanes' box (x, u in [-1, 1]).  Its special points: clamp's tie at x_1
+    = px_1 - 0.5 (traced bounds), sign at u_0 = 0, pow's base 0 at u_1 = 0
+    (the exponent in (2, 3): finite second derivatives) and atan2's origin
+    at x_2 = 0, u_0 = 0.5 (nan derivatives, as JAX's)."""
+    def fx(x, u, d, t, px):
+        a, s = F.tanh(x[0]), F.sigmoid(x[1])
+        return F.stack([
+            -0.5 * x[0] + F.sin(x[1]) * F.cos(u[0]) + 0.2 * F.asin(0.9 * a)
+            + 0.1 * F.atan2(x[2], u[0] - 0.5),
+            -0.3 * x[1] + 0.2 * F.acos(0.8 * (2.0 * s - 1.0)) + 0.1 * F.tan(0.5 * a)
+            + 0.1 * F.atan(x[2]) + 0.05 * F.sinh(a) - 0.05 * F.cosh(0.5 * a) * F.sign(u[0]),
+            -0.4 * x[2] + 0.1 * F.log1p(s) + 0.1 * F.expm1(0.5 * a)
+            + 0.1 * F.rsqrt(1.0 + x[2] * x[2]) + 0.1 * F.reciprocal(2.0 + s)
+            + 0.1 * F.square(u[1]) + 0.1 * F.erf(x[0])
+            + 0.05 * F.clamp(x[1], min=px[1] - 0.5, max=px[0] + 0.5)
+            + 0.05 * F.pow(u[1] * u[1], 2.5 + 0.5 * a) + 0.02 * 2.0 ** u[1]])
+    return fx
+
+
+def elem_cost(F):
+    """The elem OCP's stage cost: tracking plus every function again."""
+    def f_dis(x, u, y, xs, us, ys):
+        dx0, dx1, dx2 = x[0] - xs[0], x[1] - xs[1], x[2] - xs[2]
+        return (0.5 * (dx0 * dx0 + dx1 * dx1 + dx2 * dx2) + 0.05 * (u[0] * u[0] + u[1] * u[1])
+                + 0.01 * (F.tanh(x[0]) * F.sigmoid(x[1]) + F.sin(x[2]) * F.cos(u[0])
+                          + F.tan(0.5 * F.tanh(x[1])) + F.asin(0.5 * F.tanh(x[2]))
+                          + F.acos(0.5 * F.sigmoid(x[0])) + F.atan(u[1])
+                          + F.sinh(0.5 * F.tanh(x[0])) + F.cosh(0.3 * x[1])
+                          + F.log1p(F.sigmoid(x[2])) + F.expm1(0.2 * x[0])
+                          + F.rsqrt(1.0 + u[0] * u[0]) + F.reciprocal(2.0 + F.sigmoid(u[1]))
+                          + F.erf(x[1]) + F.sign(x[0]) * x[1] + F.square(x[2])
+                          + F.clamp(x[2], -0.5, 0.5) + F.pow(1.0 + F.sigmoid(x[0]), u[0])
+                          + F.atan2(x[1], 2.0 + x[2] * x[2]) + 2.0 ** u[1]))
+    return f_dis
+
+
+def elem_config(cfgm, F, N=20, Mx=2):
+    """The elem OCP: ``elem_ode`` (h = 0.5, RK4 at Mx sub-steps, no
+    guard), ``elem_cost``, a quadratic terminal cost, |u| <= 2 (a scale of
+    2, exact in either dtype) and no disturbance.  ``cfgm``: the package's
+    config module."""
+    return cfgm.MPCConfig(
+        nx=3, nxp=3, nu=2, ny=3, nd=0, Nsim=1, N=N, h=0.5,
+        model=cfgm.ContinuousModel(fx=elem_ode(F), Mx=Mx,
+                                   fy=lambda x, u, d, t, py: F.stack([x[0], x[1], x[2]])),
+        dist=cfgm.DisturbanceModel(offree="no"),
+        x0_p=np.zeros(3), x0_m=np.zeros(3), u0=np.zeros(2),
+        stage_cost=cfgm.StageCost(f_dis=elem_cost(F)),
+        terminal=cfgm.TerminalCost(vfin=lambda dx, xs: 0.5 * (dx[0] * dx[0] + dx[1] * dx[1]
+                                                             + dx[2] * dx[2])),
+        bounds=cfgm.Bounds(umin=np.array([-2.0, -2.0]), umax=np.array([2.0, 2.0])))
+
+
+def tanh_map(F):
+    """The discrete map of the JAX package's own kernel-3 test
+    (``tests/test_sweep_pallas.py:73``), nx = 2, nu = 1."""
+    def Fmap(x, u, d, t, px):
+        return F.stack([0.9 * x[0] + 0.1 * F.tanh(x[1]) + u[0],
+                        x[1] - 0.2 * x[0] * u[0] + px[0] + d[0] * t])
+    return Fmap
+
+
+def tanh_quad(F):
+    """A ContForm quadrature with tanh and sigmoid, on Ex_ENMPC's
+    arguments: tracking of the target with a tanh-shaped input penalty
+    and a sigmoid-weighted state term."""
+    def q(x, t, u, d, px, xs, us, py):
+        e0, e1 = x[0] - xs[0], x[1] - xs[1]
+        return (e0 * e0 + e1 * e1) * (1.0 + F.sigmoid(4.0 * x[0] - 2.0)) \
+            + 0.1 * F.tanh(u[0] - us[0]) * (u[0] - us[0])
+    return q
+
+
+# The cart-pole of acados's getting-started example
+# (examples/acados_python/getting_started/pendulum_model.py and
+# minimal_example_ocp.py): x = (p, theta, v, omega), u = F; M = 1 kg, m =
+# 0.1 kg, l = 0.8 m, g = 9.81; Tf = 1 s over N = 20 intervals; |F| <= 80;
+# the cost 0.5 (x'Qx + u'Ru), Q = 2 diag(1e3, 1e3, 1e-2, 1e-2), R = 2e-2,
+# the terminal weight Q.  RK4 at one sub-step an interval: acados's ERK
+# with 4 stages and one step (its default).  The 2,048 initial states are
+# drawn with seed 0 from CARTPOLE_BOX: the pole within 0.5 rad of upright,
+# the cart within 0.5 m of the origin, both rates within 0.5 (with rates of
+# 1, 3% of the lanes fail under either Hessian, in f64 too).
+CARTPOLE_M, CARTPOLE_m, CARTPOLE_l, CARTPOLE_g = 1.0, 0.1, 0.8, 9.81
+CARTPOLE_Q = (2e3, 2e3, 2e-2, 2e-2)
+CARTPOLE_R = 2e-2
+CARTPOLE_FMAX = 80.0
+CARTPOLE_N, CARTPOLE_TF, CARTPOLE_MX = 20, 1.0, 1
+CARTPOLE_BOX = (np.array([-0.5, -0.5, -0.5, -0.5]), np.array([0.5, 0.5, 0.5, 0.5]))
+
+
+def cartpole_config(cfgm, F, N=CARTPOLE_N, Mx=CARTPOLE_MX):
+    """The cart-pole OCP (its interval Tf / CARTPOLE_N at any N)."""
+    M, m, l, g = CARTPOLE_M, CARTPOLE_m, CARTPOLE_l, CARTPOLE_g
+    Q = CARTPOLE_Q
+
+    def fx(x, u, d, t, px):
+        s, c = F.sin(x[1]), F.cos(x[1])
+        den = M + m - m * c * c
+        return F.stack([x[2], x[3],
+                        (-m * l * s * x[3] * x[3] + m * g * c * s + u[0]) / den,
+                        (-m * l * c * s * x[3] * x[3] + u[0] * c + (M + m) * g * s)
+                        / (l * den)])
+
+    def vfin(dx, xs):
+        return 0.5 * (Q[0] * dx[0] * dx[0] + Q[1] * dx[1] * dx[1] + Q[2] * dx[2] * dx[2]
+                      + Q[3] * dx[3] * dx[3])
+
+    return cfgm.MPCConfig(
+        nx=4, nxp=4, nu=1, ny=4, nd=0, Nsim=1, N=N, h=CARTPOLE_TF / CARTPOLE_N,
+        model=cfgm.ContinuousModel(fx=fx, Mx=Mx,
+                                   fy=lambda x, u, d, t, py: F.stack([x[0], x[1], x[2], x[3]])),
+        dist=cfgm.DisturbanceModel(offree="no"),
+        x0_p=np.zeros(4), x0_m=np.zeros(4), u0=np.zeros(1),
+        stage_cost=cfgm.StageCost(Q=np.diag(Q), R=np.array([[CARTPOLE_R]])),
+        terminal=cfgm.TerminalCost(vfin=vfin),
+        bounds=cfgm.Bounds(umin=np.array([-CARTPOLE_FMAX]), umax=np.array([CARTPOLE_FMAX])))
+
+
+def cartpole_params(cfg, x0s, N):
+    """The solver's parameters: the upright setpoint, no parameters."""
+    B = len(x0s)
+    return dict(x0=x0s, xs=np.zeros((B, 4)), us=np.zeros((B, 1)), d=np.zeros((B, 0)),
+                um1=np.zeros((B, 1)), t=np.zeros(B), lam=np.zeros((B, cfg.ny, 1)),
+                px=np.zeros((B, N, cfg.npx)), py=np.zeros((B, N, cfg.npy)))
+
+
+def cartpole_x0(batch, seed=0):
+    lo, hi = CARTPOLE_BOX
+    return np.random.default_rng(seed).uniform(lo, hi, size=(batch, 4))
+
+
+def structured(cfg, dev):
+    """``cfg``'s structured OCP on ``dev``."""
+    from mpc_code_tpu_torch.models import build_model, build_stage_cost, build_terminal_cost
+    from mpc_code_tpu_torch.solver.riccati import build_structured_ocp
+
+    return build_structured_ocp(cfg, build_model(cfg), build_stage_cost(cfg.stage_cost),
+                                build_terminal_cost(cfg), device=dev)
+
+
+# The elementary functions' kernel checks (phase "elementary kernel"),
+# 16,384 scenarios of ELEM_N stages: the elem ODE through kernel 1 (RK4 at
+# ELEM_MX sub-steps), the tanh map through kernel 3, Ex_ENMPC's ODE with the
+# tanh quadrature through kernel 4 (its path's N and Mx), and the cart-pole's
+# Gauss-Newton route (kernel 1 of its ODE, kernel 2 at (20, 4, 1)).  The elem
+# lanes 0-3 sit on the special points (``elem_ode``): lane 3's outputs are
+# nan on both sides.  Kernel 5's elem build runs RK4 at one sub-step (every
+# sub-step is one more inlined copy of the ODE on second-order numbers).
+ELEM_N, ELEM_MX, ELEM_K5_MX = 20, 2, 1
+ELEM_NAN_LANES = (3,)
+
+
+def elem_kernel_inputs(dtype, device, seed=10):
+    """Kernel 1's elem inputs: x, u in [-1, 1], px of 0.1, h = 0.5, no
+    disturbance; lanes 0-3 on the special points."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-1.0, 1.0, (B, ELEM_N, 3))
+    us = rng.uniform(-1.0, 1.0, (B, ELEM_N, 2))
+    pxs = rng.normal(0.0, 0.1, (B, ELEM_N, 2))
+    pxs[0, :, 1], xs[0, :, 1] = 0.0, -0.5        # clamp's tie
+    us[1, :, 0] = 0.0                            # sign at 0
+    us[2, :, 1] = 0.0                            # pow's base 0
+    xs[3, :, 2], us[3, :, 0] = 0.0, 0.5          # atan2's origin
+    arrs = [xs, us, pxs, np.zeros(B), np.full(B, 0.5), np.zeros((B, 0))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def tanh_map_inputs(dtype, device, seed=11):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(B, ELEM_N, 2)), rng.normal(size=(B, ELEM_N, 1)),
+            rng.normal(size=(B, ELEM_N, 1)), rng.normal(size=(B,)), rng.normal(size=(B, 1))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def cartpole_kernel_inputs(dtype, device, seed=12):
+    """Kernel 1's cart-pole inputs: states over CARTPOLE_BOX, |F| <= 80,
+    the interval 0.05 s, no parameters."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = CARTPOLE_BOX
+    arrs = [rng.uniform(lo, hi, (B, CARTPOLE_N, 4)),
+            rng.uniform(-CARTPOLE_FMAX, CARTPOLE_FMAX, (B, CARTPOLE_N, 1)),
+            np.zeros((B, CARTPOLE_N, 4)), np.zeros(B), np.full(B, CARTPOLE_TF / CARTPOLE_N),
+            np.zeros((B, 0))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+# The plain versions of kernels 4 and 5 on the card run over one block of
+# PLAIN_CARD_LANES (scenario, stage) lanes in place of their modules'
+# default blocks (2^16 and 2^17 lanes), which bound what a CPU run's
+# reverse-mode graph holds: on the card such a plain version is bound by
+# its host's op dispatch, the same few thousand ops a block whatever its
+# width, so one block of the checks' 409,600-819,200 lanes takes a
+# fraction of the seven blocks' time.  A block the card's memory
+# does not hold falls back to the default blocks.
+PLAIN_CARD_LANES = 1 << 20
+
+
+def card_plain(sweep, *arrs):
+    """``sweep``'s plain version on the card's tensors ``arrs``."""
+    import torch
+
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    saved = sk.PLAIN_BLOCK_LANES, sweep_cf_cuda.PLAIN_BLOCK_LANES
+    try:
+        sk.PLAIN_BLOCK_LANES = sweep_cf_cuda.PLAIN_BLOCK_LANES = PLAIN_CARD_LANES
+        try:
+            return sweep.plain(*arrs)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            log(f"# plain version of {sweep.kernel}: one block does not fit, default blocks")
+            sk.PLAIN_BLOCK_LANES, sweep_cf_cuda.PLAIN_BLOCK_LANES = saved
+            return sweep.plain(*arrs)
+    finally:
+        sk.PLAIN_BLOCK_LANES, sweep_cf_cuda.PLAIN_BLOCK_LANES = saved
+
+
+def lane_sweep_check(dev, key, sweep, inputs, dims, bytes_fn, ops_lane, tol, results,
+                     special=(), nan_lanes=()):
+    """One sweep of kernels 1, 3 or 4 against its plain version in f64 and
+    f32 on ``inputs(dtype, dev)``: every output within ``tol`` (f64 TOL_F64)
+    over the entries finite on both sides, non-finite entries in the same
+    places and only on ``nan_lanes``, the ``special`` lanes within the
+    same bar, and in f32 no farther from the f64 plain version than twice
+    the f32 plain version; the kernel's, the call's and the plain
+    version's times, the bound and ptxas's report.  Returns the
+    failures."""
+    import torch
+
+    failures = []
+    ptx = results[key].get("ptxas_summary", {})
+    for dtype in (torch.float64, torch.float32):
+        tname = str(dtype).replace("torch.", "")
+        arrs = inputs(dtype, dev)
+        got = sweep(*arrs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()            # host-bound: seconds per call
+        ref = card_plain(sweep, *arrs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, same, nf_lanes = nonfinite_err(got, ref)
+        err_special = nonfinite_err([g[list(special)] for g in got],
+                                    [r[list(special)] for r in ref])[0] if special else 0.0
+        abs_err = max(float((g - r)[g.isfinite() & r.isfinite()].abs().max())
+                      for g, r in zip(got, ref))
+        err64 = [0.0, 0.0]
+        if dtype == torch.float32:
+            ref64 = card_plain(sweep, *[a.double() for a in arrs])
+            err64 = [nonfinite_err(r, ref64)[0] for r in (got, ref)]
+            del ref64
+        if sweep.in_place:
+            bound = sweep.bind(*arrs)
+            ms = cuda_ms(lambda: sweep.fire(bound), 20)
+        else:
+            planes = sweep.pack(*arrs)
+            ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
+        wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
+        Bsz, N = arrs[0].shape[:2]
+        t_b = bytes_fn(Bsz, N, *dims, arrs[0].element_size()) / H100_BYTES_PER_S * 1e3
+        t_o = Bsz * N * ops_lane / H100_FLOPS[tname] * 1e3
+        bar = TOL_F64 if dtype == torch.float64 else tol
+        log(f"# kernel {key} {tname}: max_norm_err={err:.3e} special_lanes={err_special:.3e} "
+            f"max_abs_err={abs_err:.3e} (tol {bar:g}) vs_plain_f64: kernel {err64[0]:.3e} "
+            f"plain {err64[1]:.3e} nonfinite_lanes={nf_lanes} nonfinite_pattern_equal={same} "
+            f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
+            f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
+        closer = err64[0] <= 2 * err64[1] + TOL_F64
+        if not (err <= bar and err_special <= bar and same and closer
+                and set(nf_lanes) <= set(nan_lanes)):
+            failures.append(f"{key} {tname} error {err:.3e} > {bar:g}, non-finite lanes "
+                            f"{nf_lanes} (pattern equal {same}), against f64 "
+                            f"{err64[0]:.3e} vs plain {err64[1]:.3e}")
+        results[key][tname] = dict(
+            max_norm_err=err, special_norm_err=err_special, max_abs_err=abs_err,
+            err_vs_f64=err64, nonfinite_lanes=nf_lanes, ms=ms, wrapper_ms=wrap_ms,
+            plain_ms=plain_ms, bytes_ms=t_b, ops_ms=t_o)
+    return failures
+
+
+def elementary_sweeps(eprob, cp_socp):
+    """The sweeps of the elementary kernel phase: key -> (sweep, build
+    dims)."""
+    from mpc_code_tpu_torch.ops.sweep_cf_cuda import Rk4QuadStageHess
+    from mpc_code_tpu_torch.ops.sweep_cuda import Rk4StageJac
+    from mpc_code_tpu_torch.ops.sweep_map_cuda import MapStageJac
+
+    fx, ec = elem_ode(torch_fns()), eprob.cfg
+    return {"rk4_stage_jac_elem": (Rk4StageJac(lambda x, t, u, d, px: fx(x, u, d, t, px),
+                                               ELEM_MX), (3, 2, 0, 2)),
+            "rk4_stage_jac_cartpole": (cp_socp.sweep, (4, 1, 0, 4)),
+            "map_stage_jac_tanh": (MapStageJac(tanh_map(torch_fns())), (2, 1, 1, 1)),
+            "rk4_quad_stage_hess_tanh": (
+                Rk4QuadStageHess(eprob.socp.sweep.f, tanh_quad(torch_fns()),
+                                 eprob.socp.sweep.Mx),
+                (ec.nx, ec.nu, ec.nd, ec.npx, ec.npy))}
+
+
+def elementary_kernel_phase(dev, sweeps, eprob, cp_socp, results):
+    """The elementary functions through kernels 1, 3 and 4 (``sweeps``,
+    ``elementary_sweeps``), and kernel 2 at the cart-pole's shapes, each
+    against its plain version."""
+    import torch
+
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
+
+    def k1_ops(sw, nx, nu, nd, npx):
+        return sweep_cuda.sweep_ops_per_lane(sw.f, nx, nu, sw.Mx, sw.clip_lo, sw.clip_hi,
+                                             nd, npx)
+
+    failures = []
+    for key, inputs, tol, special, nan in (
+            ("rk4_stage_jac_elem", elem_kernel_inputs, TOL_F32["rk4_stage_jac"], (0, 1, 2, 3),
+             ELEM_NAN_LANES),
+            ("rk4_stage_jac_cartpole", cartpole_kernel_inputs, TOL_F32["rk4_stage_jac"], (),
+             ())):
+        sw, dims = sweeps[key]
+        failures += lane_sweep_check(dev, key, sw, inputs, dims, sweep_cuda.sweep_bytes,
+                                     k1_ops(sw, *dims), tol, results, special, nan)
+    sw, dims = sweeps["map_stage_jac_tanh"]
+    failures += lane_sweep_check(
+        dev, "map_stage_jac_tanh", sw, tanh_map_inputs, dims, sweep_map_cuda.map_bytes,
+        sweep_map_cuda.map_ops_per_lane(sw.f, *dims), TOL_F32["map_stage_jac"], results)
+    sw, dims = sweeps["rk4_quad_stage_hess_tanh"]
+    failures += lane_sweep_check(
+        dev, "rk4_quad_stage_hess_tanh", sw, lambda dt, d: cf_inputs(dt, d, eprob.cfg.N),
+        dims, sweep_cf_cuda.cf_bytes, sw.ops_per_lane(*dims), TOL_F32["rk4_quad_stage_hess"],
+        results)
+    for dtype in (torch.float64, torch.float32):
+        failures += riccati_check(dev, dtype, cp_socp.N, cp_socp.nxa, cp_socp.nu,
+                                  results["riccati_kkt_cartpole"])
+    return failures
+
+
+def elem_sweep_inputs(dtype, device, socp, cfg=None, seed=13):
+    """Kernel 5's elem inputs (the elem OCP at ELEM_N stages): x, u in
+    [-1, 1] (scaled), multipliers of the size the solves meet, small
+    parameters; lanes 0-3 on the ODE's special points as in
+    ``elem_kernel_inputs`` (px_1 = 0 there), lane 4 on the cost's clamp
+    tie (x_2 = 0.5) and lane 5 on its sign at 0 (x_0 = 0)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = socp.N
+    X = rng.uniform(-1.0, 1.0, (B, N, 3))
+    U = rng.uniform(-1.0, 1.0, (B, N, 2))
+    px = rng.normal(0.0, 0.1, (B, N, cfg.npx))
+    px[0, :, 1], X[0, :, 1] = 0.0, -0.5
+    U[1, :, 0] = 0.0
+    U[2, :, 1] = 0.0
+    X[3, :, 2], U[3, :, 0] = 0.0, 0.5
+    X[4, :, 2] = 0.5
+    X[5, :, 0] = 0.0
+    arrs = [X / socp.sxa, U / socp.su, rng.normal(size=(B, N, 3)),
+            np.zeros((B, N, socp.ni)), px, rng.normal(0.0, 0.1, (B, N, cfg.npy)),
+            np.zeros((B, N, 0)), rng.uniform(0.0, 1.0, B), rng.uniform(0.5, 1.0, B),
+            rng.normal(0.0, 0.3, (B, 3)), rng.normal(0.0, 0.3, (B, 2)), np.zeros((B, 0)),
+            rng.normal(0.0, 0.3, (B, 2)), rng.normal(0.0, 0.01, (B, cfg.ny * 2))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], [0, 1, 2, 3, 4, 5]
+
+
+def cartpole_sweep_inputs(dtype, device, socp, cfg=None, seed=14):
+    """Kernel 5's cart-pole inputs: states over CARTPOLE_BOX, |F| <= 80
+    (scaled), multipliers of the size the solves meet, no parameters."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = socp.N
+    lo, hi = CARTPOLE_BOX
+    arrs = [rng.uniform(lo, hi, (B, N, 4)) / socp.sxa,
+            rng.uniform(-CARTPOLE_FMAX, CARTPOLE_FMAX, (B, N, 1)) / socp.su,
+            rng.normal(size=(B, N, 4)), rng.normal(0.0, 0.1, (B, N, socp.ni)),
+            np.zeros((B, N, cfg.npx)), np.zeros((B, N, cfg.npy)), np.zeros((B, N, 0)),
+            np.zeros(B), rng.uniform(0.5, 1.0, B), np.zeros((B, 4)), np.zeros((B, 1)),
+            np.zeros((B, 0)), np.zeros((B, 1)), np.zeros((B, cfg.ny))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
+
+
 # Kernel 5's builds: the exact-Hessian CSTR (the continuous map), the
 # quadruple tank's discrete map with the u_prev augmentation, ENMPC's
 # ContForm, the CSTR with DUForm, the LMPC loop's affine model with u_prev,
 # the bench port's linear CSTR, the CSTR's shared output slacks, the CSTR
-# with TermCons, H_eq and one G_ineq row, and the collocated CSTR, each at
-# its path's shapes; and a check build on no path: the collocated CSTR at
-# two Newton steps with a coolant term whose u-curvature depends on the
-# state (``colloc_newton2_ocp``).  Each in its exact
-# build (results key ``<build>``) and its Gauss-Newton build
-# (``<build>_gn``).  build -> (problem key, inputs, the paths its exact
+# with TermCons, H_eq and one G_ineq row, the collocated CSTR and
+# the cart-pole, each at its path's shapes; and check builds on no path:
+# the collocated CSTR at two Newton steps with a coolant term whose
+# u-curvature depends on the state (``colloc_newton2_ocp``) and the
+# elem OCP (every elementary function, on second-order numbers).  Each in
+# its exact build (results key ``<build>``) and, but EXACT_ONLY_BUILDS, its
+# Gauss-Newton build (``<build>_gn``).  build -> (problem key, inputs, the paths its exact
 # build serves, the paths its Gauss-Newton build serves); a path's
 # launches are ``launches["stage_sweep_<path>"]`` (the cstr_exact path's
 # ``launches["stage_sweep"]``)
@@ -854,7 +1278,23 @@ STAGE_BUILDS = {"stage_sweep": ("cstr_exact", stage_sweep_inputs, ("cstr_exact",
                 "stage_sweep_soft": ("soft", stage_sweep_inputs, ("options_soft_exact",), ()),
                 "stage_sweep_rows": ("rows", stage_sweep_inputs, ("options_rows_exact",), ()),
                 "stage_sweep_colloc": ("colloc", stage_sweep_inputs, (), ("colloc",)),
-                "stage_sweep_colloc_newton2": ("colloc_newton2", stage_sweep_inputs, (), ())}
+                "stage_sweep_colloc_newton2": ("colloc_newton2", stage_sweep_inputs, (), ()),
+                "stage_sweep_elem": ("elem", elem_sweep_inputs, (), ()),
+                "stage_sweep_cartpole": ("cartpole", cartpole_sweep_inputs,
+                                         ("cartpole_exact",), ())}
+# builds checked in their exact build alone: the elementary functions',
+# whose Gauss-Newton builds no path launches (the cart-pole's Gauss-Newton
+# run takes kernel 1), while every build costs minutes of nvcc
+EXACT_ONLY_BUILDS = ("stage_sweep_elem", "stage_sweep_cartpole")
+# the builds' lanes whose outputs are nan on both sides (elem: atan2 at the
+# origin, as JAX's)
+NONFINITE_LANES = {"stage_sweep_elem": ELEM_NAN_LANES}
+
+
+def build_hessians(build):
+    """(hessian, results key) of each of ``build``'s checked builds."""
+    return (("exact", build),) + (() if build in EXACT_ONLY_BUILDS
+                                  else (("gauss_newton", build + "_gn"),))
 
 
 def colloc_newton2_ocp(cfg, dev):
@@ -909,7 +1349,7 @@ def stage_sweep_kernel_phase(dev, xprobs, results):
     for build, (pkey, inputs, _, _) in STAGE_BUILDS.items():
         cfg, socp = xprobs[pkey]
         dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
-        for hessian, key in (("exact", build), ("gauss_newton", build + "_gn")):
+        for hessian, key in build_hessians(build):
             sweep = sk.make_stage_sweep(socp, hessian)
             ptx = results[key].get("ptxas_summary", {})
             for dtype in (torch.float64, torch.float32):
@@ -931,20 +1371,29 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs)
     got = sweep(*arrs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()            # host-bound: seconds per call
-    ref = sweep.plain(*arrs)
+    ref = card_plain(sweep, *arrs)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    errs = [nerr(g, r) for g, r in zip(got, ref)]
-    err = max(errs)
-    err_tie = max((nerr(g[tie], r[tie]) for g, r in zip(got, ref)), default=0.0)
-    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g.numel())
-    finite = all(bool(g.isfinite().all()) for g in got)
-    sym = float((got[0] - got[0].transpose(-1, -2)).abs().max())
+    # over the entries finite on both sides; non-finite entries only on the
+    # build's NONFINITE_LANES, in the same places on both sides
+    errs = [nonfinite_err([g], [r])[0] for g, r in zip(got, ref)]
+    err, same, nf_lanes = nonfinite_err(got, ref)
+    err_tie = nonfinite_err([g[tie] for g in got], [r[tie] for r in ref])[0] if tie else 0.0
+    abs_err = max(float((g - r)[g.isfinite() & r.isfinite()].abs().max())
+                  for g, r in zip(got, ref) if g.numel())
+    # the scenarios with a non-finite entry are the same on both sides;
+    # which entries are nan follows the derivative's mode (the kernel's
+    # forward mode spreads atan2's nan at the origin to every tangent, the
+    # plain version's reverse mode to the rows' cotangents)
+    nf_got = nonfinite_err(ref, got)[2]
+    finite = nf_got == nf_lanes and set(nf_lanes) <= set(NONFINITE_LANES.get(key, ()))
+    asym = got[0] - got[0].transpose(-1, -2)
+    sym = float(asym[asym.isfinite()].abs().max())
     # each f32 result against the plain version in f64 on the same inputs
     err64 = [0.0, 0.0]
     if dtype == torch.float32:
-        ref64 = sweep.plain(*[a.double() for a in arrs])
-        err64 = [max(nerr(x, r) for x, r in zip(res, ref64)) for res in (got, ref)]
+        ref64 = card_plain(sweep, *[a.double() for a in arrs])
+        err64 = [nonfinite_err(res, ref64)[0] for res in (got, ref)]
         del ref64
     planes = sweep.pack(*arrs)
     ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
@@ -959,7 +1408,8 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs)
         f"(H, gc, A, B, E, ival, dval, Cz, hval) {['%.2e' % e for e in errs]} "
         f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
         f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
-        f"H_asym={sym:.1e} finite={finite} "
+        f"H_asym={sym:.1e} finite={finite} nonfinite_lanes={nf_lanes} "
+        f"nonfinite_entries_equal={same} "
         f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
         f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
@@ -1270,6 +1720,9 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
             return options_check_solve(path.split(":")[1], cpu), flags
         if path == "debug":
             return debug_runs(cpu), flags
+        if path.startswith("cartpole:"):
+            torch.set_num_threads(1)
+            return cartpole_check_solve(path.split(":")[1], cpu), flags
         if path.startswith("enmpc_handoff"):
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.loop import ClosedLoop
@@ -3094,10 +3547,121 @@ def debug_phase(dev, cpu_refs):
     return failures, report
 
 
+# The cart-pole phase: CARTPOLE_B lanes from ``cartpole_x0`` in f32,
+# the upright setpoint, a cold start (x0 along the horizon, F = 0), one call
+# of the structured solver under each Hessian: Gauss-Newton (kernel 1 of
+# the cart-pole's ODE, the cost by torch.func, kernel 2 at (20, 4, 1)) and
+# exact (kernel 5's cart-pole build and kernel 2), each launching once a
+# pass; solves/s over the lanes that did not fail, ok_fraction,
+# iterations; then OPTIONS_CHECK lanes in f64 on the card against the
+# CPU's f64 run: statuses and iterations equal, X and U within
+# OPTIONS_F64_TOL.  The exact check solves to OPTIONS_CHECK_OPTS' tol 1e-8,
+# as solver_options' exact runs do (its lane 6's KKT solve fails on pass 1:
+# F17).  The Gauss-Newton check holds the iterate after
+# CARTPOLE_GN_CHECK_PASSES passes (tol 0: no lane stops early): this OCP's
+# Gauss-Newton iterations to a tolerance follow rounding, a relative change
+# of 1e-15 in x0 moving a lane's count on the CPU
+# (``tests/test_torch_cartpole.py``), while its iterate after 8 passes is
+# held to 7.7e-12 between the card and the CPU (PERF.md, the cart-pole).
+CARTPOLE_B = EXACT_B
+CARTPOLE_MAXIT = 30
+CARTPOLE_RUNS = ("gauss_newton", "exact")
+CARTPOLE_GN_CHECK_PASSES = 8
+CARTPOLE_CHECK_OPTS = {
+    "gauss_newton": dict(max_iter=CARTPOLE_GN_CHECK_PASSES, tol=0.0, constr_viol_tol=0.0),
+    "exact": OPTIONS_CHECK_OPTS}
+
+
+def cartpole_solve(cfg, socp, x0, opts):
+    """One cold solve of the cart-pole from ``x0`` (B, 4) under ``opts``."""
+    import torch
+
+    from mpc_code_tpu_torch.solver.riccati import make_structured_solver
+
+    X0 = x0[:, None].expand(-1, cfg.N + 1, -1).contiguous()
+    U0 = torch.zeros((len(x0), cfg.N, 1), dtype=x0.dtype, device=x0.device)
+    return make_structured_solver(socp, opts)(cartpole_params(cfg, x0, cfg.N), X0, U0)
+
+
+def cartpole_check_solve(hessian, device):
+    """The check lanes in f64 under ``hessian``: status, iters, X, U."""
+    import torch
+
+    from mpc_code_tpu_torch import config as pconfig
+    from mpc_code_tpu_torch.config import SolverOptions
+
+    cfg = cartpole_config(pconfig, torch_fns())
+    x0 = torch.as_tensor(cartpole_x0(CARTPOLE_B)[:OPTIONS_CHECK], dtype=torch.float64,
+                         device=device)
+    r = cartpole_solve(cfg, structured(cfg, device), x0,
+                       SolverOptions(hessian=hessian, **CARTPOLE_CHECK_OPTS[hessian]))
+    return dict(status=r.status.cpu().numpy(), iters=r.iters.cpu().numpy(),
+                X=r.X.cpu().numpy(), U=r.U.cpu().numpy())
+
+
+def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
+    import torch
+
+    from mpc_code_tpu_torch.config import SolverOptions
+    from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
+    from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    mods = dict(rk4_stage_jac=sweep_cuda, riccati_kkt=rk, map_stage_jac=sweep_map_cuda,
+                rk4_quad_stage_hess=sweep_cf_cuda, stage_sweep=sk)
+    failures, report = [], {}
+    x0 = torch.as_tensor(cartpole_x0(CARTPOLE_B), dtype=torch.float32, device=dev)
+    for hessian in CARTPOLE_RUNS:
+        opts = SolverOptions.for_f32(max_iter=CARTPOLE_MAXIT, hessian=hessian)
+        # an untimed short run first: the card's first use of what it calls
+        cartpole_solve(cfg, socp, x0[:OPTIONS_WARMUP],
+                       SolverOptions.for_f32(max_iter=OPTIONS_WARMUP_ITERS, hessian=hessian))
+        torch.cuda.synchronize()
+        for m in mods.values():
+            m.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = cartpole_solve(cfg, socp, x0, opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: m.LAUNCHES for k, m in mods.items()}
+        run = "gn" if hessian == "gauss_newton" else "exact"
+        for k, n in got.items():
+            launches[f"{k}_cartpole_{run}"] = n
+        passes = solver_passes(r.iters, r.status)
+        want = dict.fromkeys(mods, 0)
+        want["rk4_stage_jac" if run == "gn" else "stage_sweep"] = passes
+        want["riccati_kkt"] = passes
+        status, iters = r.status.cpu().numpy(), r.iters.cpu().numpy()
+        n_ok = int((status != 2).sum())
+        finite = bool(torch.isfinite(r.U).all())
+        gpu = cartpole_check_solve(hessian, dev)
+        cpu = cpu_refs[(f"cartpole:{hessian}", "float64")].result()[0]
+        same = bool((gpu["status"] == cpu["status"]).all()
+                    and (gpu["iters"] == cpu["iters"]).all())
+        ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
+        report[run] = rr = dict(
+            batch=CARTPOLE_B, hessian=hessian, ok=n_ok, ok_fraction=n_ok / CARTPOLE_B,
+            solves_per_s=n_ok / secs, seconds=round(secs, 6),
+            status_counts=np.bincount(status, minlength=3).tolist(),
+            median_iters=float(np.median(iters)), max_iters=int(iters.max()), passes=passes,
+            launches=got, expected_launches=want, finite=finite,
+            check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
+            cpu_status=cpu["status"].tolist(), cpu_iters=cpu["iters"].tolist(),
+            max_norm_err_vs_cpu=ex)
+        log(f"# cartpole {run} " + json.dumps(rr))
+        if got != want:
+            failures.append(f"cartpole {run}: launches {got}, expected {want}")
+        if not (same and ex <= OPTIONS_F64_TOL and finite):
+            failures.append(f"cartpole {run}: finite {finite}, f64 check lanes equal to the "
+                            f"CPU's {same}, X/U {ex:.3e}")
+    return failures, report
+
+
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
-          "enmpc_mhe kernel", "stage_sweep kernel", "slice", "enmpc", "nmpc_dis",
-          "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "mesh", "constrained",
-          "solver_options", "debug", "host_loop", "enmpc_loop", "enmpc_handoff", "aot")
+          "enmpc_mhe kernel", "elementary kernel", "stage_sweep kernel", "slice", "enmpc",
+          "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "mesh", "constrained",
+          "solver_options", "debug", "cartpole", "host_loop", "enmpc_loop", "enmpc_handoff",
+          "aot")
 
 
 # The phases after ALONE (the kernel phases and the CSTR slice) run in three
@@ -3112,7 +3676,7 @@ PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
 # 5-66% of the time, PERF.md section 5), and one after another they took
 # 1,051-1,117 s of the 1,200 s limit on the H100 (PERF.md section 4).
 ALONE = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel", "enmpc_mhe kernel",
-         "stage_sweep kernel", "slice")
+         "elementary kernel", "stage_sweep kernel", "slice")
 # clb and mesh went to the solver_options part in PR 14, when kernel 5's
 # new builds lengthened the build and the kernel phases before the parts
 PARTS = (("clb", "mesh", "solver_options"),
@@ -3260,9 +3824,11 @@ def main() -> int:
     failures = []
     keys = ("rk4_stage_jac", "riccati_kkt", "riccati_kkt_enmpc", "rk4_quad_stage_hess",
             "map_stage_jac", "riccati_kkt_nmpc_dis",
-            *(build + suffix for build in STAGE_BUILDS for suffix in ("", "_gn")),
+            *(key for build in STAGE_BUILDS for _, key in build_hessians(build)),
             "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
-            "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe", "riccati_kkt_soft")
+            "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe", "riccati_kkt_soft",
+            "rk4_stage_jac_elem", "rk4_stage_jac_cartpole", "map_stage_jac_tanh",
+            "rk4_quad_stage_hess_tanh", "riccati_kkt_cartpole")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
                                      "riccati_kkt_lmpc_loop", "riccati_kkt_enmpc_loop",
@@ -3270,7 +3836,9 @@ def main() -> int:
                                      "rk4_quad_stage_hess_enmpc_loop",
                                      "riccati_kkt_host_loop", "riccati_kkt_colloc",
                                      "riccati_kkt_tc_heq", "rk4_stage_jac_colloc",
-                                     "rk4_stage_jac_soft", "rk4_stage_jac_tc_heq"), 0)
+                                     "rk4_stage_jac_soft", "rk4_stage_jac_tc_heq",
+                                     "rk4_stage_jac_cartpole_gn", "riccati_kkt_cartpole_gn",
+                                     "riccati_kkt_cartpole_exact"), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -3286,23 +3854,29 @@ def main() -> int:
         ssocp = sprob[2]
         rprob = make_problem(dev, **EXACT_RUNS["rows_exact"])
         cprob = make_problem(dev, **constrained_runs()["colloc"])
+        from mpc_code_tpu_torch import config as pconfig
+
+        elem_cfg = elem_config(pconfig, torch_fns(), N=ELEM_N, Mx=ELEM_K5_MX)
+        cp_cfg = cartpole_config(pconfig, torch_fns())
+        cp_socp = structured(cp_cfg, dev)
+        esweeps = elementary_sweeps(eprob, cp_socp)
         # kernel 5's builds' OCPs (STAGE_BUILDS): each path's own
         xprobs = {"cstr_exact": (cfg, xsocp), "nmpc_dis": (dc, dprob.socp),
                   "enmpc": (ec, eprob.socp), "cstr_du": (duprob[0], duprob[2]),
                   "lmpc": (lcfg, lsocp), "clb": (ccfg, csocp), "soft": (sprob[0], ssocp),
                   "rows": (rprob[0], rprob[2]), "colloc": (cprob[0], cprob[2]),
-                  "colloc_newton2": colloc_newton2_ocp(cprob[0], dev)}
+                  "colloc_newton2": colloc_newton2_ocp(cprob[0], dev),
+                  "elem": (elem_cfg, structured(elem_cfg, dev)), "cartpole": (cp_cfg, cp_socp)}
         sweep = socp.sweep
         # kernel 5's builds, exact and Gauss-Newton, and their dimensions
         k5, k5_dims = {}, {}
         for build, (pkey, _, _, _) in STAGE_BUILDS.items():
             kcfg, ksocp = xprobs[pkey]
-            for suffix, hessian in (("", "exact"), ("_gn", "gauss_newton")):
-                k5[build + suffix] = sk.make_stage_sweep(ksocp, hessian)
-                k5_dims[build + suffix] = (ksocp.nxa, ksocp.nu, ksocp.ni, kcfg.nd, kcfg.npx,
-                                           kcfg.npy)
+            for hessian, key in build_hessians(build):
+                k5[key] = sk.make_stage_sweep(ksocp, hessian)
+                k5_dims[key] = (ksocp.nxa, ksocp.nu, ksocp.ni, kcfg.nd, kcfg.npx, kcfg.npy)
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(9 + 2 * len(STAGE_BUILDS)) as ex:
+        with cf.ThreadPoolExecutor(10 + len(esweeps) + len(k5)) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -3317,6 +3891,8 @@ def main() -> int:
                 "riccati_kkt_lmpc": ex.submit(rk.build_kernel, lsocp.nxa, lsocp.nu),
                 "riccati_kkt_enmpc_mhe": ex.submit(rk.build_kernel, msocp.nxa, msocp.nu),
                 "riccati_kkt_soft": ex.submit(rk.build_kernel, ssocp.nxa, ssocp.nu),
+                "riccati_kkt_cartpole": ex.submit(rk.build_kernel, cp_socp.nxa, cp_socp.nu),
+                **{name: ex.submit(sw.build, *dims) for name, (sw, dims) in esweeps.items()},
                 **{name: ex.submit(sw.build, *k5_dims[name]) for name, sw in k5.items()}}
             built = {name: j.result() for name, j in jobs.items()}
         if part is None:
@@ -3360,6 +3936,9 @@ def main() -> int:
             for name in dict(OPTION_RUNS, **EXACT_RUNS) if name != "default"})
     if "debug" in selected:
         cpu_refs[("debug", "float64")] = pool.submit(cpu_reference, "debug", "float64")
+    if "cartpole" in selected:
+        cpu_refs.update({(f"cartpole:{h}", "float64"): pool.submit(
+            cpu_reference, f"cartpole:{h}", "float64") for h in CARTPOLE_RUNS})
     # the one-lane host runs and the loops' check lanes on the card in
     # processes of their own (card_job)
     card_pool = cf.ProcessPoolExecutor(CARD_WORKERS, mp_context=mp.get_context("spawn"))
@@ -3387,6 +3966,8 @@ def main() -> int:
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),
               ("lmpc kernel", lambda: lmpc_kernel_phase(dev, lsocp, csocp, results)),
               ("enmpc_mhe kernel", lambda: enmpc_mhe_kernel_phase(dev, msocp, results)),
+              ("elementary kernel", lambda: elementary_kernel_phase(
+                  dev, esweeps, eprob, cp_socp, results)),
               ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprobs, results)),
               ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
@@ -3400,6 +3981,7 @@ def main() -> int:
               ("constrained", lambda: constrained_phase(dev, launches, results, cpu_refs)),
               ("solver_options", lambda: options_phase(dev, launches, cpu_refs)),
               ("debug", lambda: debug_phase(dev, cpu_refs)),
+              ("cartpole", lambda: cartpole_phase(dev, cp_cfg, cp_socp, launches, cpu_refs)),
               # host_loop before enmpc_loop: enmpc_loop's CPU reference (64
               # lanes) and the hand-off's warmup reference finish beside it
               # instead of being waited for (119 s and 39 s on the H100
@@ -3551,9 +4133,27 @@ def main() -> int:
                     f"riccati_kkt_options_{p}", 0)
             k["at_soft_shapes"] = entry(name, results["riccati_kkt_soft"],
                                         launches["riccati_kkt_soft"])
+            for run in ("gn", "exact"):
+                k["launches_by_path"][f"cartpole_{run}"] = launches[
+                    f"riccati_kkt_cartpole_{run}"]
+            k["at_cartpole_shapes"] = entry(name, results["riccati_kkt_cartpole"],
+                                            launches["riccati_kkt_cartpole_gn"]
+                                            + launches["riccati_kkt_cartpole_exact"])
+        # the builds of the elementary functions' models, each
+        # checked against its plain version: kernel 1's elem (no path) and
+        # cart-pole (the cartpole phase's Gauss-Newton run), kernel 3's tanh
+        # map and kernel 4's tanh quadrature (no path), kernel 2 at the
+        # cart-pole's (20, 4, 1)
+        builds = {b.removeprefix(name + "_"): entry(b, results[b], launches.get(
+            f"{name}_cartpole_gn", 0) if b == "rk4_stage_jac_cartpole" else 0)
+            for b in ("rk4_stage_jac_elem", "rk4_stage_jac_cartpole", "map_stage_jac_tanh",
+                      "rk4_quad_stage_hess_tanh") if b.startswith(name + "_")}
+        if builds or name == "stage_sweep":
+            k["builds"] = builds
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
+                                     "cartpole_gn": launches["rk4_stage_jac_cartpole_gn"],
                                      "cstr_loop": launches["rk4_stage_jac_cstr_loop"],
                                      **{f"constrained_{p}": launches[f"rk4_stage_jac_{p}"]
                                         for p in ("colloc", "soft", "tc_heq")},
@@ -3574,13 +4174,13 @@ def main() -> int:
             # (STAGE_BUILDS); the solver_options phase's autotune run
             # launches the CSTR's Gauss-Newton build when "fused" wins the
             # probe
-            k["builds"] = {}
             for build, (_, _, ex_paths, gn_paths) in STAGE_BUILDS.items():
                 gn_paths = gn_paths + (("options_autotune",) if build == "stage_sweep" else ())
                 ex_by = {p: build_launches(launches, p) for p in ex_paths}
                 gn_by = {p: build_launches(launches, p) for p in gn_paths}
-                gn = dict(entry(name, results[build + "_gn"], sum(gn_by.values())),
-                          launches_by_path=gn_by)
+                gn = (None if build in EXACT_ONLY_BUILDS else
+                      dict(entry(name, results[build + "_gn"], sum(gn_by.values())),
+                           launches_by_path=gn_by))
                 if build == "stage_sweep":
                     k["gauss_newton_build"] = gn
                     continue
@@ -3590,7 +4190,7 @@ def main() -> int:
                        **k["gauss_newton_build"]["launches_by_path"]}
             for b in k["builds"].values():
                 by_path.update(b["launches_by_path"])
-                by_path.update(b["gauss_newton_build"]["launches_by_path"])
+                by_path.update((b["gauss_newton_build"] or {}).get("launches_by_path", {}))
             k["launches_by_path"] = by_path
             k["launches"] = sum(k["launches_by_path"].values())
         kernels.append(k)

@@ -185,9 +185,126 @@ MPC_D2 __device__ __forceinline__ MPC_V2 mpc_sqrt(const MPC_V2& a) {
   const T f1 = T(1) / (T(2) * s);
   return mpc_chain2(a, s, f1, -f1 / (T(2) * a.v));
 }
+// pow by an exponent without tangents: by its value (on numbers whose
+// components are Dual, c's own tangent is zero, and pow's rule in the
+// exponent, log(a) a^c, is not taken: it is nan for a < 0)
 MPC_D2 __device__ __forceinline__ MPC_V2 mpc_pow(const MPC_V2& a, T c) {
-  return mpc_chain2(a, mpc_pow(a.v, c), c * mpc_pow(a.v, c - T(1)),
-                    c * (c - T(1)) * mpc_pow(a.v, c - T(2)));
+  const auto e = mpc_val(c);
+  return mpc_chain2(a, T(mpc_pow(a.v, e)), T(e * mpc_pow(a.v, e - 1)),
+                    T(e * (e - 1) * mpc_pow(a.v, e - 2)));
+}
+
+// the other elementary functions (dual.cuh): f'' by JAX's rules, nested
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_tanh(const MPC_V2& a) {
+  const T t = mpc_tanh(a.v);
+  const T f1 = T(1) - t * t;
+  return mpc_chain2(a, t, f1, T(-2) * t * f1);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_sigmoid(const MPC_V2& a) {
+  const T s = mpc_sigmoid(a.v);
+  const T f1 = s * (T(1) - s);
+  return mpc_chain2(a, s, f1, f1 * (T(1) - T(2) * s));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_sin(const MPC_V2& a) {
+  const T s = mpc_sin(a.v);
+  return mpc_chain2(a, s, mpc_cos(a.v), -s);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_cos(const MPC_V2& a) {
+  const T c = mpc_cos(a.v);
+  return mpc_chain2(a, c, -mpc_sin(a.v), -c);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_tan(const MPC_V2& a) {
+  const T t = mpc_tan(a.v);
+  const T f1 = T(1) + t * t;
+  return mpc_chain2(a, t, f1, T(2) * t * f1);
+}
+// asin: f' = (1 - a^2)^-1/2, f'' = a f'^3; acos: f' = -(1 - a^2)^-1/2, f'' = a f'^3
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_asin(const MPC_V2& a) {
+  const T g = mpc_rsqrt(T(1) - a.v * a.v);
+  return mpc_chain2(a, mpc_asin(a.v), g, a.v * (g * g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_acos(const MPC_V2& a) {
+  const T g = -mpc_rsqrt(T(1) - a.v * a.v);
+  return mpc_chain2(a, mpc_acos(a.v), g, a.v * (g * g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_atan(const MPC_V2& a) {
+  const T g = T(1) / (T(1) + a.v * a.v);
+  return mpc_chain2(a, mpc_atan(a.v), g, T(-2) * a.v * (g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_sinh(const MPC_V2& a) {
+  const T s = mpc_sinh(a.v);
+  return mpc_chain2(a, s, mpc_cosh(a.v), s);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_cosh(const MPC_V2& a) {
+  const T c = mpc_cosh(a.v);
+  return mpc_chain2(a, c, mpc_sinh(a.v), c);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_log1p(const MPC_V2& a) {
+  const T g = T(1) / (a.v + T(1));
+  return mpc_chain2(a, mpc_log1p(a.v), g, -(g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_expm1(const MPC_V2& a) {
+  const T e = mpc_expm1(a.v);
+  const T f1 = e + T(1);
+  return mpc_chain2(a, e, f1, f1);
+}
+// rsqrt: f' = -f / 2a, f'' = -3 f' / 2a
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_rsqrt(const MPC_V2& a) {
+  const T r = mpc_rsqrt(a.v);
+  const T f1 = T(-0.5) * (r / a.v);
+  return mpc_chain2(a, r, f1, T(-1.5) * (f1 / a.v));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_erf(const MPC_V2& a) {
+  const T g = T(1.1283791670955126) * mpc_exp(-(a.v * a.v));
+  return mpc_chain2(a, mpc_erf(a.v), g, T(-2) * a.v * g);
+}
+MPC_D2 __device__ __forceinline__ T mpc_sign(const MPC_V2& a) { return mpc_sign(a.v); }
+
+// ----- functions of two numbers that both carry tangents ----------------
+// c = f(a, b) with f0, the partials fa, fb and the second partials faa,
+// fab, fbb: c'' = fa a'' + fb b'' + faa a'_i a'_j + fbb b'_i b'_j
+// + fab (a'_i b'_j + a'_j b'_i)
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_chain2b(const MPC_V2& a, const MPC_V2& b, T f0,
+                                                     T fa, T fb, T faa, T fab, T fbb) {
+  MPC_V2 r; r.v = f0;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = fa * a.d[i] + fb * b.d[i];
+  MPC_TRI_FOR(NZ, H0, HN,
+              r.h[q] = fa * a.h[q] + fb * b.h[q] + faa * (a.d[i] * a.d[j]) +
+                       fbb * (b.d[i] * b.d[j]) + fab * (a.d[i] * b.d[j] + a.d[j] * b.d[i]));
+  return r;
+}
+// atan2(y, x), w = 1 / (x^2 + y^2): f_y = x w, f_x = -y w, f_yy = 2 f_y f_x
+// = -f_xx, f_xy = f_x^2 - f_y^2 (nan at the origin, as JAX's)
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_atan2(const MPC_V2& y, const MPC_V2& x) {
+  const T w = T(1) / (x.v * x.v + y.v * y.v);
+  const T fy = x.v * w, fx = -y.v * w;
+  const T fyy = T(2) * fy * fx;
+  return mpc_chain2b(y, x, mpc_atan2(y.v, x.v), fy, fx, fyy, fx * fx - fy * fy, -fyy);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_atan2(const MPC_V2& y, T x) {
+  const T w = T(1) / (x * x + y.v * y.v);
+  const T fy = x * w;
+  return mpc_chain2(y, mpc_atan2(y.v, x), fy, T(2) * fy * (-y.v * w));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_atan2(T y, const MPC_V2& x) {
+  const T w = T(1) / (x.v * x.v + y * y);
+  const T fx = -y * w;
+  return mpc_chain2(x, mpc_atan2(y, x.v), fx, T(-2) * (x.v * w) * fx);
+}
+// a ** b, the exponent carrying tangents: f_a = b a^(b-1), f_b = L a^b with
+// L = log(a) (0 at a = 0), f_aa = b (b-1) a^(b-2), f_ab = a^(b-1) (1 + b L),
+// f_bb = L f_b
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_pow(const MPC_V2& a, const MPC_V2& b) {
+  const T p = mpc_pow(a.v, b.v), pm1 = mpc_pow(a.v, b.v - T(1));
+  const T L = mpc_log0(a.v), fb = L * p;
+  return mpc_chain2b(a, b, p, b.v * pm1, fb, b.v * ((b.v - T(1)) * mpc_pow(a.v, b.v - T(2))),
+                     pm1 + b.v * (L * pm1), L * fb);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_pow(T a, const MPC_V2& b) {
+  const T p = mpc_pow(a, b.v);
+  const T L = mpc_log0(a), fb = L * p;
+  return mpc_chain2(b, p, fb, L * fb);
 }
 
 // ----- max / min / where ---------------------------------------------------

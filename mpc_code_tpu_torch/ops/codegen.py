@@ -7,30 +7,49 @@ per-component scalar statements, which the sweep kernels instantiate with
 forward-mode dual numbers (``csrc/dual.cuh``, ``csrc/dual2.cuh``).
 
 What it lowers: integer indexing and slices of inputs and intermediates,
-whole-vector use of an input, elementwise ``+ - * /``, negation, ``exp``,
-``log``, ``sqrt``, ``pow`` by a scalar, ``maximum``/``minimum``,
-``abs`` (as ``where(a >= 0, a, -a)``: JAX's derivative, +1 at 0, where
-``torch.abs`` has 0), comparisons, ``where``, ``stack`` and ``cat`` over dim 0, ``@`` (a
-captured constant matrix or vector times a vector, a matrix input times a
-vector, or a dot product of two vectors, written as literal multiply-adds),
-``.sum()`` of a vector (left to right), ``.reshape(-1)`` and
-``torch.atleast_1d`` (a scalar becomes a vector of one component) and
-``.to(...)`` (the cast of a captured constant).  Any other op raises ``NotImplementedError`` naming
-it.  The statements are the ones the compiler would keep: ``a * 1``,
-``a / 1``, ``a - 0`` and ``a + 0`` (exact but for the sign of a zero) are
+whole-vector use of an input, elementwise ``+ - * /``, negation, the
+elementary functions of ``FUNCTIONS`` (``exp``, ``log``, ``sqrt``,
+``tanh``, ``sigmoid``, ``sin``, ``cos``, ``tan``, ``asin``, ``acos``,
+``atan``, ``sinh``, ``cosh``, ``log1p``, ``expm1``, ``rsqrt``, ``erf``, as
+``torch.f(x)`` or ``x.f()``, with the ``arc*`` and ``special.expit``
+names), ``square`` (as ``a * a``), ``reciprocal`` (as ``1 / a``), ``sign``
+(a value without tangents: JAX's derivative is 0), ``atan2`` (JAX's
+derivative, nan at the origin), ``pow`` and ``**`` with a scalar, a
+traced or a tangent-carrying exponent and a scalar or traced base (JAX's
+rules: ``b a^(b-1)`` and ``log(a) a^b``, with ``log`` of a zero base
+taken as 0), ``maximum``/``minimum``, ``clamp``/``clip`` with bounds that
+are scalars, constants or traced values, passed by position or as
+``min=``/``max=`` (as ``minimum(maximum(x, lo), hi)``, ``jnp.clip``: half
+the tangent to each side at a tie, where ``torch.clamp`` passes all of
+it), ``abs`` (as ``where(a >= 0, a, -a)``: JAX's derivative, +1 at 0,
+where ``torch.abs`` has 0), comparisons, ``where``, ``stack`` and ``cat``
+over dim 0, ``@`` (a captured constant matrix or vector times a vector, a
+matrix input times a vector, or a dot product of two vectors, written as
+literal multiply-adds), ``.sum()`` of a vector (left to right),
+``.reshape(-1)`` and ``torch.atleast_1d`` (a scalar becomes a vector of
+one component) and ``.to(...)`` (the cast of a captured constant).  Any
+other op raises ``NotImplementedError`` naming it; so does a keyword
+argument to any op but ``clamp``/``clip``, ``stack`` and ``cat``.
+Literal operands are folded in double precision.  The statements are the
+ones the compiler would keep: ``a * 1``, ``a / 1``, ``a - 0`` and ``a +
+0`` (exact but for the sign of a zero) are
 folded, ``a * 0`` only when ``a`` is a literal too (``inf * 0`` and
 ``nan * 0`` are ``nan``, as in torch and JAX), a statement that repeats
 an earlier one reuses its value, and statements no output needs are
 dropped.
 
 The statements are also valid Python: ``Program.execute`` runs them on
-torch tensors, so the CPU tests hold the lowering against the function it
-came from, derivatives included, without a CUDA compiler.
+torch tensors, each ``mpc_*`` function with JAX's derivative, so the CPU
+tests hold the lowering against the function it came from, and against
+JAX, derivatives included, without a CUDA compiler.
 
 ``Program.ops`` counts the arithmetic of those statements per evaluation
 on values that carry ``nz`` tangents (``order=1``) or also the
 nz(nz+1)/2 second-order tangents (``order=2``): the bound of a sweep
-kernel comes from it.
+kernel comes from it.  An elementary function's value counts as one
+operation, as a division does, whatever its libm routine costs, so the
+bound stays a lower bound; its derivative rule counts its multiplies and
+adds (``FUNCTIONS``).
 """
 
 from __future__ import annotations
@@ -45,6 +64,8 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from mpc_code_tpu_torch.ops import jax_rules
+
 _BIN = {operator.add: "+", operator.sub: "-", operator.mul: "*",
         operator.truediv: "/", torch.add: "+", torch.sub: "-",
         torch.mul: "*", torch.div: "/", torch.true_divide: "/"}
@@ -52,21 +73,57 @@ _CMP = {operator.lt: "<", operator.le: "<=", operator.gt: ">",
         operator.ge: ">=", operator.eq: "==", operator.ne: "!=",
         torch.lt: "<", torch.le: "<=", torch.gt: ">", torch.ge: ">=",
         torch.eq: "==", torch.ne: "!="}
-_UNARY = {torch.exp: "mpc_exp", torch.log: "mpc_log", torch.sqrt: "mpc_sqrt",
-          operator.neg: "-", torch.neg: "-"}
-_METHODS = {"exp": "mpc_exp", "log": "mpc_log", "sqrt": "mpc_sqrt",
-            "neg": "-", "__neg__": "-"}
+# The elementary functions: name -> (its value on a double, the operations
+# that form f' from the value and the argument, those that form f'' from
+# them).  Each lowers to ``mpc_<name>`` (csrc/dual.cuh, csrc/dual2.cuh; in
+# Python ``Program.execute``'s scope).
+FUNCTIONS = {
+    "exp": (np.exp, 0, 0), "log": (np.log, 1, 1), "sqrt": (np.sqrt, 1, 1),
+    "tanh": (np.tanh, 2, 2),                              # 1 - t^2; -2 t f'
+    "sigmoid": (lambda a: 1.0 / (1.0 + np.exp(-a)), 2, 3),  # s (1 - s); f' (1 - 2 s)
+    "sin": (np.sin, 1, 1), "cos": (np.cos, 1, 1),       # cos, -sin; -f
+    "tan": (np.tan, 2, 2),                                # 1 + t^2; 2 t f'
+    "asin": (np.arcsin, 3, 3), "acos": (np.arccos, 3, 3),  # +-(1 - a^2)^-1/2; a f'^3
+    "atan": (np.arctan, 3, 3),                            # 1 / (1 + a^2); -2 a f'^2
+    "sinh": (np.sinh, 1, 0), "cosh": (np.cosh, 1, 0),   # cosh, sinh; f
+    "log1p": (np.log1p, 2, 1),                            # 1 / (1 + a); -f'^2
+    "expm1": (np.expm1, 1, 0),                            # f + 1; f'
+    "rsqrt": (lambda a: 1.0 / np.sqrt(a), 2, 2),          # -f / 2a; -3 f' / 2a
+    "erf": (math.erf, 3, 2),                              # 2/sqrt(pi) e^-a^2; -2 a f'
+}
+_ALIASES = {"arcsin": "asin", "arccos": "acos", "arctan": "atan", "expit": "sigmoid"}
+_UNARY = {getattr(torch, f): f"mpc_{f}" for f in FUNCTIONS}
+_UNARY.update({torch.arcsin: "mpc_asin", torch.arccos: "mpc_acos",
+               torch.arctan: "mpc_atan", torch.special.expit: "mpc_sigmoid",
+               torch.special.erf: "mpc_erf", operator.neg: "-", torch.neg: "-"})
+_METHODS = {f: f"mpc_{f}" for f in FUNCTIONS}
+_METHODS.update({a: f"mpc_{f}" for a, f in _ALIASES.items()}, neg="-", __neg__="-")
 _MAXMIN = {torch.maximum: "mpc_max", torch.minimum: "mpc_min"}
 _POW = {operator.pow, torch.pow}
+_ATAN2 = {torch.atan2, torch.arctan2}
+_CLAMP = {torch.clamp, torch.clip}
 _MATMUL = {operator.matmul, torch.matmul}
 # torch.fx tracing patches module globals and is not thread-safe; kernels
 # are built from several threads at once
 _TRACE_LOCK = threading.Lock()
-SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, exp, log, "
-             "sqrt, pow by a scalar, maximum, minimum, abs, comparisons, where, "
-             "stack and cat over dim 0, matmul with a constant, of a matrix "
-             "input by a vector or a dot product, sum of a vector, "
-             "reshape(-1), atleast_1d, .to()")
+SUPPORTED = ("getitem (int or slice), add, sub, mul, truediv, neg, "
+             + ", ".join(FUNCTIONS) + " (and arcsin, arccos, arctan, special.expit, "
+             "special.erf), square, reciprocal, sign, atan2, pow and ** (scalar, "
+             "traced or dual exponent), maximum, minimum, clamp/clip (min=, max=), "
+             "abs, comparisons, where, stack and cat over dim 0, matmul with a "
+             "constant, of a matrix input by a vector or a dot product, sum of a "
+             "vector, reshape(-1), atleast_1d, .to()")
+
+
+def _fold(fn, *a) -> float:
+    """A literal operation in double precision, IEEE's inf and nan included."""
+    with np.errstate(all="ignore"):
+        return float(fn(*(np.float64(x) for x in a)))
+
+
+def _sign_value(a):
+    """JAX's sign of a double: +-0 and nan kept."""
+    return a if a == 0 or a != a else math.copysign(1.0, a)
 
 
 class Arg(NamedTuple):
@@ -247,27 +304,81 @@ class Program:
         return self._emit(name, f"({self._x(a)} {sym} {self._x(b)})", da or db, ops)
 
     def _unary(self, name, fn, a):
-        if _is_num(a):
-            return float({"-": operator.neg, "mpc_exp": math.exp,
-                          "mpc_log": math.log, "mpc_sqrt": math.sqrt}[fn](a))
         if fn == "-":
+            if _is_num(a):
+                return -float(a)
             return self._emit(name, f"(-{a.expr})", a.dual, 1)
+        f0, k1, k2 = FUNCTIONS[fn.removeprefix("mpc_")]
+        if _is_num(a):
+            return _fold(f0, a)
         ops = 1
         if a.dual:                       # value, f'(a), nz products
-            ops = ((1 if fn == "mpc_exp" else 2) + self.nz
-                   + ((0 if fn == "mpc_exp" else 1) + 4 * self.np2 if self.np2 else 0))
+            ops = 1 + k1 + self.nz + (k2 + 4 * self.np2 if self.np2 else 0)
         return self._emit(name, f"{fn}({a.expr})", a.dual, ops)
 
     def _pow(self, name, a, c):
-        if _is_num(a):
-            return float(a) ** c
+        """a ** c for an exponent without tangents (a literal or a traced
+        value)."""
+        if _is_num(a) and _is_num(c):
+            return _fold(np.power, a, c)
+        if _is_num(a):                   # a literal base, a traced exponent
+            return self._emit(name, f"mpc_pow({lit(a)}, {c.expr})", False, 1)
         ops = 1 + ((2 + self.nz + (2 + 4 * self.np2 if self.np2 else 0))
                    if a.dual else 0)
-        return self._emit(name, f"mpc_pow({a.expr}, {lit(c)})", a.dual, ops)
+        return self._emit(name, f"mpc_pow({a.expr}, {self._x(c)})", a.dual, ops)
+
+    def _pow2(self, name, a, b):
+        """a ** b, the exponent carrying tangents: f_a = b a^(b-1), f_b =
+        log(a) a^b with log(0) taken as 0 (JAX's rules), and their
+        derivatives."""
+        if not b.dual:
+            return self._pow(name, a, b)
+        nz, np2 = self.nz, self.np2
+        if _is_num(a) or not a.dual:     # log a, f_b, nz products; f_bb
+            ops = 4 + nz + (1 + 4 * np2 if np2 else 0)
+        else:                            # a^(b-1), f_a, log a, f_b; the two
+            ops = 7 + 3 * nz + (9 + 14 * np2 if np2 else 0)   # tangent rules
+        return self._emit(name, f"mpc_pow({self._x(a)}, {b.expr})", True, ops)
+
+    def _atan2(self, name, y, x):
+        """atan2(y, x): f_y = x / (x^2 + y^2), f_x = -y / (x^2 + y^2) (nan
+        at the origin, as JAX's) and their derivatives."""
+        if _is_num(y) and _is_num(x):
+            return _fold(np.arctan2, y, x)
+        dy = not _is_num(y) and y.dual
+        dx = not _is_num(x) and x.dual
+        nz, np2 = self.nz, self.np2
+        if dy and dx:                    # x^2 + y^2, its reciprocal, f_y, f_x
+            ops = 7 + 3 * nz + (6 + 14 * np2 if np2 else 0)
+        elif dy or dx:
+            ops = 6 + nz + (2 + 4 * np2 if np2 else 0)
+        else:
+            ops = 1
+        return self._emit(name, f"mpc_atan2({self._x(y)}, {self._x(x)})", dy or dx, ops)
+
+    def _sign(self, name, a):
+        """sign(a): its derivative is 0, so its value carries no tangents."""
+        if _is_num(a):
+            return _sign_value(float(a))
+        return self._emit(name, f"mpc_sign({a.expr})", False, 1)
 
     def _select(self, name, expr, dual):
         # compare, select
         return self._emit(name, expr, dual, 1 + ((self.nz + self.np2) if dual else 0))
+
+    def _maxmin(self, name, fn, a, b):
+        if _is_num(a) and _is_num(b):
+            return _fold(np.maximum if fn == "mpc_max" else np.minimum, a, b)
+        return self._select(name, f"{fn}({self._x(a)}, {self._x(b)})",
+                            not _is_num(a) and a.dual or not _is_num(b) and b.dual)
+
+    def _clamp(self, name, a, lo, hi):
+        """jnp.clip: minimum(maximum(a, lo), hi)."""
+        if lo is not None:
+            a = self._maxmin(f"{name}__lo", "mpc_max", a, lo)
+        if hi is not None:
+            a = self._maxmin(f"{name}__hi", "mpc_min", a, hi)
+        return a
 
     def _abs(self, name, a):
         if _is_num(a):
@@ -355,6 +466,14 @@ class Program:
             if not all(isinstance(v, list) for v in parts):
                 raise NotImplementedError("torch.cat of a scalar")
             return [c for v in parts for c in v]
+        if (call and tgt in _CLAMP) or (meth and tgt in ("clamp", "clip")):
+            if set(n.kwargs) - {"min", "max"} or len(n.args) > 3:
+                raise NotImplementedError(f"{_op_name(n)} is supported with the input "
+                                          "and the bounds min, max only")
+            pos = list(n.args[1:]) + [None] * (3 - len(n.args))
+            lo, hi = n.kwargs.get("min", pos[0]), n.kwargs.get("max", pos[1])
+            vals = [None if v is None else self._value(env, v) for v in (n.args[0], lo, hi)]
+            return self._map(name, self._clamp, *vals)
         if n.kwargs:
             raise NotImplementedError(
                 f"op {_op_name(n)!r} with keyword arguments {dict(n.kwargs)}")
@@ -401,21 +520,22 @@ class Program:
         if (call and tgt in _UNARY) or (meth and tgt in _METHODS):
             fn = _UNARY[tgt] if call else _METHODS[tgt]
             return self._map(name, lambda nm, x: self._unary(nm, fn, x), args[0])
-        if (call and tgt is torch.abs) or (meth and tgt == "abs"):
+        if (call and tgt in (torch.abs, operator.abs)) or (meth and tgt == "abs"):
             return self._map(name, self._abs, args[0])
-        if call and tgt in _POW:
-            a, c = args
-            if not _is_num(c):
-                raise NotImplementedError(
-                    "pow is supported only with a scalar exponent")
-            return self._map(name, lambda nm, x: self._pow(nm, x, c), a)
+        if (call and tgt is torch.sign) or (meth and tgt == "sign"):
+            return self._map(name, self._sign, args[0])
+        if (call and tgt is torch.square) or (meth and tgt == "square"):
+            return self._map(name, lambda nm, x: self._bin(nm, "*", x, x), args[0])
+        if (call and tgt is torch.reciprocal) or (meth and tgt == "reciprocal"):
+            return self._map(name, lambda nm, x: self._bin(nm, "/", 1.0, x), args[0])
+        if (call and tgt in _ATAN2) or (meth and tgt in ("atan2", "arctan2")):
+            return self._map(name, self._atan2, *args)
+        if (call and tgt in _POW) or (meth and tgt == "pow"):
+            return self._map(name, lambda nm, a, b: (self._pow(nm, a, b) if _is_num(b)
+                                                     else self._pow2(nm, a, b)), *args)
         if call and tgt in _MAXMIN:
             fn = _MAXMIN[tgt]
-            return self._map(
-                name, lambda nm, x, y: self._select(
-                    nm, f"{fn}({self._x(x)}, {self._x(y)})",
-                    not _is_num(x) and x.dual or not _is_num(y) and y.dual),
-                *args)
+            return self._map(name, lambda nm, x, y: self._maxmin(nm, fn, x, y), *args)
         if call and tgt in _CMP:
             sym = _CMP[tgt]
 
@@ -464,19 +584,24 @@ class Program:
         """Run the lowered statements on torch tensors: each named input is
         a tensor (a vector input indexed along its first dimension, a
         matrix input flattened row-major along it).
-        Returns the list of output components.  Used by the CPU tests."""
+        Returns the list of output components.  Used by the CPU tests.
+        Each function takes JAX's derivative (``ops/jax_rules.py``)."""
         def val(a):
             return a if torch.is_tensor(a) else torch.tensor(a, dtype=torch.float64)
 
         def where(c, a, b):
             return torch.where(c, val(a), val(b))
 
+        def sign(a):                     # JAX's value at 0 and nan, derivative 0
+            return torch.where(a > 0, 1.0, torch.where(a < 0, -1.0, a)).detach()
+
         scope = dict(
             S=float, NAN=math.nan, INFINITY=math.inf,
-            mpc_exp=torch.exp, mpc_log=torch.log, mpc_sqrt=torch.sqrt,
-            mpc_pow=torch.pow, mpc_val=lambda a: a, mpc_where=where,
+            mpc_pow=jax_rules.power, mpc_val=lambda a: a, mpc_where=where,
             mpc_max=lambda a, b: torch.maximum(val(a), val(b)),
-            mpc_min=lambda a, b: torch.minimum(val(a), val(b)))
+            mpc_min=lambda a, b: torch.minimum(val(a), val(b)),
+            mpc_sign=sign, mpc_atan2=jax_rules.atan2,
+            **{f"mpc_{f}": getattr(torch, f) for f in FUNCTIONS})
         scope.update(inputs)
         scope["out"] = [None] * len(self.out)
         for line in self.lines:

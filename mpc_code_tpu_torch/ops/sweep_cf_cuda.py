@@ -20,7 +20,10 @@ note at the top of ``csrc/rk4_quad_stage_hess.cu``.
 
 ``Rk4QuadStageHess.__call__`` launches the kernel for CUDA tensors and
 raises on what the kernel does not take; it runs the plain version only
-for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+for CPU tensors.  The plain version runs the user's functions under
+``ops/jax_rules.py``: where torch's derivative differs from JAX's (clamp
+at a tie, abs at 0, atan2 at the origin, pow in a traced exponent) it
+takes JAX's, as the kernel does.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Callable
 import torch
 
 from mpc_code_tpu_torch.ops.codegen import Arg, Program
+from mpc_code_tpu_torch.ops.jax_rules import with_jax_rules
 from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
 
 LAUNCHES = 0
@@ -178,6 +182,7 @@ class Rk4QuadStageHess(LaneSweep):
         self.f, self.q = f, q
         self.Mx = int(Mx)
 
+    @with_jax_rules
     def plain(self, *args):
         """The plain version over blocks of at most PLAIN_BLOCK_LANES
         (scenario, stage) lanes: lanes are independent, and a block bounds

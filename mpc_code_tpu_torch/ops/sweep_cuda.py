@@ -22,7 +22,10 @@ contiguous ``xf``, ``Jx`` and ``Ju``).
 
 ``Rk4StageJac.__call__`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; it runs the plain version only for CPU
-tensors.  ``LAUNCHES`` counts kernel launches.
+tensors.  The plain version runs the user's functions under
+``ops/jax_rules.py``: where torch's derivative differs from JAX's (clamp
+at a tie, abs at 0, atan2 at the origin, pow in a traced exponent) it
+takes JAX's, as the kernel does.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from mpc_code_tpu_torch.ops.codegen import Arg, Program, lit
 from mpc_code_tpu_torch.ops.integrators import saturate
+from mpc_code_tpu_torch.ops.jax_rules import with_jax_rules
 from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
 
 LAUNCHES = 0
@@ -173,6 +177,7 @@ class Rk4StageJac(LaneSweep):
         self.clip_lo = None if clip_lo is None else [float(v) for v in clip_lo]
         self.clip_hi = None if clip_hi is None else [float(v) for v in clip_hi]
 
+    @with_jax_rules
     def plain(self, xs, us, pxs, t, h, d):
         return rk4_stage_jac_plain(self.f, self.Mx, self.clip_lo, self.clip_hi,
                                    xs, us, pxs, t, h, d)

@@ -23,7 +23,10 @@ place and writes contiguous ``xf``, ``Jx`` and ``Ju``).
 
 ``MapStageJac.__call__`` launches the kernel for CUDA tensors and raises on
 what the kernel does not take; it runs the plain version only for CPU
-tensors.  ``LAUNCHES`` counts kernel launches.
+tensors.  The plain version runs the user's functions under
+``ops/jax_rules.py``: where torch's derivative differs from JAX's (clamp
+at a tie, abs at 0, atan2 at the origin, pow in a traced exponent) it
+takes JAX's, as the kernel does.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Callable
 import torch
 
 from mpc_code_tpu_torch.ops.codegen import Arg, Program
+from mpc_code_tpu_torch.ops.jax_rules import with_jax_rules
 from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
 
 LAUNCHES = 0
@@ -131,6 +135,7 @@ class MapStageJac(LaneSweep):
         super().__init__()
         self.f = f
 
+    @with_jax_rules
     def plain(self, xs, us, pxs, t, d):
         return map_stage_jac_plain(self.f, xs, us, pxs, t, d)
 

@@ -1681,6 +1681,13 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                     solvable, Ks, kf, P_seq, p_seq, dX, dU = riccati_kkt(
                         Hs, q, A, Bm, r_d, PN_h, pN_g, torch.zeros(Bsz, **kw),
                         nxa=nxa, nu=nu)
+                    # no direction on a lane whose KKT solve failed: the plain
+                    # version carries NaN there, which is zeroed below as the
+                    # JAX package zeroes it, and kernel 2 finite values from
+                    # its clamped pivots, which would reach the dual step on
+                    # the card (ROADMAP Queue 3, F17)
+                    dX = torch.where(_lane(solvable, dX), dX, 0.0)
+                    dU = torch.where(_lane(solvable, dU), dU, 0.0)
                 if termcons:
                     xi_new = torch.where(_lane(solvable, xi_new), xi_new, xi)
                 if eqcons:

@@ -40,7 +40,10 @@ note at the top of ``csrc/stage_sweep.cu``.
 what the kernel does not take; it runs the plain version (the vmapped
 ``make_stage_derivs``) only for CPU tensors, after lowering the OCP's
 functions as a launch would, so that an OCP the kernel cannot take is
-refused on the CPU too.  ``LAUNCHES`` counts kernel launches.
+refused on the CPU too.  The plain version runs the user's functions under
+``ops/jax_rules.py``: where torch's derivative differs from JAX's (clamp
+at a tie, abs at 0, atan2 at the origin, pow in a traced exponent) it
+takes JAX's, as the kernel does.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import torch
 from torch.func import vmap
 
 from mpc_code_tpu_torch.ops.codegen import Arg, Program, lit
+from mpc_code_tpu_torch.ops.jax_rules import jax_rules
 from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
 from mpc_code_tpu_torch.ops.sweep_cf_cuda import cf_programs
 from mpc_code_tpu_torch.ops.sweep_map_cuda import map_program
@@ -403,8 +407,9 @@ class StageSweep(LaneSweep):
         self.source(*self.dims({k: a.shape[-1] for k, a in zip(names, args) if a.dim() > 1}))
         Bsz, N = args[0].shape[:2]
         step = max(1, PLAIN_BLOCK_LANES // N)
-        parts = [self._plain_block(*[a[b0:b0 + step] for a in args])
-                 for b0 in range(0, Bsz, step)]
+        with jax_rules():
+            parts = [self._plain_block(*[a[b0:b0 + step] for a in args])
+                     for b0 in range(0, Bsz, step)]
         return tuple(torch.cat(p) for p in zip(*parts))
 
     def _plain_block(self, X, U, lam, nus, px, py, mu_h, t, sf, xs, us, d, um1, lamy):

@@ -194,14 +194,16 @@ def test_codegen_lowers_enmpc_contform():
 
 
 def test_cf_codegen_rejects_unsupported_op():
+    """An op outside the generator's list (``fmod``; the quadrature with
+    ``tanh`` this test once refused is lowered now) raises, naming it."""
     from mpc_code_tpu_torch.ops.sweep_cf_cuda import emit_cf_source
 
     ode, _ = _port_pair()
 
     def quad(x, t, u, d, px, xss, uss, py):
-        return torch.tanh(x[0]) * u[0]
+        return torch.fmod(x[0], 0.5) * u[0]
 
-    with pytest.raises(NotImplementedError, match="tanh"):
+    with pytest.raises(NotImplementedError, match="fmod"):
         emit_cf_source(ode, quad, 2, 1, 1, 1, 1, 3)
 
 

@@ -176,12 +176,14 @@ def test_codegen_emits_cstr_source():
 
 
 def test_codegen_rejects_unsupported_op():
+    """An op outside the generator's list (``erfinv``; ``tanh`` and the
+    other elementary functions are lowered) raises, naming it."""
     from mpc_code_tpu_torch.ops.sweep_cuda import emit_rhs_source
 
     def ode(x, t, u, d, px):
-        return torch.stack([torch.tanh(x[0]), x[1] * u[0], x[2]])
+        return torch.stack([torch.erfinv(x[0]), x[1] * u[0], x[2]])
 
-    with pytest.raises(NotImplementedError, match="tanh"):
+    with pytest.raises(NotImplementedError, match="erfinv"):
         emit_rhs_source(ode, 3, 2, 2, 3, 4)
 
 
