@@ -35,7 +35,10 @@ It never imports JAX or the JAX package.  Phases:
    tanh map through kernel 3, Ex_ENMPC's ODE with a tanh and sigmoid
    quadrature through kernel 4, the cart-pole's kernel 1 and kernel 2 at
    (20, 4, 1), and kernel 5's exact builds of the elem OCP and the
-   cart-pole; an f32 sweep (kernels 1, 3, 5) must also lie
+   cart-pole; kernel 5 on Ex_ENMPC's MHE window (N=11, nz=8), the batched
+   MHE's (maskable: pad lanes) in its exact and its Gauss-Newton build and
+   the host MHE's in its exact build, the arrival and pad lanes held on
+   their own; an f32 sweep (kernels 1, 3, 5) must also lie
    no farther from the f64 plain version than twice its f32 plain version;
    the plain versions of kernels 4 and 5 run in one block of lanes
    (``card_plain``);
@@ -128,13 +131,15 @@ It never imports JAX or the JAX package.  Phases:
    in f64 held to the CPU's f64 run (Gauss-Newton's after 8 passes);
 12. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
-   window by the structured IPM at (N, nxa, nu) = (11, 4, 4)), the
+   window by the structured IPM at (N, nxa, nu) = (11, 4, 4), its stage
+   derivatives by kernel 5's window build), the
    economic target by the dense IPM and the ContForm OCP under
    Gauss-Newton, B=16384 lanes from step 0 (the growing-horizon warmup),
    ENMPC_NSIM steps,
-   f32 throughout — checked as phase 7, with on every step kernel 2's
-   launches in the MHE equal to the MHE solver's passes and in the OCP to
-   the OCP solver's, kernel 4's equal to the OCP's passes, the non-finite
+   f32 throughout — checked as phase 7, with on every step kernels 2's
+   and 5's launches in the MHE equal to the MHE solver's passes, kernel 2's
+   in the OCP to the OCP solver's, kernel 4's equal to the OCP's passes
+   (and kernel 5 not in the OCP), the non-finite
    shares of the MHE's P, x_bar, Pycondx_inv and the estimate, the last
    step (the first with the MHE's dual warm start) replayed with the MHE
    and the OCP under the profiler, and the 64-lane
@@ -143,11 +148,11 @@ It never imports JAX or the JAX package.  Phases:
 13. the host loop (``host_loop``, run before phase 12 so that phase 12's
    CPU reference finishes beside it): ``loop/simulator.py::ClosedLoop`` on the
    card in f64 on ``fixtures/enmpc.npz`` (the host MHE, its window solves
-   on kernel 2 at one lane) and ``fixtures/nmpc.npz`` (the EKF), every
-   recorded key within the fixtures'
+   on kernels 5 and 2 at one lane) and ``fixtures/nmpc.npz`` (the EKF),
+   every recorded key within the fixtures'
    1e-4, the native host core built and loaded, per step the phase times,
-   iterations and statuses, kernel 2's launches in the MHE equal to its
-   passes and no other launch, one host
+   iterations and statuses, kernels 2's and 5's launches in the MHE equal
+   to its passes and no other launch, one host
    step under the profiler (launches, device-to-host copies), and the
    command line (``examples/__main__.py``) at Ex_ENMPC's size, its history
    file read back; the nmpc fixture and the command line each in a
@@ -1250,12 +1255,54 @@ def cartpole_sweep_inputs(dtype, device, socp, cfg=None, seed=14):
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
 
 
+def mhe_sweep_inputs(dtype, device, socp, cfg=None, seed=15):
+    """Kernel 5's inputs at an MHE window's shapes (Ex_ENMPC's: N_mhe + 1 =
+    11 structured stages, n = n_w = 4), in the launcher's order: states x
+    over [0.1, 0.9] and d over [-0.1, 0.1] (unit scales), the arrival
+    stage's input near its state and the noises within 0.05, multipliers of
+    the size the solves meet, the window's measured inputs over [0, 2],
+    outputs over [0, 1], times on the sampling grid, small px and py, a
+    mask, sf, x_bar near the first state, P_inv symmetric positive
+    definite.  In a maskable window scenario 1's first three window stages
+    and a third of scenario 2's are pads (mask 0), as in the warmup.
+    Every scenario's stage 0 is the arrival stage.  Returns (inputs, the
+    scenarios with pad stages)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N, n = socp.N, socp.nxa
+    low = socp.lowering
+    Nw, nx = N - 1, low.step.nx
+    x = np.concatenate([rng.uniform(0.1, 0.9, (B, N, nx)),
+                        rng.uniform(-0.1, 0.1, (B, N, n - nx))], -1)
+    U = rng.normal(0.0, 0.05, (B, N, n))
+    U[:, 0] += x[:, 1]
+    mask = np.ones((B, Nw, 1))
+    pads = []
+    if low.maskable:
+        mask[1, :3] = 0.0
+        mask[2] = rng.uniform(size=(Nw, 1)) > 2.0 / 3.0
+        pads = [1, 2]
+    M = rng.normal(size=(B, n, n))
+    arrs = [x / socp.sxa, U / socp.su, rng.normal(size=(B, N, n)),
+            rng.normal(0.0, 0.1, (B, N, socp.ni)), rng.uniform(0.0, 2.0, (B, Nw, low.m)),
+            rng.uniform(0.0, 1.0, (B, Nw, low.p)),
+            (np.arange(Nw)[None, :, None] + rng.integers(0, 20, (B, 1, 1))) * float(cfg.h),
+            rng.normal(0.0, 1e-3, (B, Nw, low.npx)), rng.normal(0.0, 1e-3, (B, Nw, low.npy)),
+            mask, rng.uniform(0.5, 1.0, B), x[:, 1] + rng.normal(0.0, 0.01, (B, n)),
+            (M @ np.swapaxes(M, 1, 2) + n * np.eye(n)).reshape(B, n * n),
+            np.zeros((B, low.n_corr * n)), np.zeros((B, low.n_corr)),
+            np.zeros((B, low.n_corr ** 2))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], pads
+
+
 # Kernel 5's builds: the exact-Hessian CSTR (the continuous map), the
 # quadruple tank's discrete map with the u_prev augmentation, ENMPC's
 # ContForm, the CSTR with DUForm, the LMPC loop's affine model with u_prev,
 # the bench port's linear CSTR, the CSTR's shared output slacks, the CSTR
-# with TermCons, H_eq and one G_ineq row, the collocated CSTR and
-# the cart-pole, each at its path's shapes; and check builds on no path:
+# with TermCons, H_eq and one G_ineq row, the collocated CSTR, the
+# cart-pole, Ex_ENMPC's MHE window in the batched MHE (maskable) and in the
+# host MHE, each at its path's shapes; and check builds on no path:
 # the collocated CSTR at two Newton steps with a coolant term whose
 # u-curvature depends on the state (``colloc_newton2_ocp``) and the
 # elem OCP (every elementary function, on second-order numbers).  Each in
@@ -1281,11 +1328,18 @@ STAGE_BUILDS = {"stage_sweep": ("cstr_exact", stage_sweep_inputs, ("cstr_exact",
                 "stage_sweep_colloc_newton2": ("colloc_newton2", stage_sweep_inputs, (), ()),
                 "stage_sweep_elem": ("elem", elem_sweep_inputs, (), ()),
                 "stage_sweep_cartpole": ("cartpole", cartpole_sweep_inputs,
-                                         ("cartpole_exact",), ())}
+                                         ("cartpole_exact",), ()),
+                "stage_sweep_mhe": ("mhe", mhe_sweep_inputs,
+                                    ("enmpc_loop_mhe", "enmpc_handoff_mhe", "dryrun_mhe"),
+                                    ()),
+                "stage_sweep_host_mhe": ("host_mhe", mhe_sweep_inputs,
+                                         ("host_loop", "host_loop_cli",
+                                          "enmpc_handoff_warmup"), ())}
 # builds checked in their exact build alone: the elementary functions',
 # whose Gauss-Newton builds no path launches (the cart-pole's Gauss-Newton
-# run takes kernel 1), while every build costs minutes of nvcc
-EXACT_ONLY_BUILDS = ("stage_sweep_elem", "stage_sweep_cartpole")
+# run takes kernel 1), and the host MHE's (its Gauss-Newton build is the
+# batched window's but for the mask), while every build costs minutes of nvcc
+EXACT_ONLY_BUILDS = ("stage_sweep_elem", "stage_sweep_cartpole", "stage_sweep_host_mhe")
 # the builds' lanes whose outputs are nan on both sides (elem: atan2 at the
 # origin, as JAX's)
 NONFINITE_LANES = {"stage_sweep_elem": ELEM_NAN_LANES}
@@ -1330,6 +1384,15 @@ def colloc_newton2_ocp(cfg, dev):
 F32_HELD_TO_F64 = ("stage_sweep_lmpc", "stage_sweep_lmpc_gn")
 
 
+def k5_dims(sweep, cfg, socp):
+    """The build key of kernel 5's build ``sweep`` of ``socp``."""
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
+
+    if isinstance(sweep, sk.WindowSweep):
+        return sweep.window_dims()
+    return (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
+
+
 def build_launches(launches, path):
     """Kernel 5's launches on one of STAGE_BUILDS' paths."""
     return launches.get("stage_sweep" if path == "cstr_exact" else f"stage_sweep_{path}", 0)
@@ -1348,20 +1411,19 @@ def stage_sweep_kernel_phase(dev, xprobs, results):
     failures = []
     for build, (pkey, inputs, _, _) in STAGE_BUILDS.items():
         cfg, socp = xprobs[pkey]
-        dims = (socp.nxa, socp.nu, socp.ni, cfg.nd, cfg.npx, cfg.npy)
         for hessian, key in build_hessians(build):
             sweep = sk.make_stage_sweep(socp, hessian)
             ptx = results[key].get("ptxas_summary", {})
             for dtype in (torch.float64, torch.float32):
-                failures += stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx,
+                failures += stage_sweep_check(dev, sweep, key, dtype, cfg, socp, ptx,
                                               results[key], inputs)
     return failures
 
 
-def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs):
+def stage_sweep_check(dev, sweep, key, dtype, cfg, socp, ptx, out, inputs):
     """One build of kernel 5 against its plain version in one dtype, on
-    ``inputs(dtype, dev, socp)``; the numbers go into ``out[dtype name]``.
-    Returns the failures."""
+    ``inputs(dtype, dev, socp, cfg)``; the numbers go into ``out[dtype
+    name]``.  Returns the failures."""
     import torch
 
     from mpc_code_tpu_torch.solver import sweep_kernel as sk
@@ -1379,6 +1441,9 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs)
     errs = [nonfinite_err([g], [r])[0] for g, r in zip(got, ref)]
     err, same, nf_lanes = nonfinite_err(got, ref)
     err_tie = nonfinite_err([g[tie] for g in got], [r[tie] for r in ref])[0] if tie else 0.0
+    # the stage-0 lanes: the u_prev and slack slots' and an MHE window's
+    # arrival stage
+    err_k0 = nonfinite_err([g[:, 0] for g in got], [r[:, 0] for r in ref])[0]
     abs_err = max(float((g - r)[g.isfinite() & r.isfinite()].abs().max())
                   for g, r in zip(got, ref) if g.numel())
     # the scenarios with a non-finite entry are the same on both sides;
@@ -1398,21 +1463,32 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs)
     planes = sweep.pack(*arrs)
     ms = cuda_ms(lambda: sweep.launch_planes(planes), 20)
     wrap_ms = cuda_ms(lambda: sweep(*arrs), 10)
-    byt = sk.stage_bytes(B, socp.N, *dims, cfg.ny * socp.nu_ctrl, arrs[0].element_size(),
-                         socp.n_eq)
-    ops_lane = sweep.ops_per_lane(*dims)
-    t_b = byt / H100_BYTES_PER_S * 1e3
-    t_o = B * socp.N * ops_lane / H100_FLOPS[tname] * 1e3
+    extra = ""
+    if isinstance(sweep, sk.WindowSweep):
+        # an MHE window with every window stage a pad: no lane steps, so
+        # the difference is the step's time, of which the arrival lanes (1
+        # in N) idle through their warps' share
+        im = sweep.input_names().index("mask")
+        padded = sweep.pack(*arrs[:im], torch.zeros_like(arrs[im]), *arrs[im + 1:])
+        out[f"{tname}_no_step_ms"] = cuda_ms(lambda: sweep.launch_planes(padded), 20)
+        extra = f"no_step_ms={out[f'{tname}_no_step_ms']:.4f} "
+    # what these inputs need: an MHE window's arrival and pad lanes skip
+    # the step
+    ops = sweep.ops(*arrs)
+    ops_lane = ops / (B * socp.N)
+    t_b = sweep.moved_bytes(*arrs) / H100_BYTES_PER_S * 1e3
+    t_o = ops / H100_FLOPS[tname] * 1e3
     tol = TOL_F64 if dtype == torch.float64 else TOL_F32["stage_sweep"]
     log(f"# kernel {key} ({sweep.hessian}) {tname}: max_norm_err={err:.3e} per output "
         f"(H, gc, A, B, E, ival, dval, Cz, hval) {['%.2e' % e for e in errs]} "
-        f"tie_lanes={err_tie:.3e} max_abs_err={abs_err:.3e} (tol {tol:g}) "
+        f"tie_lanes={err_tie:.3e} stage0_lanes={err_k0:.3e} max_abs_err={abs_err:.3e} "
+        f"(tol {tol:g}) "
         f"vs_plain_f64: kernel {err64[0]:.3e} plain {err64[1]:.3e} "
         f"H_asym={sym:.1e} finite={finite} nonfinite_lanes={nf_lanes} "
         f"nonfinite_entries_equal={same} "
-        f"kernel_ms={ms:.4f} wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"kernel_ms={ms:.4f} {extra}wrapper_ms={wrap_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bound_ms={max(t_b, t_o):.4f} (bytes {t_b:.4f}, ops {t_o:.4f}; "
-        f"{ops_lane} operations per lane) ptxas: {ptx.get(tname)}")
+        f"{ops_lane:g} operations per lane) ptxas: {ptx.get(tname)}")
     # in f32 the kernel also lies no farther from the f64 plain version
     # than twice the f32 plain version does
     closer = err64[0] <= 2 * err64[1] + TOL_F64
@@ -1423,7 +1499,7 @@ def stage_sweep_check(dev, sweep, key, dims, dtype, cfg, socp, ptx, out, inputs)
     near = err <= tol or (dtype == torch.float32 and key in F32_HELD_TO_F64
                           and err64[1] > tol and err64[0] <= tol)
     out[tname] = dict(
-        max_norm_err=err, tie_norm_err=err_tie, max_abs_err=abs_err,
+        max_norm_err=err, tie_norm_err=err_tie, stage0_norm_err=err_k0, max_abs_err=abs_err,
         err_vs_f64=err64, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
         bytes_ms=t_b, ops_ms=t_o)
     if not (near and err_tie <= tol and sym == 0.0 and finite and closer):
@@ -1953,6 +2029,9 @@ class Loop(NamedTuple):
     start: Any = None      # start(dev, cfg) -> dict(carry, t0, k0, ref, failures,
                            # report): the run starts from that carry (None: step 0)
     warmup: bool = True    # a 2-step run of 256 lanes first (the card warmed)
+    ocp_kernels: Any = None     # the counters' kernels launched once a pass of the
+                                # OCP solver (None: all of them)
+    mhe_kernels: tuple = ()     # those launched once a pass of the MHE solver
 
 
 def solver_passes(iters, status):
@@ -2103,8 +2182,9 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs, card_jobs):
     flagship with the MHE) at B lanes in f32 for ``loop.nsim`` steps: per
     step the wall time and each phase's, MHE, target and OCP iterations,
     infeasible shares, the launches of the path's kernels (in the OCP each
-    once per pass of the OCP solver, and kernel 2 in the MHE once per pass
-    of the MHE solver, on every step) and the share of non-finite lanes;
+    of ``loop.ocp_kernels`` once per pass of the OCP solver, and in the MHE
+    each of ``loop.mhe_kernels``, kernels 2 and 5, once per pass of the MHE
+    solver, on every step) and the share of non-finite lanes;
     the steps of ``loop.profile_steps`` replayed with the phases of
     ``loop.profile`` under the profiler for their launches per pass; then
     the first N_CHECK lanes run on the card in f64 against the CPU f64 run,
@@ -2219,12 +2299,15 @@ def loop_phase(dev, loop: Loop, launches, cpu_refs, card_jobs):
             mhe_ok_share=float((H32["MHE_STATUS"] != 2).mean()),
             launches_mhe={k: launches[f"{k}_{name}_mhe"] for k in loop.counters})
     log(f"# {name} " + json.dumps(report))
-    # in the OCP each kernel launches once a pass of the OCP solver; in the
-    # MHE kernel 2 once a pass of the MHE solver, and no other kernel
+    # in the OCP each of its kernels launches once a pass of the OCP solver;
+    # in the MHE each of its kernels (kernels 2 and 5) once a pass of the
+    # MHE solver, and no other kernel
+    ocp_kernels = loop.counters if loop.ocp_kernels is None else loop.ocp_kernels
     for r in per_step:
         for k in loop.counters:
-            in_mhe = r.get("mhe_passes", 0) if k == "riccati_kkt" else 0
-            if r[k] - r[f"{k}_mhe"] != r["ocp_passes"] or r[f"{k}_mhe"] != in_mhe:
+            in_mhe = r.get("mhe_passes", 0) if k in loop.mhe_kernels else 0
+            in_ocp = r["ocp_passes"] if k in ocp_kernels else 0
+            if r[k] - r[f"{k}_mhe"] != in_ocp or r[f"{k}_mhe"] != in_mhe:
                 failures.append(f"{name}: {k}'s launches on step {r['step']} "
                                 f"({r[f'{k}_mhe']} in the estimator, {r[k]} in all) "
                                 f"differ from the solvers' passes")
@@ -2376,12 +2459,13 @@ class HostWindow:
 def host_fixture(name, nsim, n, n_mhe, profile_step, device):
     """One reduced fixture through ``ClosedLoop`` on ``device`` in f64: (the
     history, the per-step stats, the launches of every kernel, the MHE's
-    kernel-2 launches and passes per step, the profiled step, the wall
-    seconds)."""
+    kernel-2 and kernel-5 launches and passes per step, the profiled step,
+    the wall seconds)."""
     import dataclasses
 
     from mpc_code_tpu_torch.loop import ClosedLoop
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     mod = __import__(f"mpc_code_tpu_torch.examples.{name}", fromlist=["make_config"])
     cfg = mod.make_config(Nsim=nsim).replace(N=n)
@@ -2398,9 +2482,10 @@ def host_fixture(name, nsim, n, n_mhe, profile_step, device):
                 window.start()
             elif profile_step is not None and ksim == profile_step + 1:
                 window.stop()
-            before = rk.LAUNCHES
+            before = rk.LAUNCHES, sk.LAUNCHES
             out = inner(ksim, *a)
-            mhe_rows.append(dict(launches=rk.LAUNCHES - before,
+            mhe_rows.append(dict(launches=rk.LAUNCHES - before[0],
+                                 stage_sweep=sk.LAUNCHES - before[1],
                                  passes=rt.last_iters + int(rt.last_status == 0)))
             return out
 
@@ -2419,10 +2504,10 @@ def card_job(job, *args):
     """A run on the card in a process of its own (spawned, so it imports
     what it needs itself), beside the main process's phases:
     "fixture" (``host_fixture``'s tuple), "cli" (the command line's exit
-    code, seconds and kernel-2 launches; its prints go to stderr) or
-    "handoff_warmup" (``host_warmup``: the one-lane carry as numpy, the
-    loop's step stats and final state, its history, its seconds and
-    kernel-2 launches) or "loop_check" (a closed loop's check lanes from
+    code, seconds and kernel-2 and kernel-5 launches; its prints go to
+    stderr) or "handoff_warmup" (``host_warmup``: the one-lane carry as
+    numpy, the loop's step stats and final state, its history, its seconds
+    and kernel-2 and kernel-5 launches) or "loop_check" (a closed loop's check lanes from
     step 0, ``check_lanes``, and its seconds).  The kernels load from the
     builds of ``main``."""
     if ROOT not in sys.path:
@@ -2433,20 +2518,21 @@ def card_job(job, *args):
 
     from mpc_code_tpu_torch.device import pin_fp32_precision
     from mpc_code_tpu_torch.solver import riccati_kernel as rk
+    from mpc_code_tpu_torch.solver import sweep_kernel as sk
 
     torch.set_num_threads(CPU_REF_THREADS)
     pin_fp32_precision()
     dev = torch.device("cuda")
     if job == "fixture":
         return host_fixture(*args, dev)
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = sk.LAUNCHES = 0
     t0 = time.perf_counter()
     if job == "cli":
         from mpc_code_tpu_torch.examples import __main__ as cli
 
         with contextlib.redirect_stdout(sys.stderr):
             rc = cli.main(["enmpc", "--nsim", str(CLI_NSIM), "--save", args[0]])
-        return rc, time.perf_counter() - t0, rk.LAUNCHES
+        return rc, time.perf_counter() - t0, rk.LAUNCHES, sk.LAUNCHES
     if job == "loop_check":
         import importlib
 
@@ -2463,16 +2549,16 @@ def card_job(job, *args):
 
     carry, loop, H, warm_s = mw.host_warmup(mw.make_config(warm_handoff=True), dev)
     return (map_carry(lambda a: a.cpu().numpy(), carry), loop.step_stats,
-            loop.final_state, H, warm_s, rk.LAUNCHES)
+            loop.final_state, H, warm_s, rk.LAUNCHES, sk.LAUNCHES)
 
 
 def host_loop_phase(dev, launches, card_pool):
     """The host loop ``ClosedLoop`` on the card in f64: the reduced fixtures
     ``fixtures/enmpc.npz`` (the MHE, 'smooth', its window by the structured
-    IPM: kernel 2 at (N_w+1, 4, 4), one lane) and ``fixtures/nmpc.npz``
+    IPM: kernels 5 and 2 at (N_w+1, 4, 4), one lane) and ``fixtures/nmpc.npz``
     (the EKF) within FIXTURE_BAR on every recorded key; per step the phase
-    ms, the iterations and statuses; kernel 2's launches in the MHE equal to
-    its solver's passes on every step and no other launch (the target and
+    ms, the iterations and statuses; kernels 2's and 5's launches in the MHE
+    equal to its solver's passes on every step and no other launch (the target and
     the OCP are dense IPMs); one ENMPC step (HOST_PROFILE_STEP) under the
     profiler for its launches and host synchronisations; the command line
     ``python -m mpc_code_tpu_torch.examples enmpc --nsim CLI_NSIM --save``
@@ -2511,6 +2597,7 @@ def host_loop_phase(dev, launches, card_pool):
                           if f in st})
             if mhe_rows:
                 row.update(riccati_kkt_mhe=mhe_rows[k]["launches"],
+                           stage_sweep_mhe=mhe_rows[k]["stage_sweep"],
                            mhe_passes=mhe_rows[k]["passes"])
             log("# host_loop step " + json.dumps(row))
         r = dict(steps=nsim, N=n, wall_s=wall, step_ms=1e3 * wall / nsim,
@@ -2518,29 +2605,37 @@ def host_loop_phase(dev, launches, card_pool):
         report[name] = r
         log(f"# host_loop {name} " + json.dumps(r))
         launches["riccati_kkt_host_loop"] += counts["riccati_kkt"]
+        launches["stage_sweep_host_loop"] = (launches.get("stage_sweep_host_loop", 0)
+                                             + counts["stage_sweep"])
         bad = [k for k, v in devs.items() if not v <= FIXTURE_BAR]
         if bad or not devs:
             failures.append(f"host_loop {name}: {bad} beyond {FIXTURE_BAR:g} of the "
                             f"fixture ({devs})")
-        if any(row["launches"] != row["passes"] for row in mhe_rows):
-            failures.append(f"host_loop {name}: kernel 2's launches in the MHE "
-                            f"{[row['launches'] for row in mhe_rows]} differ from its "
-                            f"passes {[row['passes'] for row in mhe_rows]}")
-        others = {k: v for k, v in counts.items() if k != "riccati_kkt"}
-        if any(others.values()) or counts["riccati_kkt"] != sum(
-                row["launches"] for row in mhe_rows):
+        # kernels 2 and 5 once a pass of the MHE's window solve
+        if any(row[k] != row["passes"] for row in mhe_rows
+               for k in ("launches", "stage_sweep")):
+            failures.append(f"host_loop {name}: kernel 2's and kernel 5's launches in the "
+                            f"MHE {[(row['launches'], row['stage_sweep']) for row in mhe_rows]}"
+                            f" differ from its passes {[row['passes'] for row in mhe_rows]}")
+        others = {k: v for k, v in counts.items() if k not in ("riccati_kkt", "stage_sweep")}
+        if any(others.values()) or any(counts[k] != sum(row[f] for row in mhe_rows) for k, f in
+                                       (("riccati_kkt", "launches"),
+                                        ("stage_sweep", "stage_sweep"))):
             failures.append(f"host_loop {name}: kernels launched outside the MHE {counts}")
     if report["enmpc"]["profiled_step"] is None:
         failures.append("host_loop: the profiled step did not run")
 
     # the command line at the example's own size
-    rc, cli_s, cli_launches = cli_job.result()
+    rc, cli_s, cli_launches, cli_k5 = cli_job.result()
+    launches["stage_sweep_host_loop_cli"] = cli_k5
     H, meta = load_history(path)
     need = ("Xp", "Yp", "U", "XS", "US", "X_HAT", "D_HAT", "STATUS_SS", "STATUS_DYN")
     ok = (rc == 0 and all(k in H and len(H[k]) == CLI_NSIM for k in need)
           and all(np.isfinite(H[k]).all() for k in need)
-          and not (H["STATUS_DYN"] == 2).any() and float(meta["h"]) == 2.0)
+          and not (H["STATUS_DYN"] == 2).any() and float(meta["h"]) == 2.0
+          and cli_k5 == cli_launches > 0)
     report["cli"] = dict(rc=rc, seconds=cli_s, keys=sorted(H), riccati_kkt=cli_launches,
+                         stage_sweep=cli_k5,
                          status_dyn=H.get("STATUS_DYN", np.zeros(0)).tolist())
     log("# host_loop cli " + json.dumps(report["cli"]))
     if not ok:
@@ -2549,7 +2644,7 @@ def host_loop_phase(dev, launches, card_pool):
     return failures, report
 
 
-def handoff_start(pool, cpu_refs, card_jobs):
+def handoff_start(pool, cpu_refs, card_jobs, launches):
     """enmpc_handoff's start: the host warmup (``ClosedLoop``, K0 = N_mhe +
     2 steps, f32 on the card, one lane; ``card_jobs["handoff_warmup"]``, a
     ``card_job`` started with host_loop) held against the CPU's f64 run of
@@ -2565,7 +2660,7 @@ def handoff_start(pool, cpu_refs, card_jobs):
 
         failures = []
         k0 = mw.handoff_steps(cfg)
-        carry1, stats32, final, H32, warm_s, warm_launches = card_jobs[
+        carry1, stats32, final, H32, warm_s, warm_launches, warm_k5 = card_jobs[
             "handoff_warmup"].result()
         carry = mw.tile_handoff(cfg, map_carry(lambda a: torch.as_tensor(a, device=dev),
                                                carry1), B)
@@ -2584,8 +2679,14 @@ def handoff_start(pool, cpu_refs, card_jobs):
                 du_box=float(du[k]))))
         report = dict(warmup_steps=k0, warmup_s=warm_s, warmup_du_max=float(du.max()),
                       warmup_statuses_equal=st32 == st64, warmup_finite=finite,
-                      warmup_riccati_kkt=warm_launches)
+                      warmup_riccati_kkt=warm_launches, warmup_stage_sweep=warm_k5)
         log("# enmpc_handoff warmup " + json.dumps(report))
+        launches["stage_sweep_enmpc_handoff_warmup"] = warm_k5
+        # the host MHE's window solves launch kernels 2 and 5 once a pass
+        # each, and nothing else launches
+        if not warm_k5 == warm_launches > 0:
+            failures.append(f"enmpc_handoff: the warmup's kernel-5 launches {warm_k5} "
+                            f"differ from its kernel-2 launches {warm_launches}")
         if not (st32 == st64 and du.max() <= U_TOL and finite):
             failures.append(f"enmpc_handoff: the f32 warmup against the CPU f64 run: "
                             f"statuses equal {st32 == st64}, max |dU|/box {du.max():.3e} "
@@ -3213,9 +3314,9 @@ def options_phase(dev, launches, cpu_refs):
 # launch none); ``aggregate_metrics`` over NCCL equal to the host's count;
 # then ``entry.dryrun_multichip(1)`` (the linear CSTR at N=4, then Ex_ENMPC
 # at N=3 with the MHE at N_mhe=3), kernel 2's launches equal to its OCP
-# and MHE solvers' passes, and kernel 5's (its ContForm build) to the OCP
-# solver's (kernel 4 idle: the example's ContForm OCP runs the exact
-# Hessian).  The card is one
+# and MHE solvers' passes, and kernel 5's to the OCP solver's (its ContForm
+# build; kernel 4 idle: the example's ContForm OCP runs the exact Hessian)
+# and the MHE solver's (its window build).  The card is one
 # H100: only a one-rank mesh is checked here.
 MESH_B, MESH_STEPS = 1024, 5
 MESH_U_TOL = 1e-6
@@ -3308,8 +3409,8 @@ def mesh_phase(dev, launches):
         # the one-rank dry run of the entry point
         rk.LAUNCHES = sweep_cf_cuda.LAUNCHES = sk.LAUNCHES = 0
         # kernel 5's launches by (step kind, Hessian) of the sweep that made
-        # them: the linear CSTR's Gauss-Newton build ("map") and the
-        # ContForm one ("cf")
+        # them: the linear CSTR's Gauss-Newton build ("map"), the ContForm
+        # one ("cf") and the MHE window's ("mhe")
         by_build = {}
         real_count = sk.StageSweep._count
 
@@ -3327,15 +3428,17 @@ def mesh_phase(dev, launches):
             sk.StageSweep._count = real_count
         launches["stage_sweep_dryrun_lin"] = by_build.get("map_gauss_newton", 0)
         launches["stage_sweep_dryrun_enmpc"] = by_build.get("cf_exact", 0)
-        want_k2 = run_passes(lin) + run_passes(mhe) + sum(
-            solver_passes(mhe.mhe_iters[k], mhe.mhe_status[k])
-            for k in range(mhe.mhe_iters.shape[0]))
+        launches["stage_sweep_dryrun_mhe"] = by_build.get("mhe_exact", 0)
+        mhe_passes_ = sum(solver_passes(mhe.mhe_iters[k], mhe.mhe_status[k])
+                          for k in range(mhe.mhe_iters.shape[0]))
+        want_k2 = run_passes(lin) + run_passes(mhe) + mhe_passes_
         # the ContForm OCP's sweep: kernel 4 under Gauss-Newton, kernel 5's
         # ContForm build under the example's exact Hessian, once a pass;
-        # the linear CSTR's: kernel 5's linear build, once a pass
+        # the linear CSTR's: kernel 5's linear build, once a pass; the
+        # MHE's: kernel 5's window build, once a pass
         exact = enmpc_config().sol_opts_dyn.hessian == "exact"
         want_k4, want_k5 = (0, run_passes(mhe)) if exact else (run_passes(mhe), 0)
-        want_k5 += run_passes(lin)
+        want_k5 += run_passes(lin) + mhe_passes_
         report["dryrun"] = dict(seconds=time.perf_counter() - t0, riccati_kkt=rk.LAUNCHES,
                                 expected_riccati_kkt=want_k2,
                                 rk4_quad_stage_hess=sweep_cf_cuda.LAUNCHES,
@@ -3348,8 +3451,9 @@ def mesh_phase(dev, launches):
         launches["rk4_quad_stage_hess_dryrun"] = sweep_cf_cuda.LAUNCHES
         launches["stage_sweep_dryrun"] = sk.LAUNCHES
         got = (rk.LAUNCHES, sweep_cf_cuda.LAUNCHES, sk.LAUNCHES)
-        if got != (want_k2, want_k4, want_k5) or launches["stage_sweep_dryrun_lin"] != \
-                run_passes(lin):
+        if (got != (want_k2, want_k4, want_k5)
+                or launches["stage_sweep_dryrun_lin"] != run_passes(lin)
+                or launches["stage_sweep_dryrun_mhe"] != mhe_passes_):
             failures.append(f"mesh dryrun: launches of kernels 2, 4, 5 {got}, expected "
                             f"{(want_k2, want_k4, want_k5)}; kernel 5's by build "
                             f"{by_build}")
@@ -3849,7 +3953,8 @@ def main() -> int:
         duprob = make_problem(dev, **EXACT_RUNS["cstr_du_exact"])
         lcfg, ccfg = lw.make_config(), cb.make_config()
         lsocp, csocp = linear_ocp(lcfg), linear_ocp(ccfg)
-        msocp = mw.mhe_ocp(mw.make_config(), dev)
+        mcfg = mw.make_config()
+        msocp = mw.mhe_ocp(mcfg, dev)
         sprob = make_problem(dev, **constrained_runs()["soft"])
         ssocp = sprob[2]
         rprob = make_problem(dev, **EXACT_RUNS["rows_exact"])
@@ -3866,15 +3971,16 @@ def main() -> int:
                   "lmpc": (lcfg, lsocp), "clb": (ccfg, csocp), "soft": (sprob[0], ssocp),
                   "rows": (rprob[0], rprob[2]), "colloc": (cprob[0], cprob[2]),
                   "colloc_newton2": colloc_newton2_ocp(cprob[0], dev),
-                  "elem": (elem_cfg, structured(elem_cfg, dev)), "cartpole": (cp_cfg, cp_socp)}
+                  "elem": (elem_cfg, structured(elem_cfg, dev)), "cartpole": (cp_cfg, cp_socp),
+                  "mhe": (mcfg, msocp), "host_mhe": (mcfg, mw.mhe_ocp(mcfg, dev, maskable=False))}
         sweep = socp.sweep
         # kernel 5's builds, exact and Gauss-Newton, and their dimensions
-        k5, k5_dims = {}, {}
+        k5, k5_build = {}, {}
         for build, (pkey, _, _, _) in STAGE_BUILDS.items():
             kcfg, ksocp = xprobs[pkey]
             for hessian, key in build_hessians(build):
                 k5[key] = sk.make_stage_sweep(ksocp, hessian)
-                k5_dims[key] = (ksocp.nxa, ksocp.nu, ksocp.ni, kcfg.nd, kcfg.npx, kcfg.npy)
+                k5_build[key] = k5_dims(k5[key], kcfg, ksocp)
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(10 + len(esweeps) + len(k5)) as ex:
             jobs = {
@@ -3893,7 +3999,7 @@ def main() -> int:
                 "riccati_kkt_soft": ex.submit(rk.build_kernel, ssocp.nxa, ssocp.nu),
                 "riccati_kkt_cartpole": ex.submit(rk.build_kernel, cp_socp.nxa, cp_socp.nu),
                 **{name: ex.submit(sw.build, *dims) for name, (sw, dims) in esweeps.items()},
-                **{name: ex.submit(sw.build, *k5_dims[name]) for name, sw in k5.items()}}
+                **{name: ex.submit(sw.build, *k5_build[name]) for name, sw in k5.items()}}
             built = {name: j.result() for name, j in jobs.items()}
         if part is None:
             log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
@@ -3953,14 +4059,21 @@ def main() -> int:
                      profile=(), cap_apart=False)
     lmpc_loop = Loop("lmpc_loop", lw, lw.U_BOX, {"riccati_kkt": rk, "stage_sweep": sk},
                      profile=("ocp",), cap_apart=True, profile_steps=(0, 1))
+    # the ENMPC loops: kernels 4 and 2 in the OCP, kernels 5 (the window's
+    # build) and 2 in the MHE
+    enmpc_kernels = dict(ocp_kernels=("rk4_quad_stage_hess", "riccati_kkt"),
+                         mhe_kernels=("riccati_kkt", "stage_sweep"))
     enmpc_loop = Loop("enmpc_loop", mw, mw.U_BOX,
-                      {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
+                      {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk,
+                       "stage_sweep": sk},
                       profile=("estimate", "ocp"), cap_apart=False, nsim=ENMPC_NSIM,
-                      mhe=True, profile_steps=ENMPC_PROFILE_STEPS)
+                      mhe=True, profile_steps=ENMPC_PROFILE_STEPS, **enmpc_kernels)
     enmpc_handoff = Loop("enmpc_handoff", mw, mw.U_BOX,
-                         {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk},
+                         {"rk4_quad_stage_hess": sweep_cf_cuda, "riccati_kkt": rk,
+                          "stage_sweep": sk},
                          profile=(), cap_apart=False, nsim=HANDOFF_T, mhe=True,
-                         start=handoff_start(pool, cpu_refs, card_jobs), warmup=False)
+                         start=handoff_start(pool, cpu_refs, card_jobs, launches), warmup=False,
+                         **enmpc_kernels)
     phases = (("kernel", lambda: kernel_phase(dev, socp, results)),
               ("enmpc kernel", lambda: enmpc_kernel_phase(dev, eprob, results)),
               ("nmpc_dis kernel", lambda: nmpc_dis_kernel_phase(dev, dprob, results)),

@@ -26,7 +26,18 @@
 // - MPC_KIND_COLL: 2-point Gauss-Legendre collocation: MPC_NEWTON Newton
 //   steps on the stage states S = (s1, s2) on values, then one
 //   differentiable step around that root, then x + b~'(S - x).  S reaches
-//   the cost and the rows, so for this kind the step runs first.
+//   the cost and the rows, so for this kind the step runs first;
+// - MPC_KIND_MHE: the moving-horizon estimator's window, over the
+//   augmented state csi = [x; d] and the noise w as the input.  Structured
+//   stage n of a scenario reads window stage clip(n - 1, 0, N - 2) of the
+//   window planes (measured input, output, time, px, py, mask) and the
+//   scenario's x_bar, P_inv and smoothing-correction matrices, row-major,
+//   where it stands.  Stage 0 (the arrival stage) maps csi to its input; a
+//   pad stage (mask 0) carries csi; every other stage runs the MHE model:
+//   MPC_MX RK4 sub-steps of the model state's ODE (or its map, MPC_MHE_MAP)
+//   with d and w held, then Bd d, px, d carried and G w (mpc_terms).  The
+//   cost and the rows select between the arrival and the stage's terms
+//   themselves, both sides evaluated, as the plain version does.
 // With the u_prev augmentation (MPC_NUP = nu slots after the state) the
 // step copies u into those slots: dval's tail is u, A's u_prev columns and
 // rows are zero, B's tail an identity block scaled by su / sxa.  MPC_NS
@@ -119,11 +130,22 @@ constexpr int NPM = NZM * (NZM + 1) / 2;
 constexpr int OFF = NP - NPM;                // the step's block: the triangle's tail
 constexpr bool CF = MPC_KIND == MPC_KIND_CF;
 constexpr bool COLL = MPC_KIND == MPC_KIND_COLL;
+#if MPC_KIND == MPC_KIND_MHE
+constexpr int NXM = MPC_NXM;                 // the model's state; d follows it, held
+constexpr int NUM_A = MPC_NUM > 0 ? MPC_NUM : 1;
+constexpr int NYW_A = MPC_NYW > 0 ? MPC_NYW : 1;
+constexpr int NCORR_A = MPC_NCORR > 0 ? MPC_NCORR : 1;
+static_assert(NX == NUC && NPRE == 0, "the arrival stage maps the input onto the state");
+#endif
 // the step needs second-order tangents: for lam's terms, for ContForm's
 // quadrature, which is the cost, or for the collocation states the cost reads
 constexpr bool STEP2 = MPC_EXACT || CF || COLL;
 // running RK4 sums: the state's, and the quadrature's under ContForm
+#if MPC_KIND == MPC_KIND_MHE
+constexpr int NR = MPC_MHE_MAP ? 0 : NXM;
+#else
 constexpr int NR = (MPC_KIND == MPC_KIND_MAP || COLL) ? 0 : NX + (CF ? 1 : 0);
+#endif
 constexpr int NPX_A = MPC_NPX > 0 ? MPC_NPX : 1;
 constexpr int NPY_A = MPC_NPY > 0 ? MPC_NPY : 1;
 constexpr int ND_A = MPC_ND > 0 ? MPC_ND : 1;
@@ -225,12 +247,17 @@ template <class T, class V, int R, bool SMEM> struct Sum {
 // The kernel's operands.  Stage planes X (NXA, L), U (NU, L), lam (NXA, L),
 // nus (NI, L), px (NPX, L), py (NPY, L), muh (NEQ, L); stage 0's py (lane
 // b * N) is py0.  Per scenario: ts, sfs (B,), xs (NX, B), us (NUC, B), ds
-// (ND, B), um1 (NUC, B), lamy (NLAM, B).
+// (ND, B), um1 (NUC, B), lamy (NLAM, B).  An MHE window has X, U, lam, nus
+// and sfs of these, and window planes over Lw = B * (N - 1) lanes: um (NUM,
+// Lw), yw (NYW, Lw), tw (Lw), pxw (NPX, Lw), pyw (NPY, Lw), mask (Lw); per
+// scenario, row-major: xbar (B, NXA), pinv (B, NXA * NXA), obig (B, NCORR *
+// NXA), hbig (B, NCORR), pyc (B, NCORR * NCORR).
 template <class T> struct Operands {
   const T *X, *U, *lam, *nus, *px, *py, *muh, *ts, *sfs, *xs, *us, *ds, *um1, *lamy;
   T *H, *gc, *A, *B, *E, *ival, *dval, *Cz, *hval;
   long long L;
   int N, Bsz;
+  const T *um, *yw, *tw, *pxw, *pyw, *mask, *xbar, *pinv, *obig, *hbig, *pyc;
 };
 
 // One lane's point: z in user units and the parameters the stage
@@ -240,7 +267,25 @@ template <class T> struct Point {
       us[NUC_A], um1[NUC_A], lamy[NLAM_A];
   T t, sf;
   bool k0;
+#if MPC_KIND == MPC_KIND_MHE
+  // the window stage's measured input and output (t, px and py above are
+  // its time and parameters), its mask, the smoothing correction's first
+  // measurements, and the scenario's rows of the per-lane matrices
+  T um[NUM_A], yw[NYW_A], yc[NCORR_A];
+  bool mask;
+  const T *xbar, *pinv, *obig, *hbig, *pyc;
+#endif
 };
+
+// The point's arguments of the generated stage cost and rows after (xa, u).
+#if MPC_KIND == MPC_KIND_MHE
+#define MPC_POINT(S)                                                                      \
+  pt.um, pt.yw, pt.t, pt.py, pt.mask, pt.k0, pt.xbar, pt.pinv, pt.yc, pt.obig, pt.hbig, \
+      pt.pyc
+#else
+#define MPC_POINT(S) \
+  S, pt.t, pt.xs, pt.us, pt.d, pt.um1, pt.lamy, pt.py, pt.py0, pt.px, pt.k0
+#endif
 
 // The step from (x, u), in place on x: RK4 sub-steps of the guarded ODE,
 // the map, or ContForm's joint rollout with the quadrature in acc (the
@@ -256,7 +301,7 @@ __device__ __forceinline__ void step(VM* x, const VM* u, VM& acc, T t, const T* 
   mpc_map<VM, T>(x, u, d, t, px, xn);
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = xn[i];
-#elif MPC_KIND != MPC_KIND_COLL
+#elif MPC_KIND == MPC_KIND_RK4 || MPC_KIND == MPC_KIND_CF
   Sum<T, VM, NR, SMEM> ks(0);
   T tv = t;
   const T dt = T(MPC_DT), dt2 = T(MPC_DT2), dt6 = T(MPC_DT6);
@@ -290,6 +335,51 @@ __device__ __forceinline__ void step(VM* x, const VM* u, VM& acc, T t, const T* 
   }
 #endif
 }
+
+#if MPC_KIND == MPC_KIND_MHE
+// The MHE model's step from csi = [x; d] and the noise w, in place on csi:
+// RK4 sub-steps of the model state's guarded ODE with d and w held (ks the
+// running weighted sums ((k1 + 2 k2) + 2 k3) + k4, the association of the
+// plain version; xt the stage point, clipped in place, then its slope), or
+// the map; then the terms.
+template <class T, class VM, bool SMEM>
+__device__ __forceinline__ void mhe_step(VM* x, const VM* w, T t, const T* um, const T* px) {
+  const VM* d = x + NXM;
+#if MPC_MHE_MAP
+  VM xn[NXM];
+  mpc_map<VM, T>(x, t, w, d, um, px, xn);
+#pragma unroll
+  for (int i = 0; i < NXM; ++i) x[i] = xn[i];
+#else
+  Sum<T, VM, NXM, SMEM> ks(0);
+  T tv = t;
+  const T dt = T(MPC_DT), dt2 = T(MPC_DT2), dt6 = T(MPC_DT6);
+  for (int s = 0; s < MPC_MX; ++s) {
+    VM xt[NXM], k[NXM];
+#pragma unroll
+    for (int i = 0; i < NXM; ++i) xt[i] = x[i];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const T tr = r == 0 ? tv : (r == 3 ? tv + dt : tv + dt2);
+      mpc_clip<VM, T>(xt, xt);
+      mpc_rhs<VM, T>(xt, tr, w, d, um, px, k);
+#pragma unroll
+      for (int i = 0; i < NXM; ++i) {
+        if (r == 0) ks.set(i, k[i]);
+        else if (r < 3) ks.add(i, T(2) * k[i]);
+        if (r < 3) xt[i] = x[i] + (r < 2 ? dt2 : dt) * k[i];
+        else x[i] = x[i] + dt6 * (ks.get(i) + k[i]);
+      }
+    }
+    tv = tv + dt;
+  }
+#endif
+  VM xa[NX];
+  mpc_terms<VM, T>(x, d, w, px, xa);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xa[i];
+}
+#endif
 
 #if MPC_KIND == MPC_KIND_COLL
 constexpr int NC = 2 * NX;                   // the stage states S = (s1, s2)
@@ -577,8 +667,7 @@ __device__ __forceinline__ void cost_rows(const Operands<T>& o, long long l, con
 #if MPC_HAS_COST
   // the stage cost: gc, and the first term of H
   V c[1];
-  mpc_cost<V, T>(xa, u, S, pt.t, pt.xs, pt.us, pt.d, pt.um1, pt.lamy, pt.py, pt.py0, pt.px,
-                 pt.k0, c);
+  mpc_cost<V, T>(xa, u, MPC_POINT(S), c);
   if (first) {
 #pragma unroll
     for (int q = 0; q < NZ; ++q) o.gc[l * NZ + ext(q)] = pt.sf * c[0].d[q];
@@ -594,8 +683,7 @@ __device__ __forceinline__ void cost_rows(const Operands<T>& o, long long l, con
     // the inequality rows over their scales: ival, E and their H term
     const double si[NI] = MPC_SI;
     V g[NI];
-    mpc_ineq<V, T>(xa, u, S, pt.t, pt.xs, pt.us, pt.d, pt.um1, pt.lamy, pt.py, pt.py0, pt.px,
-                   pt.k0, g);
+    mpc_ineq<V, T>(xa, u, MPC_POINT(S), g);
 #pragma unroll
     for (int k = 0; k < NI; ++k) {
       const T w = T(1.0 / si[k]);
@@ -616,8 +704,7 @@ __device__ __forceinline__ void cost_rows(const Operands<T>& o, long long l, con
   {
     // the equality rows: hval, Cz and their H term
     V e[NEQ];
-    mpc_eq<V, T>(xa, u, S, pt.t, pt.xs, pt.us, pt.d, pt.um1, pt.lamy, pt.py, pt.py0, pt.px,
-                 pt.k0, e);
+    mpc_eq<V, T>(xa, u, MPC_POINT(S), e);
 #pragma unroll
     for (int k = 0; k < NEQ; ++k) {
       if (first) {
@@ -656,6 +743,32 @@ __device__ __forceinline__ void lane_sweep(const Operands<T>& o, long long l) {
   for (int i = 0; i < NXA; ++i) pt.xv[i] = o.X[i * L + l] * T(sxa[i]);
 #pragma unroll
   for (int i = 0; i < NU; ++i) pt.uv[i] = o.U[i * L + l] * T(su[i]);
+#if MPC_KIND == MPC_KIND_MHE
+  {
+    // window stage clip(n - 1, 0, N - 2) of the scenario's N - 1
+    const int nw = o.N - 1, n = (int)(l - l0);
+    const long long Lw = (long long)Bsz * nw, b0 = (long long)b * nw;
+    const long long lw = b0 + (n < 1 ? 0 : (n - 1 < nw - 1 ? n - 1 : nw - 1));
+#pragma unroll
+    for (int i = 0; i < MPC_NUM; ++i) pt.um[i] = o.um[i * Lw + lw];
+#pragma unroll
+    for (int i = 0; i < MPC_NYW; ++i) pt.yw[i] = o.yw[i * Lw + lw];
+#pragma unroll
+    for (int i = 0; i < MPC_NPX; ++i) pt.px[i] = o.pxw[i * Lw + lw];
+#pragma unroll
+    for (int i = 0; i < MPC_NPY; ++i) pt.py[i] = o.pyw[i * Lw + lw];
+    pt.t = o.tw[lw];
+    pt.mask = o.mask[lw] != T(0);
+    // the correction's measurements: the first NCORR / NYW window stages'
+#pragma unroll
+    for (int k = 0; k < MPC_NCORR; ++k) pt.yc[k] = o.yw[(k % NYW_A) * Lw + b0 + k / NYW_A];
+    pt.xbar = o.xbar + (long long)b * NXA;
+    pt.pinv = o.pinv + (long long)b * NXA * NXA;
+    pt.obig = o.obig + (long long)b * MPC_NCORR * NXA;
+    pt.hbig = o.hbig + (long long)b * MPC_NCORR;
+    pt.pyc = o.pyc + (long long)b * MPC_NCORR * MPC_NCORR;
+  }
+#else
 #pragma unroll
   for (int i = 0; i < MPC_NPX; ++i) {
     pt.px[i] = o.px[i * L + l];
@@ -678,6 +791,7 @@ __device__ __forceinline__ void lane_sweep(const Operands<T>& o, long long l) {
 #pragma unroll
   for (int i = 0; i < MPC_NLAM; ++i) pt.lamy[i] = o.lamy[(long long)i * Bsz + b];
   pt.t = o.ts[b];
+#endif
   pt.sf = o.sfs[b];
 
   // H's accumulator, after the running sums in shared memory
@@ -713,6 +827,14 @@ __device__ __forceinline__ void lane_sweep(const Operands<T>& o, long long l) {
       for (int q = 0; q < SS::N; ++q) Sz[m].h[SS::A - H0 + q] = S[m].h[q];
     }
     cost_rows<T, V, Vals<T, HN, SMEM>, HN>(o, l, pt, Sz, hacc, FIRST);
+  }
+#elif MPC_KIND == MPC_KIND_MHE
+  // the arrival stage's map is its input; a pad stage carries the state
+  if (pt.k0) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = u[i];
+  } else if (pt.mask) {
+    mhe_step<T, VM, SMEM>(x, u, pt.t, pt.um, pt.px);
   }
 #else
   step<T, VM, SMEM>(x, u, acc, pt.t, pt.d, pt.px, pt.xs, pt.us, pt.py);
@@ -838,26 +960,16 @@ constexpr int smem_bytes() {
 }
 
 template <class T>
-int launch(const void* X, const void* U, const void* lam, const void* nus,
-           const void* px, const void* py, const void* muh, const void* ts,
-           const void* sfs, const void* xs, const void* us, const void* ds,
-           const void* um1, const void* lamy, void* H, void* gc, void* A, void* B,
-           void* E, void* ival, void* dval, void* Cz, void* hval, long long L, int N,
-           int Bsz, void* stream) {
-  if (L <= 0) return 0;
+int launch(const Operands<T>& o, void* stream) {
+  if (o.L <= 0) return 0;
   constexpr int smem = smem_bytes<T>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         stage_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const Operands<T> o{(const T*)X, (const T*)U, (const T*)lam, (const T*)nus,
-                      (const T*)px, (const T*)py, (const T*)muh, (const T*)ts,
-                      (const T*)sfs, (const T*)xs, (const T*)us, (const T*)ds,
-                      (const T*)um1, (const T*)lamy, (T*)H, (T*)gc, (T*)A, (T*)B, (T*)E,
-                      (T*)ival, (T*)dval, (T*)Cz, (T*)hval, L, N, Bsz};
   const long long lanes = THREADS / Layout<T>::SPLIT;
-  const long long blocks = (L + lanes - 1) / lanes;
+  const long long blocks = (o.L + lanes - 1) / lanes;
   stage_sweep_kernel<T><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(o);
   return (int)cudaGetLastError();
 }
@@ -866,6 +978,28 @@ int launch(const void* X, const void* U, const void* lam, const void* nus,
 
 // MPC_DTYPE_BITS (a -D of the build), 32 or 64: that dtype's launcher
 // alone, so that the two compile in nvcc runs of their own; both without.
+#if MPC_KIND == MPC_KIND_MHE
+#define MPC_LAUNCHER(NAME, T)                                                              \
+  extern "C" int NAME(const void* X, const void* U, const void* lam, const void* nus,     \
+                      const void* um, const void* yw, const void* tw, const void* pxw,    \
+                      const void* pyw, const void* mask, const void* sfs,                 \
+                      const void* xbar, const void* pinv, const void* obig,               \
+                      const void* hbig, const void* pyc, void* H, void* gc, void* A,      \
+                      void* B, void* E, void* ival, void* dval, void* Cz, void* hval,     \
+                      long long L, int N, int Bsz, void* stream) {                        \
+    Operands<T> o{};                                                                      \
+    o.X = (const T*)X; o.U = (const T*)U; o.lam = (const T*)lam; o.nus = (const T*)nus;   \
+    o.sfs = (const T*)sfs;                                                                \
+    o.H = (T*)H; o.gc = (T*)gc; o.A = (T*)A; o.B = (T*)B; o.E = (T*)E;                    \
+    o.ival = (T*)ival; o.dval = (T*)dval; o.Cz = (T*)Cz; o.hval = (T*)hval;               \
+    o.L = L; o.N = N; o.Bsz = Bsz;                                                        \
+    o.um = (const T*)um; o.yw = (const T*)yw; o.tw = (const T*)tw;                        \
+    o.pxw = (const T*)pxw; o.pyw = (const T*)pyw; o.mask = (const T*)mask;                \
+    o.xbar = (const T*)xbar; o.pinv = (const T*)pinv; o.obig = (const T*)obig;            \
+    o.hbig = (const T*)hbig; o.pyc = (const T*)pyc;                                       \
+    return N < 2 ? (int)cudaErrorInvalidValue : launch<T>(o, stream);                     \
+  }
+#else
 #define MPC_LAUNCHER(NAME, T)                                                              \
   extern "C" int NAME(const void* X, const void* U, const void* lam, const void* nus,     \
                       const void* px, const void* py, const void* muh, const void* ts,    \
@@ -873,9 +1007,14 @@ int launch(const void* X, const void* U, const void* lam, const void* nus,
                       const void* um1, const void* lamy, void* H, void* gc, void* A,      \
                       void* B, void* E, void* ival, void* dval, void* Cz, void* hval,     \
                       long long L, int N, int Bsz, void* stream) {                        \
-    return launch<T>(X, U, lam, nus, px, py, muh, ts, sfs, xs, us, ds, um1, lamy, H, gc, \
-                     A, B, E, ival, dval, Cz, hval, L, N, Bsz, stream);                    \
+    const Operands<T> o{(const T*)X, (const T*)U, (const T*)lam, (const T*)nus,           \
+                        (const T*)px, (const T*)py, (const T*)muh, (const T*)ts,          \
+                        (const T*)sfs, (const T*)xs, (const T*)us, (const T*)ds,          \
+                        (const T*)um1, (const T*)lamy, (T*)H, (T*)gc, (T*)A, (T*)B,       \
+                        (T*)E, (T*)ival, (T*)dval, (T*)Cz, (T*)hval, L, N, Bsz};          \
+    return launch<T>(o, stream);                                                          \
   }
+#endif
 #if !defined(MPC_DTYPE_BITS) || MPC_DTYPE_BITS == 32
 MPC_LAUNCHER(stage_sweep_f32, float)
 #endif

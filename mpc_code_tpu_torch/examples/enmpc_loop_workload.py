@@ -7,9 +7,9 @@ N=25, h=2.0, RK4 with Mx=10, the output-disturbance model, the ContForm
 economic OCP by the structured IPM under Gauss-Newton (kernel 4 and the
 Riccati KKT kernel once a pass), the economic target by the dense IPM, the
 MHE with N_mhe=10 and the 'smooth' arrival-cost update, its window solved
-by the structured IPM (the Riccati KKT kernel once a pass at (N, nxa, nu)
-= (11, 4, 4), every stage derivative by ``torch.func`` through the MHE
-model's RK4 at Mx_mhe=10), and the RK4 plant.  The solver options are the
+by the structured IPM (the fused stage sweep, kernel 5, and the Riccati
+KKT kernel once a pass at (N, nxa, nu) = (11, 4, 4), the stage derivatives
+through the MHE model's RK4 at Mx_mhe=10), and the RK4 plant.  The solver options are the
 tool's on a chip (``tools/enmpc_onchip_bench.py:50-59``):
 ``SolverOptions.for_f32()`` for the target and the MHE,
 ``for_f32(hessian="gauss_newton")`` for the OCP; every solve runs in the
@@ -82,9 +82,10 @@ def make_step(cfg, device=None):
     return make_mpc_step(cfg, device=device)
 
 
-def mhe_ocp(cfg, device=None):
+def mhe_ocp(cfg, device=None, maskable=True):
     """The structured MHE problem of the loop's estimator (its shapes: N
-    = N_mhe + 1, nxa = nu = nx + nd), as ``make_mhe_traced`` builds it."""
+    = N_mhe + 1, nxa = nu = nx + nd), as ``make_mhe_traced`` builds it;
+    with ``maskable`` False the host MHE's full window (``MHERuntime``)."""
     from mpc_code_tpu_torch.estimators.linear import build_augmented
     from mpc_code_tpu_torch.models import build_mhe_cost, build_mhe_model, build_model
     from mpc_code_tpu_torch.ocp.mhe import build_structured_mhe
@@ -94,7 +95,7 @@ def mhe_ocp(cfg, device=None):
     socp, _ = build_structured_mhe(cfg, build_mhe_model(cfg, model),
                                    build_augmented(cfg, model).fy,
                                    build_mhe_cost(cfg.estimator.mhe_cost), N, N,
-                                   maskable=True, device=device)
+                                   maskable=maskable, device=device)
     return socp
 
 

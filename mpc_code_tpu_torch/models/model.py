@@ -25,7 +25,7 @@ from StateFeedback, ``Cp`` or the user's ``fy``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -218,6 +218,92 @@ def build_plant(cfg: MPCConfig, model: ModelFns) -> PlantFns:
     return PlantFns(fx=fxp, fy=fyp, nominal=False)
 
 
+class MHEStep(NamedTuple):
+    """The MHE model's map over csi = [x; d] (nx + nd) and the noise w in
+    its raw parts, which ``build_mhe_model`` composes in torch and the
+    fused stage sweep (``solver/sweep_kernel.py``) lowers: ``fn(x, t, w, d,
+    u, px)`` is the model state's ODE (``kind`` "rk4": ``Mx`` RK4 sub-steps
+    over the interval, on the state clipped to ``clip_lo``/``clip_hi``) or
+    its one-step map (``kind`` "map"), with x, w and d carrying tangents
+    and the measured input u and px data; ``terms`` then adds ``Bd d``
+    (``Bd`` None unless it is added outside ``fn``) and ``px`` on the
+    state's rows (where ``lin_par``), carries d and adds ``G w``."""
+    kind: str
+    fn: Callable
+    Mx: int
+    clip_lo: Optional[np.ndarray]
+    clip_hi: Optional[np.ndarray]
+    Bd: Optional[np.ndarray]
+    lin_par: bool
+    G: np.ndarray
+    nx: int
+    nd: int
+
+    def terms(self) -> Callable:
+        """``terms(x, d, w, px) -> csi_next`` from the state's step x."""
+        Bd, G, lin_par = _mat(self.Bd), _mat(self.G), self.lin_par
+
+        def terms(x, d, w, px):
+            if Bd is not None:
+                x = x + Bd.to(x) @ d                           # Utilities.py:804-808
+            if lin_par:
+                x = x + px
+            return torch.cat([x, d]) + G.to(x) @ w             # Utilities.py:813-821
+
+        return terms
+
+
+def mhe_step(cfg: MPCConfig, model: ModelFns) -> MHEStep:
+    """The raw parts of the MHE model: the dedicated MHE map
+    (``fx_mhe_cont`` by RK4 with ``Mx_mhe`` sub-steps, no guard, or
+    ``fx_mhe_dis``), else the controller model (a ContinuousModel's guarded
+    RK4, a DiscreteModel's map, or a LinearModel's affine step, which adds
+    its own ``Bd d`` and ``px``)."""
+    nx, nd, est, m = cfg.nx, cfg.nd, cfg.estimator, cfg.model
+    G = (np.eye(nx + nd) if est.G_mhe is None
+         else np.asarray(est.G_mhe, float).reshape(nx + nd, -1))
+    lin = cfg.dist.offree == "lin"
+    Bd = np.asarray(cfg.dist.Bd, float).reshape(nx, nd) if lin and nd else None
+    common = dict(clip_lo=None, clip_hi=None, Bd=Bd, lin_par=cfg.LinPar, G=G, nx=nx, nd=nd)
+    if est.fx_mhe_cont is not None:
+        user_fc = est.fx_mhe_cont
+
+        def ode(x, t, w, d, u, px):
+            return user_fc(x, u, d, t, px, w)                  # Utilities.py:746-762
+
+        return MHEStep(kind="rk4", fn=ode, Mx=int(est.Mx_mhe), **common)
+    if est.fx_mhe_dis is not None:
+        user_fd = est.fx_mhe_dis
+
+        def fmap(x, t, w, d, u, px):
+            return user_fd(x, u, d, t, px, w)                  # Utilities.py:776-780
+
+        return MHEStep(kind="map", fn=fmap, Mx=1, **common)
+    # the controller model augmented as the main loop does for the other
+    # estimators (MPC_code.py:546-558)
+    if isinstance(m, ContinuousModel):
+        user_fx = m.fx
+
+        def ode(x, t, w, d, u, px):
+            return user_fx(x, u, d, t, px)
+
+        return MHEStep(kind="rk4", fn=ode, Mx=int(m.Mx),
+                       **dict(common, clip_lo=m.clip_lo, clip_hi=m.clip_hi))
+    if isinstance(m, DiscreteModel):
+        user_map = m.Fx
+
+        def fmap(x, t, w, d, u, px):
+            return user_map(x, u, d, t, px)
+
+        return MHEStep(kind="map", fn=fmap, Mx=1, **common)
+    lin_fx, h = model.fx, cfg.h
+
+    def fmap(x, t, w, d, u, px):
+        return lin_fx(x, u, h, d, t, px)
+
+    return MHEStep(kind="map", fn=fmap, Mx=1, **dict(common, Bd=None, lin_par=False))
+
+
 def build_mhe_model(cfg: MPCConfig, model: ModelFns) -> Callable:
     """Augmented-state MHE dynamics ``Fx_mhe(csi, u, k, t, w, px) -> csi_next``
     over csi = [x; d], with the process noise w entering through G
@@ -227,47 +313,25 @@ def build_mhe_model(cfg: MPCConfig, model: ModelFns) -> Callable:
     sub-steps, or ``fx_mhe_dis``) is used when the config gives one, with
     ``+ Bd d`` under offree='lin', d carried constant, ``+ G w`` and the
     LinPar term; otherwise the controller model is augmented as the main
-    loop does for the other estimators (MPC_code.py:546-558), plus ``G w``."""
-    nx, nd = cfg.nx, cfg.nd
-    est = cfg.estimator
-    lin = cfg.dist.offree == "lin"
-    lin_par = cfg.LinPar
-    G = torch.eye(nx + nd, dtype=torch.float64) if est.G_mhe is None else _mat(est.G_mhe)
-    Bd = _mat(cfg.dist.Bd)
-
-    if est.fx_mhe_cont is not None:
-        user_fc = est.fx_mhe_cont
-        integ = rk4(lambda xx, tt, uu, dd, pp, ww: user_fc(xx, uu, dd, tt, pp, ww),
-                    est.Mx_mhe)
+    loop does for the other estimators (MPC_code.py:546-558), plus ``G w``.
+    The map is composed from ``mhe_step``'s parts, which it carries as
+    ``.step``: the fused stage sweep lowers the same parts."""
+    st = mhe_step(cfg, model)
+    nx, fn, terms = st.nx, st.fn, st.terms()
+    if st.kind == "rk4":
+        lo, hi = st.clip_lo, st.clip_hi
+        integ = rk4(lambda xx, tt, uu, dd, pp, ww: fn(saturate(xx, lo, hi), tt, ww, dd, uu, pp),
+                    st.Mx)
 
         def core(x, u, k, d, t, px, w):
-            return integ(x, t, k, u, d, px, w)                 # Utilities.py:746-762
-
-    elif est.fx_mhe_dis is not None:
-        user_fd = est.fx_mhe_dis
-
-        def core(x, u, k, d, t, px, w):
-            return user_fd(x, u, d, t, px, w)                  # Utilities.py:776-780
-
-    if est.fx_mhe_cont is not None or est.fx_mhe_dis is not None:
-
-        def fx_mhe(csi, u, k, t, w, px):
-            x1, d1 = csi[:nx], csi[nx : nx + nd]
-            xn = core(x1, u, k, d1, t, px, w)
-            if lin:
-                xn = xn + Bd.to(xn) @ d1                       # Utilities.py:804-808
-            out = torch.cat([xn, d1]) + G.to(xn) @ w           # Utilities.py:813-821
-            if lin_par:
-                out = out + torch.cat([px, out.new_zeros(nd)])
-            return out
-
+            return integ(x, t, k, u, d, px, w)
     else:
-        def fx_mhe(csi, u, k, t, w, px):
-            if nd > 0:
-                x1, d1 = csi[:nx], csi[nx : nx + nd]
-                out = torch.cat([model.fx(x1, u, k, d1, t, px), d1])
-            else:
-                out = model.fx(csi, u, k, csi.new_zeros(0), t, px)
-            return out + G.to(out) @ w
+        def core(x, u, k, d, t, px, w):
+            return fn(x, t, w, d, u, px)
 
+    def fx_mhe(csi, u, k, t, w, px):
+        x1, d1 = csi[:nx], csi[nx:]
+        return terms(core(x1, u, k, d1, t, px, w), d1, w, px)
+
+    fx_mhe.step = st
     return fx_mhe

@@ -18,11 +18,14 @@ Two forms of the same problem:
   stage) point; the solver reads the MHE's parameter dict through the
   OCP's ``params`` hook (``_mhe_params`` here), which indexes the window
   stage ``clip(k-1, 0, N-1)`` of structured stage k once per solve, where
-  the JAX stage functions index the whole pytree with ``k``.  There is no
-  sweep kernel and no lowering: the solver takes every stage derivative
-  from ``torch.func`` (its generic route) and runs the Riccati KKT kernel
-  once a pass, as JAX takes ``jax.hessian``/``jacfwd`` under vmap outside
-  any Pallas kernel.
+  the JAX stage functions index the whole pytree with ``k``.  The window
+  carries a ``WindowLowering``: its raw stage cost and rows in the form the
+  code generator lowers, and the parts ``build_mhe_model``'s map is
+  composed of (``models/model.py::MHEStep``), so the solver takes every
+  stage derivative from the fused stage sweep (``solver/sweep_kernel.py``,
+  kernel 5 on the card) under both Hessians, as JAX's opt-in route wraps
+  the window in ``make_stage_sweep``, and runs the Riccati KKT kernel once
+  a pass.  The torch stage functions here stay the plain version's.
 
 ``smooth_correction`` (the reference's intended smoothing-update term,
 Utilities.py:948-952, which its main loop never reaches) and ``maskable`` (a
@@ -33,7 +36,7 @@ problem in one fixed shape) are as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from torch.func import vmap
 
 from mpc_code_tpu_torch.config import MPCConfig
 from mpc_code_tpu_torch.device import resolve_device
+from mpc_code_tpu_torch.models.model import MHEStep
 from mpc_code_tpu_torch.solver.nlp import IPMResult, NLP, STATUS_INFEASIBLE
 
 # per-lane rank of each entry of the MHE's parameter dict
@@ -176,6 +180,38 @@ def build_mhe_nlp(cfg: MPCConfig, fx_mhe: Callable, fy_es: Callable,
 # ----------------------------------------------------------------------
 
 
+# the per-point arguments of the window's lowered stage cost and rows after
+# (xa, u): the point's window stage's measured input, output, time, output
+# parameters and mask, the stage-0 flag, the lane's x_bar and P_inv, and the
+# smoothing correction's measurements Yc, Obig, Hbig and Pycondx_inv
+WINDOW_ARGS = ("um", "y", "tw", "pyw", "mask", "k0", "x_bar", "P_inv", "Yc", "Obig",
+               "Hbig", "Pyc")
+
+
+class WindowLowering(NamedTuple):
+    """The MHE window in the form the fused stage sweep
+    (``solver/sweep_kernel.py``) lowers to CUDA: ``step``, the MHE model's
+    map over the interval ``h`` (``models/model.py::MHEStep``), the raw
+    stage cost ``cost`` and rows ``ineq`` (None when ni = 0) as ``f(xa, u,
+    *WINDOW_ARGS)``, in the operations the code generator takes, with both
+    sides of every selection evaluated as in the torch functions; the
+    widths: the augmented state n (the noise's too), the measured input m,
+    the output p, px and py, and the correction's ``n_corr`` measurements
+    (its first ``corr_idx`` window stages' outputs; 0 without it)."""
+    step: MHEStep
+    h: float
+    cost: Callable
+    ineq: Optional[Callable]
+    n: int
+    m: int
+    p: int
+    npx: int
+    npy: int
+    n_corr: int
+    maskable: bool
+    kind: str = "mhe"
+
+
 def _mhe_params(N: int, corr_idx: int):
     """The MHE's ``ParamHook``: per-point dicts for structured stage k of
     window stage ``clip(k-1, 0, N-1)`` (stage 0 is the arrival stage), the
@@ -215,7 +251,12 @@ def build_structured_mhe(cfg: MPCConfig, fx_mhe: Callable, fy_es: Callable,
                          smooth_correction: bool = False,
                          maskable: bool = False, device=None):
     """Map the MHE NLP onto the stagewise ``StructuredOCP`` form (JAX
-    ``ocp/mhe.py:170-392``), on ``device`` (default ``cuda``).
+    ``ocp/mhe.py:170-392``), on ``device`` (default ``cuda``).  ``fx_mhe``,
+    ``fy_es`` and ``f_obj_mhe`` are the maps ``build_mhe_model``,
+    ``build_augmented`` and ``build_mhe_cost`` build from ``cfg``; the
+    window's ``WindowLowering`` takes its step from ``fx_mhe.step``, the
+    parts ``build_mhe_model`` composed it of, and a map without them is
+    refused.
 
     Structured horizon N_s = N + 1.  z_0 is pinned to x_bar; stage 0's
     control is the free initial window state x_0 (dynamics z_1 = u_0, cost
@@ -233,7 +274,7 @@ def build_structured_mhe(cfg: MPCConfig, fx_mhe: Callable, fy_es: Callable,
 
     Returns ``(socp, meta)``; ``meta`` holds the layout constants and
     ``v_of``."""
-    from mpc_code_tpu_torch.solver.riccati import StructuredOCP
+    from mpc_code_tpu_torch.solver.riccati import StructuredOCP, _point_fn
 
     dev = resolve_device(device)
     p = cfg.ny
@@ -312,6 +353,54 @@ def build_structured_mhe(cfg: MPCConfig, fx_mhe: Callable, fy_es: Callable,
     ubi = np.concatenate(rows_hi) if row_fns else np.zeros(0)
     ni = int(lbi.shape[0])
 
+    # the same cost and rows in the operations the code generator lowers
+    # (WindowLowering): the selections by the mask and the stage-0 flag as
+    # torch.where of the two sides, the pads as constant tensors
+    pads = {}
+    if not y_free:
+        pads["y"] = torch.as_tensor(y_pad)
+    if v_box:
+        pads["v"] = torch.as_tensor(v_pad)
+    if w_box:
+        pads["w"] = torch.as_tensor(w_pad)
+
+    def low_cost(z, u, pk):
+        du0 = u - pk["x_bar"]
+        arrival = 0.5 * du0 @ (pk["P_inv"] @ du0)
+        if corr:
+            yes = pk["Yc"] - pk["Obig"] @ u - pk["Hbig"]
+            arrival = arrival - 0.5 * yes @ (pk["Pyc"] @ yes)
+        v = pk["y"] - fy_es(z, pk["um"], pk["tw"], pk["pyw"])
+        if maskable:
+            v = torch.where(pk["mask"], v, 0.0)
+        return torch.where(pk["k0"], arrival, f_obj_mhe(u, v, pk["tw"]))
+
+    def low_rows(z, u, pk):
+        def live(a, pad):
+            if maskable:
+                a = torch.where(pk["mask"], a, pad)
+            return torch.where(pk["k0"], pad, a)
+
+        parts = []
+        if not y_free:
+            parts.append(live(pk["y"], pads["y"]))
+        if v_box:
+            parts.append(live(pk["y"] - fy_es(z, pk["um"], pk["tw"], pk["pyw"]), pads["v"]))
+        if w_box:
+            parts.append(torch.where(pk["k0"], pads["w"], u))
+        return torch.cat(parts)
+
+    step = getattr(fx_mhe, "step", None)
+    if not isinstance(step, MHEStep):
+        raise TypeError("fx_mhe must be build_mhe_model's map: the window's sweep lowers "
+                        "the parts it carries as fx_mhe.step")
+    lowering = WindowLowering(
+        step=step, h=float(h),
+        cost=_point_fn(low_cost, WINDOW_ARGS),
+        ineq=_point_fn(low_rows, WINDOW_ARGS) if ni else None,
+        n=n, m=cfg.nu, p=p, npx=cfg.npx, npy=cfg.npy, n_corr=idx * p if corr else 0,
+        maskable=maskable)
+
     # per-variable scales from the state box (as build_structured_ocp);
     # the noise control shares the state scale
     def _scales(lo, hi):
@@ -345,7 +434,7 @@ def build_structured_mhe(cfg: MPCConfig, fx_mhe: Callable, fy_es: Callable,
         lbx=xmin_mhe / sxa, ubx=xmax_mhe / sxa,
         lbu=np.full(n_w, -np.inf), ubu=np.full(n_w, np.inf),
         x0_of_p=x0_s, sxa=sxa, su=su, si=si, stage_dyn_jac=None, device=dev,
-        dyn=dyn_s, params=_mhe_params(N, idx if corr else 0))
+        dyn=dyn_s, params=_mhe_params(N, idx if corr else 0), lowering=lowering)
     meta = dict(N=N, n=n, n_w=n_w, p=p, nxv=n + p, nxvw=n + p + n_w,
                 maskable=maskable, v_of=v_of)
     return socp, meta

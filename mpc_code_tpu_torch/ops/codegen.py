@@ -49,7 +49,8 @@ nz(nz+1)/2 second-order tangents (``order=2``): the bound of a sweep
 kernel comes from it.  An elementary function's value counts as one
 operation, as a division does, whatever its libm routine costs, so the
 bound stays a lower bound; its derivative rule counts its multiplies and
-adds (``FUNCTIONS``).
+adds (``FUNCTIONS``).  ``Program.reads`` names the inputs the kept
+statements read.
 """
 
 from __future__ import annotations
@@ -576,6 +577,10 @@ class Program:
                 live.update(_VAR.findall(st.expr))
         keep.reverse()
         self.ops = sum(st.ops for st in keep)
+        # the inputs the kept statements and the outputs read
+        text = " ".join([st.expr for st in keep] + self.out)
+        self.reads = frozenset(a.name for a in self.args
+                               if re.search(rf"(?<![\w.]){re.escape(a.name)}\b", text))
         self.lines = [f"  auto {st.name} = {st.expr};" for st in keep]
         self.lines += [f"  out[{i}] = {e};" for i, e in enumerate(self.out)]
 

@@ -61,6 +61,10 @@ class LaneSweep:
     def __init__(self):
         self._libs = {}
 
+    def input_names(self) -> tuple:
+        """The inputs, in the launcher's order."""
+        return self.stage_inputs + self.scalar_inputs + self.scenario_inputs
+
     def __call__(self, *args):
         if args[0].device.type == "cpu":
             return self.plain(*args)
@@ -77,8 +81,7 @@ class LaneSweep:
 
             built = build(self.kernel, self.kernel + ".cu",
                           generated={self.header: self.source(*dims)})
-            n_in = (len(self.stage_inputs) + len(self.scalar_inputs)
-                    + len(self.scenario_inputs))
+            n_in = len(self.input_names())
             if self.in_place:
                 args = ([ctypes.c_void_p] * (n_in + len(self.out_dims(*dims)))
                         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
@@ -98,7 +101,7 @@ class LaneSweep:
     def check(self, *args):
         """The inputs by name, B, N and the build key.  Raises on a bad
         device, dtype or shape."""
-        names = self.stage_inputs + self.scalar_inputs + self.scenario_inputs
+        names = self.input_names()
         if len(args) != len(names):
             raise TypeError(f"{self.kernel} takes {names}, got {len(args)} inputs")
         named = dict(zip(names, args))

@@ -44,12 +44,12 @@ gradient and Hessian), or the fused generic stage-derivative sweep
 pass) wherever JAX's fast sweep is off: under the exact Hessian on every
 form, and under either Hessian on the forms without a split sweep (a
 ``LinearModel``, whose affine step it lowers as a map, a collocated OCP,
-ContForm with slacks); and the Riccati KKT solve
+ContForm with slacks, the MHE's window); and the Riccati KKT solve
 (``solver/riccati_kernel.py``).  Every form ``build_structured_ocp``
 builds has the fused sweep's lowering (``StageLowering``), with the
-shared slacks and the user rows (G_ineq, H_eq); only an OCP built
-elsewhere without one (the MHE's window, ``ocp/mhe.py``) takes its stage
-derivatives from ``make_stage_derivs`` by ``torch.func``.  With TermCons
+shared slacks and the user rows (G_ineq, H_eq), and so has the MHE's
+window (``ocp/mhe.py::WindowLowering``); the solver refuses an OCP with
+neither a split sweep nor a lowering.  With TermCons
 or H_eq the KKT solve is the bordered recursion ``riccati_bordered``,
 and under ``parallel=True`` the associative scan ``riccati_parallel``,
 both in plain PyTorch as JAX has no Pallas kernel for them.  The line
@@ -1250,17 +1250,17 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
     # torch.func; ContForm's joint sweep also gives the stage cost's value,
     # gradient and Hessian (JAX fast_cf).  Everything else with a lowering
     # (every form build_structured_ocp builds: the exact Hessian, and under
-    # Gauss-Newton a LinearModel, a collocated OCP and ContForm with slacks)
-    # takes every output from the fused stage sweep, with the iterate's
-    # multipliers (JAX make_stage_sweep, riccati.py:1394-1398); the card has
-    # no other path for it, so it always launches its kernel there.  An OCP
-    # without a lowering (the MHE's window) takes make_stage_derivs vmapped
-    # over the B*N points.  Under Gauss-Newton impl='fused' takes the fused
-    # stage sweep's Gauss-Newton build in place of the split sweep.
+    # Gauss-Newton a LinearModel, a collocated OCP and ContForm with slacks;
+    # and the MHE's window under both, as JAX's opt-in route wraps every
+    # OCP without a split sweep) takes every output from the fused stage
+    # sweep, with the iterate's multipliers (JAX make_stage_sweep,
+    # riccati.py:1394-1398); the card has no other path for it, so it
+    # always launches its kernel there.  Under Gauss-Newton impl='fused'
+    # takes the fused stage sweep's Gauss-Newton build in place of the
+    # split sweep.
     fast_cf = s.stage_cf is not None and not exact
     split = ((s.stage_dyn_jac is not None and not exact) or fast_cf) and impl == "split"
-    fused = None
-    v_stage = v_full = None
+    fused = v_stage = None
     if split:
         if ni or eqcons or not fast_cf:
             v_stage = vmap(make_stage_derivs(s, "gauss_newton", skip_dyn=True,
@@ -1270,7 +1270,8 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
 
         fused = make_stage_sweep(s, opts.hessian)
     else:
-        v_full = vmap(make_stage_derivs(s, opts.hessian))
+        raise ValueError("an OCP without a split sweep needs the fused stage sweep's "
+                         "lowering (StructuredOCP.lowering)")
 
     def _cstage(zz, pk):
         return pk["_sf"] * s.cost(zz[:nxa], zz[nxa:], pk)
@@ -1475,17 +1476,6 @@ def make_structured_solver(s: StructuredOCP, opts: SolverOptions = SolverOptions
                 mu_h = st["mu_h"] if eqcons else torch.zeros((Bsz, N, 0), **kw)
                 return fused(*fused.inputs(X[:, :N], U, p, st["lam"], st["nus"], mu_h)) + (None,)
             Zs = torch.cat([X[:, :N], U], dim=-1).reshape(L, nz)
-            if v_full is not None:
-                mu_arg = (st["mu_h"].reshape(L, n_eq),) if eqcons else ()
-                out = v_full(Zs, pk, st["lam"].reshape(L, nxa), st["nus"].reshape(L, ni),
-                             *mu_arg)
-                # A and B are column blocks of one Jacobian: copied out, as
-                # the Riccati kernel reads contiguous (B, N, ...) tensors (F11)
-                shapes = ((nz, nz), (nz,), (nxa, nxa), (nxa, nu), (ni, nz), (ni,), (nxa,),
-                          (n_eq, nz), (n_eq,))
-                out = tuple(o.reshape((Bsz, N) + sh).contiguous()
-                            for o, sh in zip(out, shapes))
-                return out + (() if eqcons else no_eq) + (None,)
             derivs = v_stage(Zs, pk) if v_stage is not None else ()
             qv = None
             if fast_cf:

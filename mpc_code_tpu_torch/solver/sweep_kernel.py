@@ -4,9 +4,10 @@ Replaces ``mpc_code_tpu/solver/sweep_kernel.py::make_stage_sweep`` (its
 kernel body is built by ``_get_kernel_impl``), the Pallas program that runs
 every output of ``make_stage_derivs`` for all N stages of a batch: the
 structured solver's derivative sweep whenever it has no split dynamics
-sweep (the exact Hessian; a LinearModel, collocation and ContForm with
-slacks under either Hessian).  For every (scenario, stage) lane, at z =
-(xa, u) in scaled units and the iterate's multipliers lam, nus and mu_h:
+sweep (the exact Hessian; a LinearModel, collocation, ContForm with
+slacks and the MHE's window under either Hessian).  For every (scenario,
+stage) lane, at z = (xa, u) in scaled units and the iterate's multipliers
+lam, nus and mu_h:
 
 - ``H`` (nz, nz): ∇²(sf·c + lam·dyn + nus·ineq + mu_h·eq) under the exact
   Hessian, ∇²(sf·c) under Gauss-Newton;
@@ -33,6 +34,18 @@ state's and the model input's tangents alone, and the kernel writes the
 u_prev and slack rows itself.  The TPU kernel's per-stage traces and (8,
 128) tiles exist for Mosaic and have no counterpart here.
 
+The MHE's window (``ocp/mhe.py::WindowLowering``, kind "mhe") has inputs
+of its own (``WindowSweep``): the window's data per window stage, which
+the kernel indexes for structured stage n at clip(n - 1, 0, N - 2), and
+the per-lane arrival-cost and smoothing-correction matrices, read where
+they stand once a scenario.  ``emit_window_source`` lowers the MHE
+model's step (its ODE, RK4 sub-steps in the kernel with d and the noise w
+held, or its map; then ``+ Bd d``, ``+ px``, d carried and ``+ G w``), the
+stage cost and the rows; the step runs on all nz tangents, since the
+noise w is the input and may enter the model.  Its bound counts the step
+on the tangents it depends on (``window_ops``): Ex_ENMPC's MHE ODE reads
+neither w nor d, so the step needs the state's alone.
+
 What bounds the kernel on the H100, and how the design meets it: see the
 note at the top of ``csrc/stage_sweep.cu``.
 
@@ -57,9 +70,10 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from mpc_code_tpu_torch.ocp.mhe import WindowLowering
 from mpc_code_tpu_torch.ops.codegen import Arg, Program, lit
 from mpc_code_tpu_torch.ops.jax_rules import jax_rules
-from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
+from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep, Planes
 from mpc_code_tpu_torch.ops.sweep_cf_cuda import cf_programs
 from mpc_code_tpu_torch.ops.sweep_map_cuda import map_program
 from mpc_code_tpu_torch.solver.riccati import (
@@ -151,7 +165,7 @@ def _array(vals) -> str:
     return "{" + ", ".join(repr(float(v)) for v in (list(vals) or [1.0])) + "}"
 
 
-KINDS = {"rk4": 0, "map": 1, "cf": 2, "coll": 3}
+KINDS = {"rk4": 0, "map": 1, "cf": 2, "coll": 3, "mhe": 4}
 
 
 def _coll_tableau():
@@ -229,6 +243,7 @@ def emit_stage_source(low: StageLowering, sxa, su, si, hessian, nxa, nu, ni,
 #define MPC_KIND_MAP {KINDS["map"]}
 #define MPC_KIND_CF {KINDS["cf"]}
 #define MPC_KIND_COLL {KINDS["coll"]}
+#define MPC_KIND_MHE {KINDS["mhe"]}
 #define MPC_KIND {KINDS[low.kind]}
 #define MPC_NX {nx}
 #define MPC_NUP {low.nup}
@@ -401,7 +416,7 @@ class StageSweep(LaneSweep):
         outputs are contiguous (B, N, ...) tensors, as the kernel writes
         them.  The OCP's functions are lowered first, as for a launch:
         what the code generator cannot lower raises here too."""
-        names = self.stage_inputs + self.scalar_inputs + self.scenario_inputs
+        names = self.input_names()
         if len(args) != len(names):
             raise TypeError(f"{self.kernel} takes {names}, got {len(args)} inputs")
         self.source(*self.dims({k: a.shape[-1] for k, a in zip(names, args) if a.dim() > 1}))
@@ -445,9 +460,8 @@ class StageSweep(LaneSweep):
                 built = build(self.kernel, self.kernel + ".cu",
                               defines={"MPC_DTYPE_BITS": d[1:]}, generated=generated)
                 fn = getattr(built.lib, f"{self.kernel}_{d}")
-                fn.argtypes = ([ctypes.c_void_p] * (len(self.stage_inputs)
-                               + len(self.scalar_inputs) + len(self.scenario_inputs)
-                               + len(self.out_rows(*dims[:2])))
+                fn.argtypes = ([ctypes.c_void_p] * (len(self.input_names())
+                                                    + len(self.out_rows(*dims[:2])))
                                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p])
                 fn.restype = ctypes.c_int
@@ -477,6 +491,21 @@ class StageSweep(LaneSweep):
 
     def ops_per_lane(self, nxa, nu, ni, nd, npx, npy) -> int:
         return stage_ops_per_lane(self.low, self.hessian, nxa, nu, ni, nd, npx, npy)
+
+    def _widths(self, args) -> dict:
+        return {k: a.shape[-1] for k, a in zip(self.input_names(), args) if a.dim() > 1}
+
+    def ops(self, *args) -> int:
+        """The operations the function needs on these inputs: every lane's."""
+        Bsz, N = args[0].shape[:2]
+        return Bsz * N * self.ops_per_lane(*self.dims(self._widths(args)))
+
+    def moved_bytes(self, *args) -> int:
+        """The bytes the function must move on these inputs."""
+        Bsz, N = args[0].shape[:2]
+        dims = self.dims(self._widths(args))
+        return stage_bytes(Bsz, N, *dims, self.low.ny * (dims[1] - self.low.ns),
+                           args[0].element_size(), self.s.n_eq)
 
     def dims(self, w):
         s = self.s
@@ -514,8 +543,312 @@ class StageSweep(LaneSweep):
                      for o, sh in zip(self.launch_planes(planes), shapes))
 
 
+# ---------------------------------------------------------------------------
+# the MHE window (kind "mhe")
+# ---------------------------------------------------------------------------
+
+
+def _window_point_args(nxa, nu, m, p, npy, nc) -> tuple:
+    """The arguments of the window's stage cost and rows: z = (xa, u), then
+    ``ocp/mhe.py::WINDOW_ARGS``."""
+    return (Arg("xa", "dual", nxa), Arg("u", "dual", nu), Arg("um", "vec", m),
+            Arg("y", "vec", p), Arg("tw", "scalar"), Arg("pyw", "vec", npy),
+            Arg("mask", "scalar"), Arg("k0", "scalar"), Arg("x_bar", "vec", nxa),
+            Arg("P_inv", "mat", (nxa, nxa)), Arg("Yc", "vec", nc),
+            Arg("Obig", "mat", (nc, nxa)), Arg("Hbig", "vec", nc), Arg("Pyc", "mat", (nc, nc)))
+
+
+def _step_program(st, nz, nu, m, npx, order) -> Program:
+    """The MHE model's ODE or map on values carrying ``nz`` tangents."""
+    sargs = (Arg("x", "dual", st.nx), Arg("t", "scalar"), Arg("w", "dual", nu),
+             Arg("d", "dual", st.nd), Arg("u", "vec", m), Arg("px", "vec", npx))
+    return Program(st.fn, sargs, nz, out_dim=st.nx, order=order,
+                   what="MHE ODE" if st.kind == "rk4" else "MHE map")
+
+
+def _terms_program(st, nz, nu, npx, order) -> Program:
+    """The MHE model's terms after the step (``MHEStep.terms``)."""
+    return Program(st.terms(), (Arg("x", "dual", st.nx), Arg("d", "dual", st.nd),
+                                Arg("w", "dual", nu), Arg("px", "vec", npx)),
+                   nz, out_dim=st.nx + st.nd, order=order, what="MHE terms")
+
+
+def window_programs(low: WindowLowering, nxa, nu, ni, m, p, npx, npy, nc,
+                    order=2) -> StagePrograms:
+    """The window's functions lowered as ``stage_programs`` lowers an
+    OCP's: ``step`` the MHE model's ODE or map on the state x, the noise w
+    and d carrying tangents (nxa + nu of them), then its terms; ``cost``
+    and ``ineq`` on z = (xa, u) and the window's point arguments."""
+    st, nz = low.step, nxa + nu
+    step = _step_program(st, nz, nu, m, npx, order)
+    terms = _terms_program(st, nz, nu, npx, order)
+    pt = _window_point_args(nxa, nu, m, p, npy, nc)
+    cost = Program(low.cost, pt, nz, out_dim=None, order=2, what="MHE stage cost")
+    ineq = (Program(low.ineq, pt, nz, out_dim=ni, order=order, what="MHE rows")
+            if ni else None)
+    return StagePrograms((step, terms), cost, ineq)
+
+
+def emit_window_source(low: WindowLowering, sxa, su, si, hessian, nxa, nu, ni, m, p,
+                       npx, npy, nc) -> str:
+    """Generated header ``mpc_stage_gen.cuh`` of an MHE window
+    (``MPC_KIND_MHE``): the dimensions (``MPC_NX`` the augmented state,
+    ``MPC_NXM`` the model's state, ``MPC_NUM``, ``MPC_NYW`` and
+    ``MPC_NCORR`` the window's measured input, output and correction
+    widths), the RK4 steps over the interval, the scales, the step
+    (``mpc_rhs`` and ``mpc_clip``, or ``mpc_map``), ``mpc_terms``,
+    ``mpc_cost`` and ``mpc_ineq``."""
+    progs = window_programs(low, nxa, nu, ni, m, p, npx, npy, nc)
+    st = low.step
+    (step, terms), tpl = progs.step, "template <class V, class S>\n__device__ __forceinline__ void"
+    lo, hi = _bounds(st.clip_lo, st.nx), _bounds(st.clip_hi, st.nx)
+    clip = []
+    for i in range(st.nx):
+        e = f"x[{i}]"
+        if lo[i] is not None and math.isfinite(lo[i]):
+            e = f"mpc_max({e}, {lit(lo[i])})"
+        if hi[i] is not None and math.isfinite(hi[i]):
+            e = f"mpc_min({e}, {lit(hi[i])})"
+        clip.append(f"  xc[{i}] = {e};")
+    sig = "const V* x, S t, const V* w, const V* d, const S* u, const S* px, V* out"
+    name = "mpc_map" if st.kind == "map" else "mpc_rhs"
+    pt_sig = ("const V* xa, const V* u, const S* um, const S* y, S tw, const S* pyw, "
+              "bool mask, bool k0, const S* x_bar, const S* P_inv, const S* Yc, "
+              "const S* Obig, const S* Hbig, const S* Pyc, V* out")
+    fns = "".join(f"\n{tpl} {fn}({pt_sig}) {{\n{prog.body}\n}}\n"
+                  for fn, prog in (("mpc_cost", progs.cost), ("mpc_ineq", progs.ineq))
+                  if prog is not None)
+    dt = low.h / st.Mx
+    return f"""// Generated by mpc_code_tpu_torch/solver/sweep_kernel.py.
+#pragma once
+#include <cmath>
+#define MPC_KIND_RK4 {KINDS["rk4"]}
+#define MPC_KIND_MAP {KINDS["map"]}
+#define MPC_KIND_CF {KINDS["cf"]}
+#define MPC_KIND_COLL {KINDS["coll"]}
+#define MPC_KIND_MHE {KINDS["mhe"]}
+#define MPC_KIND {KINDS["mhe"]}
+#define MPC_MHE_MAP {int(st.kind == "map")}
+#define MPC_NX {nxa}
+#define MPC_NXM {st.nx}
+#define MPC_NUP 0
+#define MPC_NS 0
+#define MPC_NXA {nxa}
+#define MPC_NU {nu}
+#define MPC_NI {ni}
+#define MPC_NEQ 0
+#define MPC_ND 0
+#define MPC_NPX {npx}
+#define MPC_NPY {npy}
+#define MPC_NLAM 0
+#define MPC_NUM {m}
+#define MPC_NYW {p}
+#define MPC_NCORR {nc}
+#define MPC_MX {st.Mx}
+#define MPC_EXACT {int(hessian == "exact")}
+#define MPC_HAS_COST 1
+#define MPC_PX0 0
+#define MPC_DT {dt!r}
+#define MPC_DT2 {dt / 2!r}
+#define MPC_DT6 {dt / 6!r}
+#define MPC_SXA {_array(sxa)}
+#define MPC_SU {_array(su)}
+#define MPC_SI {_array(si)}
+
+{tpl} {name}({sig}) {{
+{step.body}
+}}
+
+{tpl} mpc_clip(const V* x, V* xc) {{
+{chr(10).join(clip)}
+}}
+
+{tpl} mpc_terms(const V* x, const V* d, const V* w, const S* px, V* out) {{
+{terms.body}
+}}
+{fns}"""
+
+
+def step_tangents(low: WindowLowering, nu, m, npx) -> int:
+    """The tangents the MHE model's step depends on: the model state's,
+    and the noise's and d's where its ODE or map reads them (the terms
+    after it are affine in d and w)."""
+    st = low.step
+    reads = _step_program(st, st.nx + st.nd + nu, nu, m, npx, 1).reads
+    return st.nx + (nu if "w" in reads else 0) + (st.nd if "d" in reads else 0)
+
+
+def window_ops(low: WindowLowering, hessian, nxa, nu, ni, m, p, npx, npy, nc) -> tuple:
+    """``(every lane's, a stepping lane's more)``: the arithmetic the
+    window's function needs on a lane, counted as ``stage_ops_per_lane``
+    counts an OCP's.  Every lane: the cost and the rows on numbers with nz
+    = nxa + nu tangents, the scalings (sf and 1/si of their numbers, 1/sxa
+    of the dynamics' value and Jacobian) and the assembly of H's upper
+    triangle (one product, then under the exact Hessian a multiply-add for
+    each row).  A lane that steps (neither the arrival stage nor a pad
+    stage) also: the step on numbers with the k tangents it depends on
+    (``step_tangents``; their second order under the exact Hessian alone):
+    for "rk4" four ODE evaluations with the guard and the RK4 combination
+    (13 operations a state) per sub-step, for "map" one evaluation of the
+    map; then the terms, affine, on the values; and under the exact
+    Hessian a multiply-add for each model-state row on the step's
+    k(k+1)/2 entries."""
+    exact = hessian == "exact"
+    order = 2 if exact else 1
+    progs = window_programs(low, nxa, nu, ni, m, p, npx, npy, nc, order=order)
+    st = low.step
+    k = step_tangents(low, nu, m, npx)
+    fn = _step_program(st, k, nu, m, npx, order)
+    nz = nxa + nu
+    np2, km = nz * (nz + 1) // 2, (k * (k + 1) // 2 if exact else 0)
+    width = 1 + nz + np2
+    wrow = width if exact else 1 + nz
+    wm = 1 + k + km
+    if st.kind == "map":
+        step = fn.ops
+    else:
+        n_bounds = sum(1 for b in (_bounds(st.clip_lo, st.nx), _bounds(st.clip_hi, st.nx))
+                       for v in b if v is not None and math.isfinite(v))
+        step = st.Mx * (4 * (fn.ops + n_bounds * wm) + 13 * st.nx * wm)
+    terms = _terms_program(st, 0, nu, npx, 1).ops
+    every = (sum(q.ops for q in (progs.cost, progs.ineq) if q is not None)
+             + width + ni * wrow + nxa * (1 + nz)
+             + np2 + (2 * ni * np2 if exact else 0))
+    return every, step + terms + 2 * st.nx * km
+
+
+def window_bytes(Bsz, N, nxa, nu, ni, m, p, npx, npy, nc, itemsize) -> int:
+    """Bytes a window's function must move: each input read once (the
+    window planes over B * (N - 1) lanes, the per-lane matrices once a
+    scenario), each output written once."""
+    L, Lw = Bsz * N, Bsz * (N - 1)
+    nz = nxa + nu
+    ins = ((2 * nxa + nu + ni) * L + (m + p + 2 + npx + npy) * Lw
+           + (1 + nxa + nxa * nxa + nc * nxa + nc + nc * nc) * Bsz)
+    outs = (nz * nz + nz + nxa * nxa + nxa * nu + ni * (nz + 1) + nxa) * L
+    return itemsize * (ins + outs)
+
+
+class WindowSweep(StageSweep):
+    """Kernel 5 on an MHE window (``ocp/mhe.py::build_structured_mhe``):
+    ``F(X, U, lam, nus, um, y, tw, pxw, pyw, mask, sf, x_bar, P_inv, obig,
+    hbig, pyc) -> (H, gc, A, B, E, ival, dval, Cz, hval)`` (Cz and hval
+    empty): X, U, lam and nus per structured stage (B, N, k); the window's
+    measured inputs, outputs, times, px, py and mask per window stage (B,
+    N - 1, k), times and mask (B, N - 1, 1), the mask 1 or 0; sf (B,); per
+    scenario (B, k), row-major: x_bar, P_inv, and the smoothing
+    correction's Obig, Hbig and Pycondx_inv (zero-width without it; its
+    measurements are the first window stages' outputs).  Structured stage
+    n reads window stage clip(n - 1, 0, N - 2), and the kernel indexes it
+    there.  ``inputs`` builds these from the solver's iterate and the
+    window's parameter dict."""
+
+    stage_inputs = ("X", "U", "lam", "nus")
+    window_inputs = ("um", "y", "tw", "pxw", "pyw", "mask")
+    scalar_inputs = ("sf",)
+    scenario_inputs = ("x_bar", "P_inv", "obig", "hbig", "pyc")
+
+    def input_names(self) -> tuple:
+        return (self.stage_inputs + self.window_inputs + self.scalar_inputs
+                + self.scenario_inputs)
+
+    def inputs(self, Xs, Us, p, lam, nus, mu_h):
+        """The kernel's inputs at the solver's iterate: X[:, :N], U, the
+        batched parameter dict (with ``_sf``), lam and nus (mu_h is
+        empty)."""
+        Bsz, n, nc = Xs.shape[0], self.s.nxa, self.low.n_corr
+        Nw = p["U"].shape[1]
+        mask = (p["mask"].to(Xs.dtype)[..., None] if "mask" in p and self.low.maskable
+                else Xs.new_ones((Bsz, Nw, 1)))
+        corr = ((p["Obig"].reshape(Bsz, -1), p["Hbig"], p["Pycondx_inv"].reshape(Bsz, -1))
+                if nc else (Xs.new_zeros((Bsz, 0)),) * 3)
+        return (Xs, Us, lam, nus, p["U"], p["Y"], p["T"][..., None], p["PX"], p["PY"], mask,
+                p["_sf"], p["x_bar"], p["P_inv"].reshape(Bsz, n * n)) + corr
+
+    def _plain_block(self, X, U, lam, nus, um, y, tw, pxw, pyw, mask, sf, x_bar, P_inv,
+                     obig, hbig, pyc):
+        Bsz, N, nxa = X.shape
+        nc, nz = self.low.n_corr, nxa + U.shape[-1]
+        p = dict(U=um, Y=y, T=tw[..., 0], PX=pxw, PY=pyw, x_bar=x_bar,
+                 P_inv=P_inv.reshape(Bsz, nxa, nxa))
+        if self.low.maskable:
+            p["mask"] = mask[..., 0] != 0
+        if nc:
+            p.update(Obig=obig.reshape(Bsz, nc, nxa), Hbig=hbig,
+                     Pycondx_inv=pyc.reshape(Bsz, nc, nc))
+        pk = self.s.params.stage(p, N)
+        pk["_sf"] = sf.repeat_interleave(N)
+        L = Bsz * N
+        Z = torch.cat([X, U], -1).reshape(L, nz)
+        out = self._v(Z, pk, lam.reshape(L, nxa), nus.reshape(L, nus.shape[-1]))
+        out += (Z.new_zeros(L, 0, nz), Z.new_zeros(L, 0))
+        return tuple(o.reshape((Bsz, N) + tuple(o.shape[1:])).contiguous() for o in out)
+
+    def window_dims(self) -> tuple:
+        """The build key of the window's own widths."""
+        s, low = self.s, self.low
+        return (s.nxa, s.nu, s.ni, low.m, low.p, low.npx, low.npy, low.n_corr)
+
+    def dims(self, w):
+        want = dict(X=self.s.nxa, U=self.s.nu, lam=self.s.nxa, nus=self.s.ni, tw=1, mask=1,
+                    um=self.low.m, y=self.low.p, x_bar=self.s.nxa,
+                    P_inv=self.s.nxa ** 2, hbig=self.low.n_corr,
+                    obig=self.low.n_corr * self.s.nxa, pyc=self.low.n_corr ** 2)
+        if any(w[k] != v for k, v in want.items()):
+            raise ValueError(f"inputs of widths {w} do not fit the window's {want}")
+        return self.window_dims()[:5] + (w["pxw"], w["pyw"], self.low.n_corr)
+
+    def source(self, *dims) -> str:
+        if dims not in self._src:
+            s = self.s
+            self._src[dims] = emit_window_source(self.low, s.sxa, s.su, s.si, self.hessian,
+                                                 *dims)
+        return self._src[dims]
+
+    def ops_per_lane(self, *dims) -> int:
+        """A stepping lane's operations."""
+        return sum(window_ops(self.low, self.hessian, *dims))
+
+    def ops(self, *args) -> int:
+        """The operations on these inputs: every lane's, and the step's on
+        the lanes that step (neither stage 0 nor a pad stage)."""
+        X, mask = args[0], args[self.input_names().index("mask")]
+        Bsz, N = X.shape[:2]
+        every, step = window_ops(self.low, self.hessian, *self.dims(self._widths(args)))
+        return Bsz * N * every + int((mask[:, :, 0] != 0).sum()) * step
+
+    def moved_bytes(self, *args) -> int:
+        Bsz, N = args[0].shape[:2]
+        return window_bytes(Bsz, N, *self.dims(self._widths(args)), args[0].element_size())
+
+    def pack(self, *args) -> Planes:
+        """Check the inputs and lay them out: the stage and window inputs
+        as planes, lanes innermost; sf as it is; the per-scenario inputs
+        row-major.  Raises on a bad device, dtype or shape."""
+        named, Bsz, N, dims = self.check(*args)
+        if N < 2:
+            raise ValueError(f"a window has N >= 2 structured stages, got {N}")
+        if any(named[k].dim() != 3 or named[k].shape[:2] != (Bsz, N - 1)
+               for k in self.window_inputs):
+            raise ValueError(f"{', '.join(self.window_inputs)} must be (B, N - 1, dim) = "
+                             f"{(Bsz, N - 1)} + (dim,)")
+        dummy = torch.zeros(1, dtype=args[0].dtype, device=args[0].device)
+
+        def plane(a):
+            return a.reshape(-1, a.shape[-1]).t().contiguous() if a.shape[-1] else dummy
+
+        ins = ([plane(named[k]) for k in self.stage_inputs + self.window_inputs]
+               + [named["sf"].contiguous()]
+               + [named[k].contiguous() if named[k].shape[-1] else dummy
+                  for k in self.scenario_inputs])
+        return Planes(ins, Bsz, N, dims)
+
+
 def make_stage_sweep(s: StructuredOCP, hessian: str = "exact") -> StageSweep:
     """The full-output stage sweep of ``make_stage_derivs(s, hessian)`` for
     all N stages of a batch: on CUDA tensors ``csrc/stage_sweep.cu``, on
-    CPU tensors the vmapped plain version."""
+    CPU tensors the vmapped plain version.  An MHE window (its lowering a
+    ``WindowLowering``) takes its own inputs (``WindowSweep``)."""
+    if isinstance(s.lowering, WindowLowering):
+        return WindowSweep(s, hessian)
     return StageSweep(s, hessian)
