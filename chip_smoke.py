@@ -35,7 +35,10 @@ It never imports JAX or the JAX package.  Phases:
    tanh map through kernel 3, Ex_ENMPC's ODE with a tanh and sigmoid
    quadrature through kernel 4, the cart-pole's kernel 1 and kernel 2 at
    (20, 4, 1), and kernel 5's exact builds of the elem OCP and the
-   cart-pole; kernel 5 on Ex_ENMPC's MHE window (N=11, nz=8), the batched
+   cart-pole; the matrices, reductions and last elementary functions:
+   the linalg check models through kernels 1, 3, 4 and 5 (exact), the
+   double pendulum's kernel 1, kernel 2 at (40, 6, 1) and kernel 5's exact
+   build; kernel 5 on Ex_ENMPC's MHE window (N=11, nz=8), the batched
    MHE's (maskable: pad lanes) in its exact and its Gauss-Newton build and
    the host MHE's in its exact build, the arrival and pad lanes held on
    their own; an f32 sweep (kernels 1, 3, 5) must also lie
@@ -129,6 +132,10 @@ It never imports JAX or the JAX package.  Phases:
    (kernels 1 and 2) and the exact one (kernels 5 and 2): solves/s,
    ok_fraction, iterations, launches against the solver's passes, 8 lanes
    in f64 held to the CPU's f64 run (Gauss-Newton's after 8 passes);
+   then the double inverted pendulum on a cart (``dipc``): Bogdanov's
+   rigid-body model, whose accelerations solve a traced 3x3 mass matrix,
+   at N=40 on DIPC_B lanes, checked as the cart-pole (kernels 1 and 2 at
+   (40, 6, 1), kernels 5 and 2);
 12. the ENMPC flagship loop (``enmpc_loop``): ``examples/enmpc_loop_workload.py``
    — economic NMPC with the MHE ('smooth' prior update, N_mhe=10, its
    window by the structured IPM at (N, nxa, nu) = (11, 4, 4), its stage
@@ -175,7 +182,7 @@ It never imports JAX or the JAX package.  Phases:
 
 The kernel phases and phase 3 run alone on the card.  From there on
 three processes share it: this one (phases 4-8, 10, the debug phase and
-the cart-pole),
+the two pendulums),
 one for phase 9 (the bench port, the mesh) and phase 11's solver options
 and one for phases 13, 12, 14 and 15
 (``PARTS``; each started as ``python3 chip_smoke.py --part ...`` with CPU
@@ -217,6 +224,10 @@ TOL_F64 = 1e-10
 # the exponential, not the kernel (PERF.md, kernel 5)
 TOL_F32 = {"rk4_stage_jac": 1e-4, "riccati_kkt": 1e-3, "rk4_quad_stage_hess": 1e-4,
            "map_stage_jac": 1e-3, "stage_sweep": 1e-3}
+# the f32 bar of kernels 1, 3 and 4 on the double pendulum's ODE and on the
+# linalg check models (a solve, an inverse and the reductions in every
+# evaluation), as kernel 5's
+TOL_F32_LINALG = 1e-3
 # Converged U against the CPU f64 path, over the input box.  Two f64 runs
 # differ only in rounding order and stop on the same iterate: U_TOL.  An f32
 # run measures its KKT error with f32 rounding, and near the 1e-3 tolerance
@@ -863,7 +874,15 @@ def torch_fns():
         asin=torch.asin, acos=torch.acos, atan=torch.atan, atan2=torch.atan2,
         sinh=torch.sinh, cosh=torch.cosh, log1p=torch.log1p, expm1=torch.expm1,
         rsqrt=torch.rsqrt, reciprocal=torch.reciprocal, square=torch.square, sign=torch.sign,
-        clamp=torch.clamp, pow=torch.pow, erf=torch.erf, stack=torch.stack)
+        clamp=torch.clamp, pow=torch.pow, erf=torch.erf, stack=torch.stack,
+        asinh=torch.asinh, acosh=torch.acosh, atanh=torch.atanh, log2=torch.log2,
+        log10=torch.log10, exp2=torch.exp2, erfc=torch.erfc, erfinv=torch.erfinv,
+        floor=torch.floor, round=torch.round, hypot=torch.hypot, fmod=torch.fmod,
+        remainder=torch.remainder, solve=torch.linalg.solve, inv=torch.linalg.inv,
+        norm=torch.linalg.norm, sum=torch.sum, prod=torch.prod, mean=torch.mean,
+        amax=torch.amax, amin=torch.amin, cumsum=torch.cumsum, cross=torch.linalg.cross,
+        outer=torch.outer, ones_like=torch.ones_like, zeros_like=torch.zeros_like,
+        full_like=torch.full_like, concatenate=torch.cat, tensor=torch.tensor)
 
 
 def elem_ode(F):
@@ -988,12 +1007,13 @@ def cartpole_config(cfgm, F, N=CARTPOLE_N, Mx=CARTPOLE_MX):
         bounds=cfgm.Bounds(umin=np.array([-CARTPOLE_FMAX]), umax=np.array([CARTPOLE_FMAX])))
 
 
-def cartpole_params(cfg, x0s, N):
-    """The solver's parameters: the upright setpoint, no parameters."""
+def upright_params(cfg, x0s, N):
+    """A pendulum OCP's parameters: the upright setpoint, no parameters."""
     B = len(x0s)
-    return dict(x0=x0s, xs=np.zeros((B, 4)), us=np.zeros((B, 1)), d=np.zeros((B, 0)),
-                um1=np.zeros((B, 1)), t=np.zeros(B), lam=np.zeros((B, cfg.ny, 1)),
-                px=np.zeros((B, N, cfg.npx)), py=np.zeros((B, N, cfg.npy)))
+    return dict(x0=x0s, xs=np.zeros((B, cfg.nx)), us=np.zeros((B, cfg.nu)),
+                d=np.zeros((B, 0)), um1=np.zeros((B, cfg.nu)), t=np.zeros(B),
+                lam=np.zeros((B, cfg.ny, cfg.nu)), px=np.zeros((B, N, cfg.npx)),
+                py=np.zeros((B, N, cfg.npy)))
 
 
 def cartpole_x0(batch, seed=0):
@@ -1010,6 +1030,202 @@ def structured(cfg, dev):
                                 build_terminal_cost(cfg), device=dev)
 
 
+# The double inverted pendulum on a cart (A. Bogdanov, "Optimal Control of
+# a Double Inverted Pendulum on a Cart", OGI tech. report CSE-04-006, 2004,
+# section 2): x = (p, theta1, theta2, dp, dtheta1, dtheta2), u = F; m0 =
+# 1.5, m1 = 0.5, m2 = 0.75 kg, L1 = 0.5, L2 = 0.75 m, g = 9.8, uniform
+# links.  The accelerations solve D(q) qdd = H u - C(q, qd) qd - G(q), with
+# the mass matrix D and C built by stacking traced rows, as a user writes a
+# rigid-body model: a traced 3x3 solve and a traced matrix times a traced
+# vector.  The OCP: N = 40 intervals of 0.025 s, RK4 at one sub-step
+# (acados's ERK default, as for the cart-pole), the cost 0.5 (x'Qx + u'Ru)
+# with Q = diag(10, 100, 100, 1, 1, 1), R = 0.01 and the terminal weight Q,
+# |F| <= 50.  The initial states are drawn with seed 0 from DIPC_BOX about
+# the upright: the cart within 0.5 m, the angles within 0.2 rad, the rates
+# within 0.2.
+DIPC_M, DIPC_L, DIPC_G = (1.5, 0.5, 0.75), (0.5, 0.75), 9.8
+DIPC_Q = (10.0, 100.0, 100.0, 1.0, 1.0, 1.0)
+DIPC_R = 0.01
+DIPC_FMAX = 50.0
+DIPC_N, DIPC_H, DIPC_MX = 40, 0.025, 1
+DIPC_BOX = (np.array([-0.5, -0.2, -0.2, -0.2, -0.2, -0.2]),
+            np.array([0.5, 0.2, 0.2, 0.2, 0.2, 0.2]))
+
+
+def dipc_ode(F):
+    """The pendulum's ODE over the namespace ``F`` (torch or jnp)."""
+    m0, m1, m2 = DIPC_M
+    L1, L2 = DIPC_L
+    d1, d2, d3 = m0 + m1 + m2, (m1 / 2 + m2) * L1, m2 * L2 / 2
+    d4, d5, d6 = (m1 / 3 + m2) * L1 * L1, m2 * L1 * L2 / 2, m2 * L2 * L2 / 3
+    f1, f2 = (m1 / 2 + m2) * L1 * DIPC_G, m2 * L2 * DIPC_G / 2
+
+    def fx(x, u, d, t, px):
+        c1, c2, c12 = F.cos(x[1]), F.cos(x[2]), F.cos(x[1] - x[2])
+        s1, s2, s12 = F.sin(x[1]), F.sin(x[2]), F.sin(x[1] - x[2])
+        one, zero = F.ones_like(c1), F.zeros_like(c1)
+        D = F.stack([F.stack([d1 * one, d2 * c1, d3 * c2]),
+                     F.stack([d2 * c1, d4 * one, d5 * c12]),
+                     F.stack([d3 * c2, d5 * c12, d6 * one])])
+        C = F.stack([F.stack([zero, -d2 * s1 * x[4], -d3 * s2 * x[5]]),
+                     F.stack([zero, zero, d5 * s12 * x[5]]),
+                     F.stack([zero, -d5 * s12 * x[4], zero])])
+        G = F.stack([zero, -f1 * s1, -f2 * s2])
+        H = F.stack([one, zero, zero])
+        qd = x[3:6]
+        return F.concatenate([qd, F.linalg.solve(D, H * u[0] - C @ qd - G)])
+    return fx
+
+
+def dipc_config(cfgm, F, N=DIPC_N, Mx=DIPC_MX):
+    """The pendulum's OCP (its interval DIPC_H at any N)."""
+    Q = DIPC_Q
+
+    def vfin(dx, xs):
+        return 0.5 * sum(Q[i] * dx[i] * dx[i] for i in range(6))
+
+    return cfgm.MPCConfig(
+        nx=6, nxp=6, nu=1, ny=6, nd=0, Nsim=1, N=N, h=DIPC_H,
+        model=cfgm.ContinuousModel(fx=dipc_ode(F), Mx=Mx,
+                                   fy=lambda x, u, d, t, py: F.stack([x[i] for i in range(6)])),
+        dist=cfgm.DisturbanceModel(offree="no"),
+        x0_p=np.zeros(6), x0_m=np.zeros(6), u0=np.zeros(1),
+        stage_cost=cfgm.StageCost(Q=np.diag(Q), R=np.array([[DIPC_R]])),
+        terminal=cfgm.TerminalCost(vfin=vfin),
+        bounds=cfgm.Bounds(umin=np.array([-DIPC_FMAX]), umax=np.array([DIPC_FMAX])))
+
+
+def dipc_x0(batch, seed=0):
+    lo, hi = DIPC_BOX
+    return np.random.default_rng(seed).uniform(lo, hi, size=(batch, 6))
+
+
+# The check models of the ops that lower matrices, reductions and the last
+# elementary functions: an ODE (nx = 3, nu = 2, npx = 2) whose right side
+# takes the matrix ops (``linalg_matrix_terms``: a traced 3x3 matrix
+# stacked by rows and by columns, its solve with a vector and with a
+# matrix, its inverse, transposes, products in every pairing, outer and
+# cross products, gathers by a constant tensor and a constant mask) for
+# kernel 1; a discrete map that takes every op (``linalg_terms``: those and
+# ``linalg_scalar_terms``, the reductions over everything and over a dim,
+# the 2-norm, asinh, acosh, atanh, log2, log10, exp2, erfc, erfinv, hypot,
+# fmod, remainder, floor and round) for kernel 3; a ContForm quadrature
+# with a traced 2x2 solve for kernel 4; and an OCP for kernel 5 whose ODE
+# takes the matrix ops and whose stage cost the scalar ones, each on
+# second-order numbers.  (The plain versions on the card are bound by
+# their host's dispatch of the ops under nested transforms: 3.4-6.4 s a
+# call for every op in kernel 1's or a 2x2 inverse in kernel 4's, on the
+# H100.)  On the lanes'
+# box (x, u in [-1, 1], px of 0.1) their arguments stay inside each
+# function's domain and away from the points where a value or a derivative
+# jumps or grows without bound, where the f32 kernel and the f32 plain
+# version could fall on two sides of one or round apart: max and min
+# reduce entries 3 apart, floor and round take inputs scaled by powers of
+# 2, fmod and remainder quotients below 1, hypot and the 2-norms arguments
+# of at least 0.5.  The matrix is strictly diagonally dominant by rows, and
+# its first column's pivot moves between rows 0 and 1 with |x_1| (a pivot
+# chosen on either side of a near tie gives the same solve to rounding).
+def _linalg_mats(F, x, u, w):
+    one = F.ones_like(x[0])
+    A = F.stack([F.stack([0.6 + 0.1 * x[0], 0.1 * x[2], 0.1 * u[1]]),
+                 F.stack([x[1], 2.0 * one, 0.2 * F.sin(x[2])]),
+                 F.stack([0.3 * F.cos(x[0]), 0.2 * u[0], 2.5 + F.zeros_like(x[0])])])
+    Bc = F.stack([x, F.full_like(x, 0.5), F.concatenate([u, 1.0 + w[0:1]])], 1)
+    return A, Bc
+
+
+def linalg_matrix_terms(F, x, u, w):
+    """The matrix ops of the check on a state ``x`` (3), an input ``u``
+    (2) and two numbers ``w`` without tangents: a vector of 3."""
+    A, Bc = _linalg_mats(F, x, u, w)
+    y = F.solve(A, F.stack([u[0], x[0] * x[1], 1.0 + 0.5 * u[1]]))
+    Y = F.solve(A, Bc)
+    Ai = F.inv(A)
+    v = (A @ x + x @ A.T + (A.mT @ Bc)[1] + F.outer(x, u)[:, 1] + F.cross(y, x)
+         + Y[:, 2] + Ai[:, 0])
+    g = x[F.tensor([2, 0, 1])] + F.sum(x[F.tensor([True, False, True])]) + Bc.reshape(-1)[4]
+    return 0.1 * v + 0.02 * g
+
+
+def linalg_scalar_terms(F, x, u, w):
+    """The reductions and the elementary functions of the check: a vector
+    of 3."""
+    A, Bc = _linalg_mats(F, x, u, w)
+    S = F.stack([x + 3.0, 0.5 * u[0] + F.zeros_like(x), x - 3.0], 1)
+    r = (F.sum(A, 0) + F.mean(Bc, 1) + F.amax(S, 1) + F.amin(S.T, 0) + F.cumsum(x, 0)
+         + F.prod(A, 1) + F.norm(Bc, None, 0))
+    s = (F.norm(F.stack([x[0], x[1], 1.0 + 0.5 * x[2]])) + F.sum(A)
+         + F.amax(F.stack([x[0], x[1] + 3.0, x[2] + 6.0]))
+         + F.amin(F.stack([u[0], u[1] + 5.0])) + F.prod(u) + F.mean(x)
+         + F.asinh(x[0]) + F.acosh(1.5 + x[1] * x[1]) + F.atanh(0.5 * F.tanh(x[2]))
+         + F.log2(2.0 + u[0] * u[0]) + F.log10(3.0 + x[0] * u[1]) + F.exp2(0.5 * x[1])
+         + F.erfc(x[2]) + F.erfinv(0.5 * F.tanh(u[1])) + F.hypot(x[2], 1.0 + 0.5 * u[1])
+         + F.fmod(x[1] - 1.0, 4.0 + 0.5 * u[1]) + F.remainder(x[0] + 2.0, 4.0 + 0.5 * u[0])
+         + F.floor(8.0 * w[0]) * x[1] + F.round(4.0 * w[1]) * x[2])
+    return 0.1 * r + 0.05 * s
+
+
+def linalg_terms(F, x, u, w):
+    """Every op of the check: the matrix and the scalar terms."""
+    return linalg_matrix_terms(F, x, u, w) + linalg_scalar_terms(F, x, u, w)
+
+
+def linalg_ode(F):
+    """The ODE of the check's matrix terms."""
+    def fx(x, u, d, t, px):
+        return -0.5 * x + linalg_matrix_terms(F, x, u, px)
+    return fx
+
+
+def linalg_map(F):
+    """The discrete map of the check: x + 0.1 of its terms (nd = 1, npx =
+    2)."""
+    def fmap(x, u, d, t, px):
+        return x + 0.1 * linalg_terms(F, x, u, px) + 0.01 * d[0] * t
+    return fmap
+
+
+def linalg_quad(F):
+    """A ContForm quadrature on Ex_ENMPC's arguments (nx = 2, nu = 1) with
+    a traced 2x2 solve, products of traced values, a max and the 2-norm
+    (kernel 4 runs it at every RK4 stage of Ex_ENMPC's 10 sub-steps, on
+    second-order numbers)."""
+    def q(x, t, u, d, px, xs, us, py):
+        e0, e1 = x[0] - xs[0], x[1] - xs[1]
+        A = F.stack([F.stack([1.5 + 0.1 * x[0], 0.2 * u[0]]),
+                     F.stack([x[1], 2.0 * F.ones_like(x[0])])])
+        y = F.solve(A, F.stack([e0, e1]))
+        return (e0 * e0 + e1 * e1 + 0.1 * (y @ (A @ F.stack([u[0], e1])))
+                + 0.01 * (F.norm(F.stack([y[0], 1.0 + y[1]]))
+                          + F.amax(F.stack([y[0], y[1] + 3.0]))))
+    return q
+
+
+def linalg_cost(F):
+    """The linalg OCP's stage cost: tracking plus the check's scalar
+    terms."""
+    def f_dis(x, u, y, xs, us, ys):
+        e = x - xs
+        return (0.5 * (e @ e) + 0.05 * (u @ u)
+                + 0.01 * F.sum(linalg_scalar_terms(F, x, u, xs[0:2])))
+    return f_dis
+
+
+def linalg_config(cfgm, F, N=20, Mx=1):
+    """The linalg OCP: ``linalg_ode`` (h = 0.5, RK4 at Mx sub-steps),
+    ``linalg_cost``, a quadratic terminal cost, |u| <= 2, no disturbance."""
+    return cfgm.MPCConfig(
+        nx=3, nxp=3, nu=2, ny=3, nd=0, Nsim=1, N=N, h=0.5,
+        model=cfgm.ContinuousModel(fx=linalg_ode(F), Mx=Mx,
+                                   fy=lambda x, u, d, t, py: F.stack([x[0], x[1], x[2]])),
+        dist=cfgm.DisturbanceModel(offree="no"),
+        x0_p=np.zeros(3), x0_m=np.zeros(3), u0=np.zeros(2),
+        stage_cost=cfgm.StageCost(f_dis=linalg_cost(F)),
+        terminal=cfgm.TerminalCost(vfin=lambda dx, xs: 0.5 * (dx[0] * dx[0] + dx[1] * dx[1]
+                                                             + dx[2] * dx[2])),
+        bounds=cfgm.Bounds(umin=np.array([-2.0, -2.0]), umax=np.array([2.0, 2.0])))
+
+
 # The elementary functions' kernel checks (phase "elementary kernel"),
 # 16,384 scenarios of ELEM_N stages: the elem ODE through kernel 1 (RK4 at
 # ELEM_MX sub-steps), the tanh map through kernel 3, Ex_ENMPC's ODE with the
@@ -1020,6 +1236,10 @@ def structured(cfg, dev):
 # sub-step is one more inlined copy of the ODE on second-order numbers).
 ELEM_N, ELEM_MX, ELEM_K5_MX = 20, 2, 1
 ELEM_NAN_LANES = (3,)
+# the builds of kernels 1, 3 and 4 the elementary kernel phase checks
+ELEMENTARY_BUILDS = ("rk4_stage_jac_elem", "rk4_stage_jac_cartpole", "rk4_stage_jac_dipc",
+                     "rk4_stage_jac_linalg", "map_stage_jac_tanh", "map_stage_jac_linalg",
+                     "rk4_quad_stage_hess_tanh", "rk4_quad_stage_hess_linalg")
 
 
 def elem_kernel_inputs(dtype, device, seed=10):
@@ -1059,6 +1279,49 @@ def cartpole_kernel_inputs(dtype, device, seed=12):
             rng.uniform(-CARTPOLE_FMAX, CARTPOLE_FMAX, (B, CARTPOLE_N, 1)),
             np.zeros((B, CARTPOLE_N, 4)), np.zeros(B), np.full(B, CARTPOLE_TF / CARTPOLE_N),
             np.zeros((B, 0))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def dipc_kernel_inputs(dtype, device, seed=16):
+    """Kernel 1's pendulum inputs: states over DIPC_BOX, |F| <= 50, the
+    interval 0.025 s, no parameters."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = DIPC_BOX
+    arrs = [rng.uniform(lo, hi, (B, DIPC_N, 6)),
+            rng.uniform(-DIPC_FMAX, DIPC_FMAX, (B, DIPC_N, 1)), np.zeros((B, DIPC_N, 6)),
+            np.zeros(B), np.full(B, DIPC_H), np.zeros((B, 0))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+# the linalg checks' lane on a pivot tie: |0.6 + 0.1 x_0| = |x_1| at x_0 =
+# 0, x_1 = 0.6, where the ODE is first evaluated (LAPACK's getrf keeps the
+# first row; the other choice solves the same system to rounding)
+LINALG_TIE = (0,)
+def linalg_kernel_inputs(dtype, device, seed=17):
+    """Kernel 1's linalg inputs: x, u in [-1, 1], px of 0.1, h = 0.5, no
+    disturbance; lane 0 on the pivot tie."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-1.0, 1.0, (B, ELEM_N, 3))
+    xs[0, :, :2] = (0.0, 0.6)
+    arrs = [xs, rng.uniform(-1.0, 1.0, (B, ELEM_N, 2)), rng.normal(0.0, 0.1, (B, ELEM_N, 2)),
+            rng.uniform(0.0, 1.0, B), np.full(B, 0.5), np.zeros((B, 0))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
+
+
+def linalg_map_inputs(dtype, device, seed=18):
+    """Kernel 3's linalg inputs (x, u, px, t, d): x, u in [-1, 1], px of
+    0.1; lane 0 on the pivot tie."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-1.0, 1.0, (B, ELEM_N, 3))
+    xs[0, :, :2] = (0.0, 0.6)
+    arrs = [xs, rng.uniform(-1.0, 1.0, (B, ELEM_N, 2)), rng.normal(0.0, 0.1, (B, ELEM_N, 2)),
+            rng.normal(size=(B,)), rng.normal(size=(B, 1))]
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs]
 
 
@@ -1157,28 +1420,37 @@ def lane_sweep_check(dev, key, sweep, inputs, dims, bytes_fn, ops_lane, tol, res
     return failures
 
 
-def elementary_sweeps(eprob, cp_socp):
+def elementary_sweeps(eprob, cp_socp, dp_socp):
     """The sweeps of the elementary kernel phase: key -> (sweep, build
     dims)."""
     from mpc_code_tpu_torch.ops.sweep_cf_cuda import Rk4QuadStageHess
     from mpc_code_tpu_torch.ops.sweep_cuda import Rk4StageJac
     from mpc_code_tpu_torch.ops.sweep_map_cuda import MapStageJac
 
-    fx, ec = elem_ode(torch_fns()), eprob.cfg
+    F, ec = torch_fns(), eprob.cfg
+    fx, lx = elem_ode(F), linalg_ode(F)
+    cf_dims = (ec.nx, ec.nu, ec.nd, ec.npx, ec.npy)
     return {"rk4_stage_jac_elem": (Rk4StageJac(lambda x, t, u, d, px: fx(x, u, d, t, px),
                                                ELEM_MX), (3, 2, 0, 2)),
             "rk4_stage_jac_cartpole": (cp_socp.sweep, (4, 1, 0, 4)),
-            "map_stage_jac_tanh": (MapStageJac(tanh_map(torch_fns())), (2, 1, 1, 1)),
+            "rk4_stage_jac_dipc": (dp_socp.sweep, (6, 1, 0, 6)),
+            "rk4_stage_jac_linalg": (Rk4StageJac(lambda x, t, u, d, px: lx(x, u, d, t, px),
+                                                 ELEM_MX), (3, 2, 0, 2)),
+            "map_stage_jac_tanh": (MapStageJac(tanh_map(F)), (2, 1, 1, 1)),
+            "map_stage_jac_linalg": (MapStageJac(linalg_map(F)), (3, 2, 1, 2)),
             "rk4_quad_stage_hess_tanh": (
-                Rk4QuadStageHess(eprob.socp.sweep.f, tanh_quad(torch_fns()),
-                                 eprob.socp.sweep.Mx),
-                (ec.nx, ec.nu, ec.nd, ec.npx, ec.npy))}
+                Rk4QuadStageHess(eprob.socp.sweep.f, tanh_quad(F), eprob.socp.sweep.Mx),
+                cf_dims),
+            "rk4_quad_stage_hess_linalg": (
+                Rk4QuadStageHess(eprob.socp.sweep.f, linalg_quad(F), eprob.socp.sweep.Mx),
+                cf_dims)}
 
 
-def elementary_kernel_phase(dev, sweeps, eprob, cp_socp, results):
-    """The elementary functions through kernels 1, 3 and 4 (``sweeps``,
-    ``elementary_sweeps``), and kernel 2 at the cart-pole's shapes, each
-    against its plain version."""
+def elementary_kernel_phase(dev, sweeps, eprob, cp_socp, dp_socp, results):
+    """The elementary functions and the linalg ops through kernels 1, 3
+    and 4 (``sweeps``, ``elementary_sweeps``), and kernel 2 at the
+    cart-pole's and the double pendulum's shapes, each against its plain
+    version."""
     import torch
 
     from mpc_code_tpu_torch.ops import sweep_cf_cuda, sweep_cuda, sweep_map_cuda
@@ -1192,22 +1464,28 @@ def elementary_kernel_phase(dev, sweeps, eprob, cp_socp, results):
             ("rk4_stage_jac_elem", elem_kernel_inputs, TOL_F32["rk4_stage_jac"], (0, 1, 2, 3),
              ELEM_NAN_LANES),
             ("rk4_stage_jac_cartpole", cartpole_kernel_inputs, TOL_F32["rk4_stage_jac"], (),
-             ())):
+             ()),
+            ("rk4_stage_jac_dipc", dipc_kernel_inputs, TOL_F32_LINALG, (), ()),
+            ("rk4_stage_jac_linalg", linalg_kernel_inputs, TOL_F32_LINALG, LINALG_TIE, ())):
         sw, dims = sweeps[key]
         failures += lane_sweep_check(dev, key, sw, inputs, dims, sweep_cuda.sweep_bytes,
                                      k1_ops(sw, *dims), tol, results, special, nan)
-    sw, dims = sweeps["map_stage_jac_tanh"]
-    failures += lane_sweep_check(
-        dev, "map_stage_jac_tanh", sw, tanh_map_inputs, dims, sweep_map_cuda.map_bytes,
-        sweep_map_cuda.map_ops_per_lane(sw.f, *dims), TOL_F32["map_stage_jac"], results)
-    sw, dims = sweeps["rk4_quad_stage_hess_tanh"]
-    failures += lane_sweep_check(
-        dev, "rk4_quad_stage_hess_tanh", sw, lambda dt, d: cf_inputs(dt, d, eprob.cfg.N),
-        dims, sweep_cf_cuda.cf_bytes, sw.ops_per_lane(*dims), TOL_F32["rk4_quad_stage_hess"],
-        results)
-    for dtype in (torch.float64, torch.float32):
-        failures += riccati_check(dev, dtype, cp_socp.N, cp_socp.nxa, cp_socp.nu,
-                                  results["riccati_kkt_cartpole"])
+    for key, inputs, tol, special in (
+            ("map_stage_jac_tanh", tanh_map_inputs, TOL_F32["map_stage_jac"], ()),
+            ("map_stage_jac_linalg", linalg_map_inputs, TOL_F32_LINALG, LINALG_TIE)):
+        sw, dims = sweeps[key]
+        failures += lane_sweep_check(dev, key, sw, inputs, dims, sweep_map_cuda.map_bytes,
+                                     sweep_map_cuda.map_ops_per_lane(sw.f, *dims), tol,
+                                     results, special)
+    for key, tol in (("rk4_quad_stage_hess_tanh", TOL_F32["rk4_quad_stage_hess"]),
+                     ("rk4_quad_stage_hess_linalg", TOL_F32_LINALG)):
+        sw, dims = sweeps[key]
+        failures += lane_sweep_check(
+            dev, key, sw, lambda dt, d: cf_inputs(dt, d, eprob.cfg.N), dims,
+            sweep_cf_cuda.cf_bytes, sw.ops_per_lane(*dims), tol, results)
+    for socp, key in ((cp_socp, "riccati_kkt_cartpole"), (dp_socp, "riccati_kkt_dipc")):
+        for dtype in (torch.float64, torch.float32):
+            failures += riccati_check(dev, dtype, socp.N, socp.nxa, socp.nu, results[key])
     return failures
 
 
@@ -1238,21 +1516,48 @@ def elem_sweep_inputs(dtype, device, socp, cfg=None, seed=13):
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], [0, 1, 2, 3, 4, 5]
 
 
-def cartpole_sweep_inputs(dtype, device, socp, cfg=None, seed=14):
-    """Kernel 5's cart-pole inputs: states over CARTPOLE_BOX, |F| <= 80
-    (scaled), multipliers of the size the solves meet, no parameters."""
+def upright_sweep_inputs(dtype, device, socp, cfg=None, seed=14, box=CARTPOLE_BOX,
+                         fmax=CARTPOLE_FMAX):
+    """Kernel 5's inputs of a pendulum OCP: states over ``box``, |F| <=
+    ``fmax`` (scaled), multipliers of the size the solves meet, no
+    parameters (the cart-pole's by default)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N, nx = socp.N, cfg.nx
+    lo, hi = box
+    arrs = [rng.uniform(lo, hi, (B, N, nx)) / socp.sxa,
+            rng.uniform(-fmax, fmax, (B, N, 1)) / socp.su,
+            rng.normal(size=(B, N, nx)), rng.normal(0.0, 0.1, (B, N, socp.ni)),
+            np.zeros((B, N, cfg.npx)), np.zeros((B, N, cfg.npy)), np.zeros((B, N, 0)),
+            np.zeros(B), rng.uniform(0.5, 1.0, B), np.zeros((B, nx)), np.zeros((B, 1)),
+            np.zeros((B, 0)), np.zeros((B, 1)), np.zeros((B, cfg.ny))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
+
+
+def dipc_sweep_inputs(dtype, device, socp, cfg=None):
+    """Kernel 5's pendulum inputs: states over DIPC_BOX, |F| <= 50."""
+    return upright_sweep_inputs(dtype, device, socp, cfg, seed=16, box=DIPC_BOX,
+                                fmax=DIPC_FMAX)
+
+
+def linalg_sweep_inputs(dtype, device, socp, cfg=None, seed=19):
+    """Kernel 5's linalg inputs (the linalg OCP at ELEM_N stages): x, u in
+    [-1, 1] (scaled), multipliers of the size the solves meet, small
+    parameters and targets; lane 0 on the pivot tie."""
     import torch
 
     rng = np.random.default_rng(seed)
     N = socp.N
-    lo, hi = CARTPOLE_BOX
-    arrs = [rng.uniform(lo, hi, (B, N, 4)) / socp.sxa,
-            rng.uniform(-CARTPOLE_FMAX, CARTPOLE_FMAX, (B, N, 1)) / socp.su,
-            rng.normal(size=(B, N, 4)), rng.normal(0.0, 0.1, (B, N, socp.ni)),
-            np.zeros((B, N, cfg.npx)), np.zeros((B, N, cfg.npy)), np.zeros((B, N, 0)),
-            np.zeros(B), rng.uniform(0.5, 1.0, B), np.zeros((B, 4)), np.zeros((B, 1)),
-            np.zeros((B, 0)), np.zeros((B, 1)), np.zeros((B, cfg.ny))]
-    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], []
+    X = rng.uniform(-1.0, 1.0, (B, N, 3))
+    X[0, :, :2] = (0.0, 0.6)
+    arrs = [X / socp.sxa, rng.uniform(-1.0, 1.0, (B, N, 2)) / socp.su,
+            rng.normal(size=(B, N, 3)), np.zeros((B, N, socp.ni)),
+            rng.normal(0.0, 0.1, (B, N, cfg.npx)), rng.normal(0.0, 0.1, (B, N, cfg.npy)),
+            np.zeros((B, N, 0)), rng.uniform(0.0, 1.0, B), rng.uniform(0.5, 1.0, B),
+            rng.normal(0.0, 0.3, (B, 3)), rng.normal(0.0, 0.3, (B, 2)), np.zeros((B, 0)),
+            rng.normal(0.0, 0.3, (B, 2)), rng.normal(0.0, 0.01, (B, cfg.ny * 2))]
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in arrs], list(LINALG_TIE)
 
 
 def mhe_sweep_inputs(dtype, device, socp, cfg=None, seed=15):
@@ -1301,11 +1606,14 @@ def mhe_sweep_inputs(dtype, device, socp, cfg=None, seed=15):
 # ContForm, the CSTR with DUForm, the LMPC loop's affine model with u_prev,
 # the bench port's linear CSTR, the CSTR's shared output slacks, the CSTR
 # with TermCons, H_eq and one G_ineq row, the collocated CSTR, the
-# cart-pole, Ex_ENMPC's MHE window in the batched MHE (maskable) and in the
-# host MHE, each at its path's shapes; and check builds on no path:
+# cart-pole, the double pendulum (a traced 3x3 solve in each ODE
+# evaluation), Ex_ENMPC's MHE window in the batched MHE (maskable) and in
+# the host MHE, each at its path's shapes; and check builds on no path:
 # the collocated CSTR at two Newton steps with a coolant term whose
-# u-curvature depends on the state (``colloc_newton2_ocp``) and the
-# elem OCP (every elementary function, on second-order numbers).  Each in
+# u-curvature depends on the state (``colloc_newton2_ocp``), the
+# elem OCP (every elementary function, on second-order numbers) and the
+# linalg OCP (the matrix ops in its ODE, the reductions and the last
+# elementary functions in its cost).  Each in
 # its exact build (results key ``<build>``) and, but EXACT_ONLY_BUILDS, its
 # Gauss-Newton build (``<build>_gn``).  build -> (problem key, inputs, the paths its exact
 # build serves, the paths its Gauss-Newton build serves); a path's
@@ -1327,19 +1635,22 @@ STAGE_BUILDS = {"stage_sweep": ("cstr_exact", stage_sweep_inputs, ("cstr_exact",
                 "stage_sweep_colloc": ("colloc", stage_sweep_inputs, (), ("colloc",)),
                 "stage_sweep_colloc_newton2": ("colloc_newton2", stage_sweep_inputs, (), ()),
                 "stage_sweep_elem": ("elem", elem_sweep_inputs, (), ()),
-                "stage_sweep_cartpole": ("cartpole", cartpole_sweep_inputs,
+                "stage_sweep_cartpole": ("cartpole", upright_sweep_inputs,
                                          ("cartpole_exact",), ()),
+                "stage_sweep_dipc": ("dipc", dipc_sweep_inputs, ("dipc_exact",), ()),
+                "stage_sweep_linalg": ("linalg", linalg_sweep_inputs, (), ()),
                 "stage_sweep_mhe": ("mhe", mhe_sweep_inputs,
                                     ("enmpc_loop_mhe", "enmpc_handoff_mhe", "dryrun_mhe"),
                                     ()),
                 "stage_sweep_host_mhe": ("host_mhe", mhe_sweep_inputs,
                                          ("host_loop", "host_loop_cli",
                                           "enmpc_handoff_warmup"), ())}
-# builds checked in their exact build alone: the elementary functions',
-# whose Gauss-Newton builds no path launches (the cart-pole's Gauss-Newton
-# run takes kernel 1), and the host MHE's (its Gauss-Newton build is the
+# builds checked in their exact build alone: the elementary functions'
+# and the linalg ops', whose Gauss-Newton builds no path launches (the
+# pendulums' Gauss-Newton runs take kernel 1), and the host MHE's (its Gauss-Newton build is the
 # batched window's but for the mask), while every build costs minutes of nvcc
-EXACT_ONLY_BUILDS = ("stage_sweep_elem", "stage_sweep_cartpole", "stage_sweep_host_mhe")
+EXACT_ONLY_BUILDS = ("stage_sweep_elem", "stage_sweep_cartpole", "stage_sweep_host_mhe",
+                     "stage_sweep_dipc", "stage_sweep_linalg")
 # the builds' lanes whose outputs are nan on both sides (elem: atan2 at the
 # origin, as JAX's)
 NONFINITE_LANES = {"stage_sweep_elem": ELEM_NAN_LANES}
@@ -1796,9 +2107,9 @@ def cpu_reference(path, dtype_name, carry=None, t0=0.0, k0=0):
             return options_check_solve(path.split(":")[1], cpu), flags
         if path == "debug":
             return debug_runs(cpu), flags
-        if path.startswith("cartpole:"):
+        if path.split(":")[0] in UPRIGHT:
             torch.set_num_threads(1)
-            return cartpole_check_solve(path.split(":")[1], cpu), flags
+            return upright_check_solve(*path.split(":"), cpu), flags
         if path.startswith("enmpc_handoff"):
             from mpc_code_tpu_torch.examples import enmpc_loop_workload as mw
             from mpc_code_tpu_torch.loop import ClosedLoop
@@ -3651,59 +3962,77 @@ def debug_phase(dev, cpu_refs):
     return failures, report
 
 
-# The cart-pole phase: CARTPOLE_B lanes from ``cartpole_x0`` in f32,
-# the upright setpoint, a cold start (x0 along the horizon, F = 0), one call
-# of the structured solver under each Hessian: Gauss-Newton (kernel 1 of
-# the cart-pole's ODE, the cost by torch.func, kernel 2 at (20, 4, 1)) and
-# exact (kernel 5's cart-pole build and kernel 2), each launching once a
-# pass; solves/s over the lanes that did not fail, ok_fraction,
-# iterations; then OPTIONS_CHECK lanes in f64 on the card against the
-# CPU's f64 run: statuses and iterations equal, X and U within
-# OPTIONS_F64_TOL.  The exact check solves to OPTIONS_CHECK_OPTS' tol 1e-8,
-# as solver_options' exact runs do (its lane 6's KKT solve fails on pass 1:
-# F17).  The Gauss-Newton check holds the iterate after
-# CARTPOLE_GN_CHECK_PASSES passes (tol 0: no lane stops early): this OCP's
-# Gauss-Newton iterations to a tolerance follow rounding, a relative change
-# of 1e-15 in x0 moving a lane's count on the CPU
-# (``tests/test_torch_cartpole.py``), while its iterate after 8 passes is
-# held to 7.7e-12 between the card and the CPU (PERF.md, the cart-pole).
+# The pendulum phases, ``cartpole`` and ``dipc`` (PR 18): the model's
+# batch of lanes (``UPRIGHT``) in f32, the upright setpoint, a cold start
+# (x0 along the horizon, F = 0), one call of the structured solver under
+# each Hessian: Gauss-Newton (kernel 1 of the model's ODE, the cost by
+# torch.func, kernel 2 at (N, nx, 1)) and exact (kernel 5's build of the
+# model and kernel 2), each launching once a pass; solves/s over the lanes
+# that did not fail, ok_fraction, iterations; then OPTIONS_CHECK lanes in
+# f64 on the card against the CPU's f64 run: statuses and iterations equal,
+# X and U within OPTIONS_F64_TOL.  The exact check solves to
+# OPTIONS_CHECK_OPTS' tol 1e-8, as solver_options' exact runs do (the
+# cart-pole's lane 6's KKT solve fails on pass 1: F17).  The Gauss-Newton
+# check holds the iterate after GN_CHECK_PASSES passes (tol 0: no lane
+# stops early): the cart-pole's Gauss-Newton iterations to a tolerance
+# follow rounding, a relative change of 1e-15 in x0 moving a lane's count
+# on the CPU (``tests/test_torch_cartpole.py``), while its iterate after 8
+# passes is held to 7.7e-12 between the card and the CPU (PERF.md, the
+# cart-pole).
 CARTPOLE_B = EXACT_B
-CARTPOLE_MAXIT = 30
-CARTPOLE_RUNS = ("gauss_newton", "exact")
-CARTPOLE_GN_CHECK_PASSES = 8
-CARTPOLE_CHECK_OPTS = {
-    "gauss_newton": dict(max_iter=CARTPOLE_GN_CHECK_PASSES, tol=0.0, constr_viol_tol=0.0),
-    "exact": OPTIONS_CHECK_OPTS}
+DIPC_B = EXACT_B
+UPRIGHT_MAXIT = 30
+UPRIGHT_RUNS = ("gauss_newton", "exact")
+GN_CHECK_PASSES = 8
 
 
-def cartpole_solve(cfg, socp, x0, opts):
-    """One cold solve of the cart-pole from ``x0`` (B, 4) under ``opts``."""
+class Upright(NamedTuple):
+    """A pendulum OCP of a phase: its config (``config(cfgm, F)``), its
+    initial states (``x0(batch)``) and lanes."""
+    config: Any
+    x0: Any
+    batch: int
+
+
+UPRIGHT = {"cartpole": Upright(cartpole_config, cartpole_x0, CARTPOLE_B),
+           "dipc": Upright(dipc_config, dipc_x0, DIPC_B)}
+
+
+def check_opts(hessian):
+    """The f64 check solves' options: Gauss-Newton after GN_CHECK_PASSES
+    passes, the exact Hessian to tol 1e-8."""
+    return (dict(max_iter=GN_CHECK_PASSES, tol=0.0, constr_viol_tol=0.0)
+            if hessian == "gauss_newton" else OPTIONS_CHECK_OPTS)
+
+
+def upright_solve(cfg, socp, x0, opts):
+    """One cold solve of a pendulum OCP from ``x0`` (B, nx) under ``opts``."""
     import torch
 
     from mpc_code_tpu_torch.solver.riccati import make_structured_solver
 
     X0 = x0[:, None].expand(-1, cfg.N + 1, -1).contiguous()
-    U0 = torch.zeros((len(x0), cfg.N, 1), dtype=x0.dtype, device=x0.device)
-    return make_structured_solver(socp, opts)(cartpole_params(cfg, x0, cfg.N), X0, U0)
+    U0 = torch.zeros((len(x0), cfg.N, cfg.nu), dtype=x0.dtype, device=x0.device)
+    return make_structured_solver(socp, opts)(upright_params(cfg, x0, cfg.N), X0, U0)
 
 
-def cartpole_check_solve(hessian, device):
-    """The check lanes in f64 under ``hessian``: status, iters, X, U."""
+def upright_check_solve(model, hessian, device):
+    """``model``'s check lanes in f64 under ``hessian``: status, iters, X, U."""
     import torch
 
     from mpc_code_tpu_torch import config as pconfig
     from mpc_code_tpu_torch.config import SolverOptions
 
-    cfg = cartpole_config(pconfig, torch_fns())
-    x0 = torch.as_tensor(cartpole_x0(CARTPOLE_B)[:OPTIONS_CHECK], dtype=torch.float64,
-                         device=device)
-    r = cartpole_solve(cfg, structured(cfg, device), x0,
-                       SolverOptions(hessian=hessian, **CARTPOLE_CHECK_OPTS[hessian]))
+    m = UPRIGHT[model]
+    cfg = m.config(pconfig, torch)
+    x0 = torch.as_tensor(m.x0(m.batch)[:OPTIONS_CHECK], dtype=torch.float64, device=device)
+    r = upright_solve(cfg, structured(cfg, device), x0,
+                      SolverOptions(hessian=hessian, **check_opts(hessian)))
     return dict(status=r.status.cpu().numpy(), iters=r.iters.cpu().numpy(),
                 X=r.X.cpu().numpy(), U=r.U.cpu().numpy())
 
 
-def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
+def upright_phase(model, dev, cfg, socp, launches, cpu_refs):
     import torch
 
     from mpc_code_tpu_torch.config import SolverOptions
@@ -3714,23 +4043,24 @@ def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
     mods = dict(rk4_stage_jac=sweep_cuda, riccati_kkt=rk, map_stage_jac=sweep_map_cuda,
                 rk4_quad_stage_hess=sweep_cf_cuda, stage_sweep=sk)
     failures, report = [], {}
-    x0 = torch.as_tensor(cartpole_x0(CARTPOLE_B), dtype=torch.float32, device=dev)
-    for hessian in CARTPOLE_RUNS:
-        opts = SolverOptions.for_f32(max_iter=CARTPOLE_MAXIT, hessian=hessian)
+    m = UPRIGHT[model]
+    x0 = torch.as_tensor(m.x0(m.batch), dtype=torch.float32, device=dev)
+    for hessian in UPRIGHT_RUNS:
+        opts = SolverOptions.for_f32(max_iter=UPRIGHT_MAXIT, hessian=hessian)
         # an untimed short run first: the card's first use of what it calls
-        cartpole_solve(cfg, socp, x0[:OPTIONS_WARMUP],
-                       SolverOptions.for_f32(max_iter=OPTIONS_WARMUP_ITERS, hessian=hessian))
+        upright_solve(cfg, socp, x0[:OPTIONS_WARMUP],
+                      SolverOptions.for_f32(max_iter=OPTIONS_WARMUP_ITERS, hessian=hessian))
         torch.cuda.synchronize()
-        for m in mods.values():
-            m.LAUNCHES = 0
+        for mod in mods.values():
+            mod.LAUNCHES = 0
         t0 = time.perf_counter()
-        r = cartpole_solve(cfg, socp, x0, opts)
+        r = upright_solve(cfg, socp, x0, opts)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: m.LAUNCHES for k, m in mods.items()}
+        got = {k: mod.LAUNCHES for k, mod in mods.items()}
         run = "gn" if hessian == "gauss_newton" else "exact"
         for k, n in got.items():
-            launches[f"{k}_cartpole_{run}"] = n
+            launches[f"{k}_{model}_{run}"] = n
         passes = solver_passes(r.iters, r.status)
         want = dict.fromkeys(mods, 0)
         want["rk4_stage_jac" if run == "gn" else "stage_sweep"] = passes
@@ -3738,13 +4068,13 @@ def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
         status, iters = r.status.cpu().numpy(), r.iters.cpu().numpy()
         n_ok = int((status != 2).sum())
         finite = bool(torch.isfinite(r.U).all())
-        gpu = cartpole_check_solve(hessian, dev)
-        cpu = cpu_refs[(f"cartpole:{hessian}", "float64")].result()[0]
+        gpu = upright_check_solve(model, hessian, dev)
+        cpu = cpu_refs[(f"{model}:{hessian}", "float64")].result()[0]
         same = bool((gpu["status"] == cpu["status"]).all()
                     and (gpu["iters"] == cpu["iters"]).all())
         ex = max(nerr(torch.as_tensor(gpu[k]), torch.as_tensor(cpu[k])) for k in ("X", "U"))
         report[run] = rr = dict(
-            batch=CARTPOLE_B, hessian=hessian, ok=n_ok, ok_fraction=n_ok / CARTPOLE_B,
+            batch=m.batch, hessian=hessian, ok=n_ok, ok_fraction=n_ok / m.batch,
             solves_per_s=n_ok / secs, seconds=round(secs, 6),
             status_counts=np.bincount(status, minlength=3).tolist(),
             median_iters=float(np.median(iters)), max_iters=int(iters.max()), passes=passes,
@@ -3752,11 +4082,11 @@ def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
             check_status=gpu["status"].tolist(), check_iters=gpu["iters"].tolist(),
             cpu_status=cpu["status"].tolist(), cpu_iters=cpu["iters"].tolist(),
             max_norm_err_vs_cpu=ex)
-        log(f"# cartpole {run} " + json.dumps(rr))
+        log(f"# {model} {run} " + json.dumps(rr))
         if got != want:
-            failures.append(f"cartpole {run}: launches {got}, expected {want}")
+            failures.append(f"{model} {run}: launches {got}, expected {want}")
         if not (same and ex <= OPTIONS_F64_TOL and finite):
-            failures.append(f"cartpole {run}: finite {finite}, f64 check lanes equal to the "
+            failures.append(f"{model} {run}: finite {finite}, f64 check lanes equal to the "
                             f"CPU's {same}, X/U {ex:.3e}")
     return failures, report
 
@@ -3764,8 +4094,8 @@ def cartpole_phase(dev, cfg, socp, launches, cpu_refs):
 PHASES = ("kernel", "enmpc kernel", "nmpc_dis kernel", "lmpc kernel",
           "enmpc_mhe kernel", "elementary kernel", "stage_sweep kernel", "slice", "enmpc",
           "nmpc_dis", "cstr_exact", "cstr_loop", "lmpc_loop", "clb", "mesh", "constrained",
-          "solver_options", "debug", "cartpole", "host_loop", "enmpc_loop", "enmpc_handoff",
-          "aot")
+          "solver_options", "debug", "cartpole", "dipc", "host_loop", "enmpc_loop",
+          "enmpc_handoff", "aot")
 
 
 # The phases after ALONE (the kernel phases and the CSTR slice) run in three
@@ -3931,8 +4261,7 @@ def main() -> int:
             *(key for build in STAGE_BUILDS for _, key in build_hessians(build)),
             "riccati_kkt_cstr_exact", "riccati_kkt_lmpc", "riccati_kkt_clb",
             "riccati_kkt_enmpc_mhe", "riccati_kkt_host_mhe", "riccati_kkt_soft",
-            "rk4_stage_jac_elem", "rk4_stage_jac_cartpole", "map_stage_jac_tanh",
-            "rk4_quad_stage_hess_tanh", "riccati_kkt_cartpole")
+            *ELEMENTARY_BUILDS, "riccati_kkt_cartpole", "riccati_kkt_dipc")
     results = {k: {} for k in keys}
     launches = dict.fromkeys(keys + ("rk4_stage_jac_cstr_loop", "riccati_kkt_cstr_loop",
                                      "riccati_kkt_lmpc_loop", "riccati_kkt_enmpc_loop",
@@ -3941,8 +4270,10 @@ def main() -> int:
                                      "riccati_kkt_host_loop", "riccati_kkt_colloc",
                                      "riccati_kkt_tc_heq", "rk4_stage_jac_colloc",
                                      "rk4_stage_jac_soft", "rk4_stage_jac_tc_heq",
-                                     "rk4_stage_jac_cartpole_gn", "riccati_kkt_cartpole_gn",
-                                     "riccati_kkt_cartpole_exact"), 0)
+                                     *(f"{k}_{m}_{run}" for m in UPRIGHT
+                                       for k, run in (("rk4_stage_jac", "gn"),
+                                                      ("riccati_kkt", "gn"),
+                                                      ("riccati_kkt", "exact")))), 0)
     try:
         problem = make_problem(dev)
         cfg, model, socp, _ = problem
@@ -3964,7 +4295,10 @@ def main() -> int:
         elem_cfg = elem_config(pconfig, torch_fns(), N=ELEM_N, Mx=ELEM_K5_MX)
         cp_cfg = cartpole_config(pconfig, torch_fns())
         cp_socp = structured(cp_cfg, dev)
-        esweeps = elementary_sweeps(eprob, cp_socp)
+        dp_cfg = dipc_config(pconfig, torch)
+        dp_socp = structured(dp_cfg, dev)
+        linalg_cfg = linalg_config(pconfig, torch_fns(), N=ELEM_N, Mx=ELEM_K5_MX)
+        esweeps = elementary_sweeps(eprob, cp_socp, dp_socp)
         # kernel 5's builds' OCPs (STAGE_BUILDS): each path's own
         xprobs = {"cstr_exact": (cfg, xsocp), "nmpc_dis": (dc, dprob.socp),
                   "enmpc": (ec, eprob.socp), "cstr_du": (duprob[0], duprob[2]),
@@ -3972,6 +4306,7 @@ def main() -> int:
                   "rows": (rprob[0], rprob[2]), "colloc": (cprob[0], cprob[2]),
                   "colloc_newton2": colloc_newton2_ocp(cprob[0], dev),
                   "elem": (elem_cfg, structured(elem_cfg, dev)), "cartpole": (cp_cfg, cp_socp),
+                  "dipc": (dp_cfg, dp_socp), "linalg": (linalg_cfg, structured(linalg_cfg, dev)),
                   "mhe": (mcfg, msocp), "host_mhe": (mcfg, mw.mhe_ocp(mcfg, dev, maskable=False))}
         sweep = socp.sweep
         # kernel 5's builds, exact and Gauss-Newton, and their dimensions
@@ -3982,7 +4317,7 @@ def main() -> int:
                 k5[key] = sk.make_stage_sweep(ksocp, hessian)
                 k5_build[key] = k5_dims(k5[key], kcfg, ksocp)
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(10 + len(esweeps) + len(k5)) as ex:
+        with cf.ThreadPoolExecutor(11 + len(esweeps) + len(k5)) as ex:
             jobs = {
                 "rk4_stage_jac": ex.submit(sweep.build, cfg.nx, cfg.nu, cfg.nd, cfg.npx),
                 "riccati_kkt": ex.submit(rk.build_kernel, socp.nxa, socp.nu),
@@ -3998,11 +4333,18 @@ def main() -> int:
                 "riccati_kkt_enmpc_mhe": ex.submit(rk.build_kernel, msocp.nxa, msocp.nu),
                 "riccati_kkt_soft": ex.submit(rk.build_kernel, ssocp.nxa, ssocp.nu),
                 "riccati_kkt_cartpole": ex.submit(rk.build_kernel, cp_socp.nxa, cp_socp.nu),
+                "riccati_kkt_dipc": ex.submit(rk.build_kernel, dp_socp.nxa, dp_socp.nu),
                 **{name: ex.submit(sw.build, *dims) for name, (sw, dims) in esweeps.items()},
                 **{name: ex.submit(sw.build, *k5_build[name]) for name, sw in k5.items()}}
+            done_at = {}
+            for name, j in jobs.items():
+                j.add_done_callback(
+                    lambda _, n=name: done_at.__setitem__(n, time.perf_counter() - t0))
             built = {name: j.result() for name, j in jobs.items()}
         if part is None:
-            log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+            last = sorted(done_at.items(), key=lambda kv: -kv[1])[:6]
+            log(f"# build: {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s; "
+                "the last done: " + ", ".join(f"{n} {s:.1f} s" for n, s in last))
         for name, b in built.items():
             for dtype, line in ptxas_lines(b.log):
                 if part is None:
@@ -4042,9 +4384,9 @@ def main() -> int:
             for name in dict(OPTION_RUNS, **EXACT_RUNS) if name != "default"})
     if "debug" in selected:
         cpu_refs[("debug", "float64")] = pool.submit(cpu_reference, "debug", "float64")
-    if "cartpole" in selected:
-        cpu_refs.update({(f"cartpole:{h}", "float64"): pool.submit(
-            cpu_reference, f"cartpole:{h}", "float64") for h in CARTPOLE_RUNS})
+    cpu_refs.update({(f"{m}:{h}", "float64"): pool.submit(
+        cpu_reference, f"{m}:{h}", "float64") for m in UPRIGHT if m in selected
+        for h in UPRIGHT_RUNS})
     # the one-lane host runs and the loops' check lanes on the card in
     # processes of their own (card_job)
     card_pool = cf.ProcessPoolExecutor(CARD_WORKERS, mp_context=mp.get_context("spawn"))
@@ -4080,7 +4422,7 @@ def main() -> int:
               ("lmpc kernel", lambda: lmpc_kernel_phase(dev, lsocp, csocp, results)),
               ("enmpc_mhe kernel", lambda: enmpc_mhe_kernel_phase(dev, msocp, results)),
               ("elementary kernel", lambda: elementary_kernel_phase(
-                  dev, esweeps, eprob, cp_socp, results)),
+                  dev, esweeps, eprob, cp_socp, dp_socp, results)),
               ("stage_sweep kernel", lambda: stage_sweep_kernel_phase(dev, xprobs, results)),
               ("slice", lambda: slice_phase(dev, problem, launches, cpu_refs)),
               ("enmpc", lambda: controller_phase(dev, enmpc, launches, cpu_refs)),
@@ -4094,7 +4436,9 @@ def main() -> int:
               ("constrained", lambda: constrained_phase(dev, launches, results, cpu_refs)),
               ("solver_options", lambda: options_phase(dev, launches, cpu_refs)),
               ("debug", lambda: debug_phase(dev, cpu_refs)),
-              ("cartpole", lambda: cartpole_phase(dev, cp_cfg, cp_socp, launches, cpu_refs)),
+              ("cartpole", lambda: upright_phase("cartpole", dev, cp_cfg, cp_socp, launches,
+                                                  cpu_refs)),
+              ("dipc", lambda: upright_phase("dipc", dev, dp_cfg, dp_socp, launches, cpu_refs)),
               # host_loop before enmpc_loop: enmpc_loop's CPU reference (64
               # lanes) and the hand-off's warmup reference finish beside it
               # instead of being waited for (119 s and 39 s on the H100
@@ -4246,27 +4590,28 @@ def main() -> int:
                     f"riccati_kkt_options_{p}", 0)
             k["at_soft_shapes"] = entry(name, results["riccati_kkt_soft"],
                                         launches["riccati_kkt_soft"])
-            for run in ("gn", "exact"):
-                k["launches_by_path"][f"cartpole_{run}"] = launches[
-                    f"riccati_kkt_cartpole_{run}"]
-            k["at_cartpole_shapes"] = entry(name, results["riccati_kkt_cartpole"],
-                                            launches["riccati_kkt_cartpole_gn"]
-                                            + launches["riccati_kkt_cartpole_exact"])
-        # the builds of the elementary functions' models, each
-        # checked against its plain version: kernel 1's elem (no path) and
-        # cart-pole (the cartpole phase's Gauss-Newton run), kernel 3's tanh
-        # map and kernel 4's tanh quadrature (no path), kernel 2 at the
-        # cart-pole's (20, 4, 1)
+            # the pendulums: the cart-pole at (20, 4, 1), the double
+            # pendulum at (40, 6, 1)
+            for m in UPRIGHT:
+                for run in ("gn", "exact"):
+                    k["launches_by_path"][f"{m}_{run}"] = launches[f"riccati_kkt_{m}_{run}"]
+                k[f"at_{m}_shapes"] = entry(name, results[f"riccati_kkt_{m}"],
+                                            launches[f"riccati_kkt_{m}_gn"]
+                                            + launches[f"riccati_kkt_{m}_exact"])
+        # the builds of the elementary functions' and the linalg ops' models,
+        # each checked against its plain version: kernel 1's elem and linalg
+        # (no path), cart-pole and double pendulum (their phases'
+        # Gauss-Newton runs), kernel 3's tanh and linalg maps and kernel 4's
+        # tanh and linalg quadratures (no path)
         builds = {b.removeprefix(name + "_"): entry(b, results[b], launches.get(
-            f"{name}_cartpole_gn", 0) if b == "rk4_stage_jac_cartpole" else 0)
-            for b in ("rk4_stage_jac_elem", "rk4_stage_jac_cartpole", "map_stage_jac_tanh",
-                      "rk4_quad_stage_hess_tanh") if b.startswith(name + "_")}
+            f"{b}_gn", 0)) for b in ELEMENTARY_BUILDS if b.startswith(name + "_")}
         if builds or name == "stage_sweep":
             k["builds"] = builds
         if name == "rk4_stage_jac":
             # kernel 1 on the closed loop's OCP solves too
             k["launches_by_path"] = {"cstr": launches["rk4_stage_jac"],
                                      "cartpole_gn": launches["rk4_stage_jac_cartpole_gn"],
+                                     "dipc_gn": launches["rk4_stage_jac_dipc_gn"],
                                      "cstr_loop": launches["rk4_stage_jac_cstr_loop"],
                                      **{f"constrained_{p}": launches[f"rk4_stage_jac_{p}"]
                                         for p in ("colloc", "soft", "tc_heq")},

@@ -3,7 +3,8 @@
 //
 // Every elementary function takes JAX's derivative, also where torch's
 // differs: atan2 is nan at the origin, pow's derivative in its exponent is 0
-// at a zero base, sign's is 0 (mpc_code_tpu_torch/ops/jax_rules.py).
+// at a zero base, sign's, floor's and round's are 0, fmod's in its divisor
+// is -trunc(a / b) (mpc_code_tpu_torch/ops/jax_rules.py).
 //
 // A Dual<T, NZ> carries a value and NZ tangents.  Instantiating a generated
 // model function with Dual arguments propagates NZ forward directions in
@@ -228,7 +229,47 @@ MPC_LIBM(mpc_cosh, coshf, cosh)
 MPC_LIBM(mpc_log1p, log1pf, log1p)
 MPC_LIBM(mpc_expm1, expm1f, expm1)
 MPC_LIBM(mpc_erf, erff, erf)
+MPC_LIBM(mpc_asinh, asinhf, asinh)
+MPC_LIBM(mpc_acosh, acoshf, acosh)
+MPC_LIBM(mpc_atanh, atanhf, atanh)
+MPC_LIBM(mpc_log2, log2f, log2)
+MPC_LIBM(mpc_log10, log10f, log10)
+MPC_LIBM(mpc_exp2, exp2f, exp2)
+MPC_LIBM(mpc_erfc, erfcf, erfc)
+MPC_LIBM(mpc_floor, floorf, floor)
+MPC_LIBM(mpc_round, rintf, rint)     // half to even, as jnp.round and torch.round
+MPC_LIBM(mpc_trunc, truncf, trunc)
+#ifdef __CUDACC__
+MPC_LIBM(mpc_erfinv, erfinvf, erfinv)
+#else
+// The host (a g++ build of these headers) has no erfinv in <cmath>: Giles'
+// single-precision approximation ("Approximating the erfinv function", GPU
+// Computing Gems, 2010), then Newton's steps on erf in double precision.
+inline double mpc_erfinv(double y) {
+  if (!(y > -1.0 && y < 1.0)) return y == 1.0 ? INFINITY : (y == -1.0 ? -INFINITY : NAN);
+  double w = -std::log((1.0 - y) * (1.0 + y)), p;
+  if (w < 5.0) {
+    w -= 2.5;
+    p = 2.81022636e-08;
+    p = 3.43273939e-07 + p * w; p = -3.5233877e-06 + p * w; p = -4.39150654e-06 + p * w;
+    p = 0.00021858087 + p * w; p = -0.00125372503 + p * w; p = -0.00417768164 + p * w;
+    p = 0.246640727 + p * w; p = 1.50140941 + p * w;
+  } else {
+    w = std::sqrt(w) - 3.0;
+    p = -0.000200214257;
+    p = 0.000100950558 + p * w; p = 0.00134934322 + p * w; p = -0.00367342844 + p * w;
+    p = 0.00573950773 + p * w; p = -0.0076224613 + p * w; p = 0.00943887047 + p * w;
+    p = 1.00167406 + p * w; p = 2.83297682 + p * w;
+  }
+  double x = p * y;
+  for (int i = 0; i < 3; ++i) x -= (std::erf(x) - y) / (1.1283791670955126 * std::exp(-x * x));
+  return x;
+}
+inline float mpc_erfinv(float y) { return float(mpc_erfinv(double(y))); }
+#endif
 #undef MPC_LIBM
+__device__ __forceinline__ float mpc_fmod(float a, float b) { return fmodf(a, b); }
+__device__ __forceinline__ double mpc_fmod(double a, double b) { return fmod(a, b); }
 // 1 / sqrt(a): an IEEE square root and division (as XLA's rsqrt on the CPU)
 __device__ __forceinline__ float mpc_rsqrt(float a) { return 1.0f / sqrtf(a); }
 __device__ __forceinline__ double mpc_rsqrt(double a) { return 1.0 / sqrt(a); }
@@ -293,9 +334,77 @@ MPC_D1 mpc_rsqrt(const Dual<T, NZ>& a) {
 MPC_D1 mpc_erf(const Dual<T, NZ>& a) {       // 2 / sqrt(pi) exp(-a^2)
   return mpc_chain(a, mpc_erf(a.v), T(1.1283791670955126) * mpc_exp(-(a.v * a.v)));
 }
-// sign's derivative is 0: its value carries no tangents
+// asinh: f' = (a^2 + 1)^-1/2; acosh: f' = (a^2 - 1)^-1/2 (JAX's a^2 - 1);
+// atanh: f' = 1 / (1 + a) / (1 - a)
+MPC_D1 mpc_asinh(const Dual<T, NZ>& a) {
+  return mpc_chain(a, mpc_asinh(a.v), mpc_rsqrt(a.v * a.v + T(1)));
+}
+MPC_D1 mpc_acosh(const Dual<T, NZ>& a) {
+  return mpc_chain(a, mpc_acosh(a.v), mpc_rsqrt(a.v * a.v - T(1)));
+}
+MPC_D1 mpc_atanh(const Dual<T, NZ>& a) {
+  return mpc_chain(a, mpc_atanh(a.v), (T(1) / (T(1) + a.v)) * (T(1) / (T(1) - a.v)));
+}
+// log2 and log10 as JAX's log(a) / log(2) and log(a) * (1 / log(10)): f' =
+// c / a; exp2: f' = log(2) f
+MPC_D1 mpc_log2(const Dual<T, NZ>& a) {
+  return mpc_chain(a, mpc_log2(a.v), T(1.4426950408889634) * (T(1) / a.v));
+}
+MPC_D1 mpc_log10(const Dual<T, NZ>& a) {
+  return mpc_chain(a, mpc_log10(a.v), T(0.4342944819032518) * (T(1) / a.v));
+}
+MPC_D1 mpc_exp2(const Dual<T, NZ>& a) {
+  const T e = mpc_exp2(a.v);
+  return mpc_chain(a, e, T(0.6931471805599453) * e);
+}
+MPC_D1 mpc_erfc(const Dual<T, NZ>& a) {      // -2 / sqrt(pi) exp(-a^2)
+  return mpc_chain(a, mpc_erfc(a.v), T(-1.1283791670955126) * mpc_exp(-(a.v * a.v)));
+}
+MPC_D1 mpc_erfinv(const Dual<T, NZ>& a) {    // sqrt(pi) / 2 exp(f^2)
+  const T f = mpc_erfinv(a.v);
+  return mpc_chain(a, f, T(0.88622692545275801) * mpc_exp(f * f));
+}
+// sign's, floor's and round's derivatives are 0: their values carry no
+// tangents
 template <class T, int NZ>
 __device__ __forceinline__ T mpc_sign(const Dual<T, NZ>& a) { return mpc_sign(a.v); }
+template <class T, int NZ>
+__device__ __forceinline__ T mpc_floor(const Dual<T, NZ>& a) { return mpc_floor(a.v); }
+template <class T, int NZ>
+__device__ __forceinline__ T mpc_round(const Dual<T, NZ>& a) { return mpc_round(a.v); }
+template <class T, int NZ>
+__device__ __forceinline__ T mpc_trunc(const Dual<T, NZ>& a) { return mpc_trunc(a.v); }
+
+// fmod(a, b), C's (JAX's rem): f_a = 1, f_b = -trunc(a / b), a piecewise
+// constant factor
+MPC_D1 mpc_fmod(const Dual<T, NZ>& a, const Dual<T, NZ>& b) {
+  const T q = mpc_trunc(a.v / b.v);
+  Dual<T, NZ> r; r.v = mpc_fmod(a.v, b.v);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.d[i] = a.d[i] - q * b.d[i];
+  return r;
+}
+MPC_D1 mpc_fmod(const Dual<T, NZ>& a, T b) {
+  Dual<T, NZ> r = a; r.v = mpc_fmod(a.v, b);
+  return r;
+}
+MPC_D1 mpc_fmod(T a, const Dual<T, NZ>& b) {
+  return mpc_chain(b, mpc_fmod(a, b.v), -T(mpc_trunc(a / b.v)));
+}
+
+// a number with v's value and a's tangents: the max/min reductions take
+// their value on the values and their tangents from a linear rule.  On
+// numbers whose components are themselves Dual, v's value keeps a's inner
+// tangents, so that the split of a tie holds at every order.
+template <class T> __device__ __forceinline__ T mpc_setv(T a, T v) { return v; }
+MPC_D1 mpc_setv(Dual<T, NZ> a, T v) { a.v = mpc_setv(a.v, v); return a; }
+MPC_D1 mpc_setv(Dual<T, NZ> a, Dual<T, NZ> v) { a.v = mpc_setv(a.v, v.v); return a; }
+// |a| of the value alone: the LU's pivot search
+template <class V> __device__ __forceinline__ auto mpc_absv(const V& a) {
+  using R = decltype(mpc_val(a));
+  const R v = mpc_val(a);
+  return v < R(0) ? R(-v) : v;
+}
 
 // atan2(y, x): f_y = x w, f_x = -y w with w = 1 / (x^2 + y^2), nan at the
 // origin, as JAX's

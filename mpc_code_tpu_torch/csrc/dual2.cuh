@@ -258,7 +258,67 @@ MPC_D2 __device__ __forceinline__ MPC_V2 mpc_erf(const MPC_V2& a) {
   const T g = T(1.1283791670955126) * mpc_exp(-(a.v * a.v));
   return mpc_chain2(a, mpc_erf(a.v), g, T(-2) * a.v * g);
 }
+// asinh, acosh: f'' = -a f'^3; atanh: f'' = 2 a f'^2
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_asinh(const MPC_V2& a) {
+  const T g = mpc_rsqrt(a.v * a.v + T(1));
+  return mpc_chain2(a, mpc_asinh(a.v), g, -a.v * (g * g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_acosh(const MPC_V2& a) {
+  const T g = mpc_rsqrt(a.v * a.v - T(1));
+  return mpc_chain2(a, mpc_acosh(a.v), g, -a.v * (g * g * g));
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_atanh(const MPC_V2& a) {
+  const T g = (T(1) / (T(1) + a.v)) * (T(1) / (T(1) - a.v));
+  return mpc_chain2(a, mpc_atanh(a.v), g, T(2) * a.v * (g * g));
+}
+// log2, log10: f' = c / a, f'' = -f' / a; exp2: f' = log(2) f, f'' = log(2) f'
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_log2(const MPC_V2& a) {
+  const T w = T(1) / a.v, g = T(1.4426950408889634) * w;
+  return mpc_chain2(a, mpc_log2(a.v), g, -g * w);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_log10(const MPC_V2& a) {
+  const T w = T(1) / a.v, g = T(0.4342944819032518) * w;
+  return mpc_chain2(a, mpc_log10(a.v), g, -g * w);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_exp2(const MPC_V2& a) {
+  const T e = mpc_exp2(a.v), g = T(0.6931471805599453) * e;
+  return mpc_chain2(a, e, g, T(0.6931471805599453) * g);
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_erfc(const MPC_V2& a) {
+  const T g = T(-1.1283791670955126) * mpc_exp(-(a.v * a.v));
+  return mpc_chain2(a, mpc_erfc(a.v), g, T(-2) * a.v * g);
+}
+// erfinv: f' = sqrt(pi) / 2 exp(f^2), f'' = 2 f f'^2
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_erfinv(const MPC_V2& a) {
+  const T f = mpc_erfinv(a.v);
+  const T g = T(0.88622692545275801) * mpc_exp(f * f);
+  return mpc_chain2(a, f, g, T(2) * f * (g * g));
+}
 MPC_D2 __device__ __forceinline__ T mpc_sign(const MPC_V2& a) { return mpc_sign(a.v); }
+MPC_D2 __device__ __forceinline__ T mpc_floor(const MPC_V2& a) { return mpc_floor(a.v); }
+MPC_D2 __device__ __forceinline__ T mpc_round(const MPC_V2& a) { return mpc_round(a.v); }
+MPC_D2 __device__ __forceinline__ T mpc_trunc(const MPC_V2& a) { return mpc_trunc(a.v); }
+
+// fmod(a, b): f_a = 1, f_b = -trunc(a / b), piecewise constant, so the
+// second derivatives are a'' - q b''
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_fmod(const MPC_V2& a, const MPC_V2& b) {
+  const T q = mpc_trunc(a.v / b.v);
+  MPC_V2 r; r.v = mpc_fmod(a.v, b.v);
+  mpc_lin2(r, T(1), a, -q, b);
+  return r;
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_fmod(const MPC_V2& a, T b) {
+  MPC_V2 r = a; r.v = mpc_fmod(a.v, b);
+  return r;
+}
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_fmod(T a, const MPC_V2& b) {
+  return mpc_chain2(b, mpc_fmod(a, b.v), -T(mpc_trunc(a / b.v)), T(0));
+}
+// the value v with a's tangents (dual.cuh)
+MPC_D2 __device__ __forceinline__ MPC_V2 mpc_setv(MPC_V2 a, T v) {
+  a.v = mpc_setv(a.v, v);
+  return a;
+}
 
 // ----- functions of two numbers that both carry tangents ----------------
 // c = f(a, b) with f0, the partials fa, fb and the second partials faa,

@@ -36,6 +36,14 @@ from typing import NamedTuple
 import torch
 
 
+def per_lane(f):
+    """``f``, a user function of one lane's vectors, on lanes-minor planes
+    (each argument's lanes on its last axis): vmapped over the lanes, so
+    that the function's ops see the shapes it was written for (a traced
+    matrix, its solve); the result a plane (dim, L)."""
+    return torch.func.vmap(f, in_dims=-1, out_dims=-1)
+
+
 class Planes(NamedTuple):
     ins: list            # the input planes, in the launcher's order
     Bsz: int

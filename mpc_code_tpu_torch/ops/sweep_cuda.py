@@ -38,7 +38,7 @@ import torch
 from mpc_code_tpu_torch.ops.codegen import Arg, Program, lit
 from mpc_code_tpu_torch.ops.integrators import saturate
 from mpc_code_tpu_torch.ops.jax_rules import with_jax_rules
-from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
+from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep, per_lane
 
 LAUNCHES = 0
 
@@ -121,7 +121,9 @@ def sweep_bytes(Bsz: int, N: int, nx: int, nu: int, nd: int, npx: int,
 def rk4_stage_jac_plain(f, Mx, clip_lo, clip_hi, xs, us, pxs, t, h, d):
     """Lanes-minor RK4 rollout with nx+nu forward tangents (``torch.func.jvp``
     of one sub-step per direction, vmapped over the directions) — the
-    arithmetic of ``integrators.rk4_stage_jac``'s batched JAX rule."""
+    arithmetic of ``integrators.rk4_stage_jac``'s batched JAX rule, with the
+    ODE run on one lane's vectors, vmapped over the lanes (``per_lane``), so
+    that a model written with matrices and solves runs as written."""
     Bsz, N, nx = xs.shape
     nu = us.shape[-1]
     L = Bsz * N
@@ -133,8 +135,10 @@ def rk4_stage_jac_plain(f, Mx, clip_lo, clip_hi, xs, us, pxs, t, h, d):
     tv = t.repeat_interleave(N)
     dt = h.repeat_interleave(N) / Mx
 
+    f_lanes = per_lane(f)
+
     def fc(xx, tt, uu):
-        return f(saturate(xx, clip_lo, clip_hi), tt, uu, dT, pxT)
+        return f_lanes(saturate(xx, clip_lo, clip_hi), tt, uu, dT, pxT)
 
     def sub(xx, uu, tt):
         k1 = fc(xx, tt, uu)

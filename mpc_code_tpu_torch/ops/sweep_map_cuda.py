@@ -37,7 +37,7 @@ import torch
 
 from mpc_code_tpu_torch.ops.codegen import Arg, Program
 from mpc_code_tpu_torch.ops.jax_rules import with_jax_rules
-from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep
+from mpc_code_tpu_torch.ops.lane_sweep import LaneSweep, per_lane
 
 LAUNCHES = 0
 
@@ -96,7 +96,9 @@ def map_bytes(Bsz: int, N: int, nx: int, nu: int, nd: int, npx: int,
 def map_stage_jac_plain(f, xs, us, pxs, t, d):
     """One evaluation of the map on lanes-minor (dim, L) planes with nx+nu
     forward tangents (``torch.func.jvp``, vmapped over the directions) —
-    the arithmetic of ``integrators.map_stage_jac``'s batched JAX rule."""
+    the arithmetic of ``integrators.map_stage_jac``'s batched JAX rule, with
+    the map run on one lane's vectors, vmapped over the lanes
+    (``per_lane``)."""
     Bsz, N, nx = xs.shape
     nu = us.shape[-1]
     L = Bsz * N
@@ -111,8 +113,10 @@ def map_stage_jac_plain(f, xs, us, pxs, t, d):
     TX = eye[:, :nx, None].expand(nz, nx, L)
     TU = eye[:, nx:, None].expand(nz, nu, L)
 
+    f_lanes = per_lane(f)
+
     def lin(a, b):
-        return torch.func.jvp(lambda xx, uu: f(xx, uu, dT, tv, pxT), (xT, uT), (a, b))
+        return torch.func.jvp(lambda xx, uu: f_lanes(xx, uu, dT, tv, pxT), (xT, uT), (a, b))
 
     prim, J = torch.func.vmap(lin)(TX, TU)
     xf = prim[0].t().reshape(Bsz, N, nx)

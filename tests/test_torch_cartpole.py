@@ -62,7 +62,7 @@ def problems():
                               build_terminal_cost(jcfg))
     ps = pbso(pcfg, pbm(pcfg), pbs(pcfg.stage_cost), pbt(pcfg), device="cpu")
     x0 = cs.cartpole_x0(LANES)
-    par = cs.cartpole_params(pcfg, x0, N)
+    par = cs.upright_params(pcfg, x0, N)
     X0 = np.repeat(x0[:, None], N + 1, 1)
     return js, ps, par, X0, np.zeros((LANES, N, 1))
 
@@ -118,7 +118,7 @@ def test_unsolvable_lanes_take_no_direction():
     ps = cs.structured(cfg, torch.device("cpu"))
     x0 = torch.as_tensor(cs.cartpole_x0(cs.CARTPOLE_B)[:8])
     opts = SolverOptions(hessian="exact", max_iter=8, tol=0.0, constr_viol_tol=0.0)
-    ref = cs.cartpole_solve(cfg, ps, x0, opts)
+    ref = cs.upright_solve(cfg, ps, x0, opts)
     real, failed = riccati.riccati_kkt, []
 
     def finite(*a, **k):
@@ -130,7 +130,7 @@ def test_unsolvable_lanes_take_no_direction():
     mp = pytest.MonkeyPatch()
     mp.setattr(riccati, "riccati_kkt", finite)
     try:
-        got = cs.cartpole_solve(cfg, ps, x0, opts)
+        got = cs.upright_solve(cfg, ps, x0, opts)
     finally:
         mp.undo()
     assert sum(failed) > 0

@@ -242,16 +242,17 @@ def test_constants_fold_in_double_precision():
     assert "mpc_" not in prog.body.replace("mpc_val", "")
 
 
-@pytest.mark.parametrize("op", ("erfinv", "fmod", "kwarg"))
+@pytest.mark.parametrize("op", ("lgamma", "traced_index", "kwarg"))
 def test_still_refused(op):
-    """Ops outside the generator's list, and keyword arguments but clamp's,
-    raise NotImplementedError naming them."""
+    """Ops outside the generator's list (lgamma: no digamma in CUDA's libm
+    for its derivative), indices that depend on traced values and keyword
+    arguments an op does not take raise NotImplementedError naming them."""
     from mpc_code_tpu_torch.ops.codegen import Arg, Program
 
-    fns = {"erfinv": lambda z: torch.erfinv(z[0]),
-           "fmod": lambda z: torch.fmod(z[0], 0.3),
-           "kwarg": lambda z: torch.sum(z, dim=0)}
-    with pytest.raises(NotImplementedError, match="erfinv|fmod|keyword"):
+    fns = {"lgamma": lambda z: torch.lgamma(z[0]),
+           "traced_index": lambda z: z[z > 0.0].sum(),
+           "kwarg": lambda z: torch.sum(z, dtype=torch.float64)}
+    with pytest.raises(NotImplementedError, match="lgamma|index|keyword"):
         Program(fns[op], (Arg("z", "dual", 2),), 2, out_dim=None)
 
 

@@ -376,7 +376,7 @@ def test_codegen_sum_reshape_atleast_1d():
     """``.sum()`` of a vector (left to right), ``reshape(-1)`` of a vector
     and ``torch.atleast_1d`` of a scalar, as user rows and the slack
     penalty write them: the statements against the function, derivatives
-    included; other shapes raise."""
+    included; values of more than 2 dims and ``keepdim=True`` raise."""
     from mpc_code_tpu_torch.ops.codegen import Arg, Program
 
     W = torch.tensor([[2.0, 0.5], [0.5, 3.0]], dtype=torch.float64)
@@ -396,7 +396,7 @@ def test_codegen_sum_reshape_atleast_1d():
         return f(zz[:2], zz[2:])
 
     _close(lowered, direct, z)
-    for bad in (lambda x, u: x.reshape(2, 1)[0], lambda x, u: torch.sum(x, 0)):
+    for bad in (lambda x, u: x.reshape(1, 1, 2)[0, 0], lambda x, u: torch.sum(x, 0, keepdim=True)):
         with pytest.raises(NotImplementedError):
             Program(bad, (Arg("x", "dual", 2), Arg("u", "dual", 2)), 4, out_dim=1)
 
